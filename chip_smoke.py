@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Drive the tomojax_torch main path once on one CUDA card and check it.
+
+    python3 chip_smoke.py            (from the root of the repository)
+
+Phases, each of which ends the run with a non-zero exit when it fails:
+
+1. device: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions; TF32 off for matmul and cuDNN;
+2. build: the kernels from tomojax_torch/csrc/ into build/tomojax_torch/,
+   cached by a hash of the sources; build time and ptxas report;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes (256^3 volumes, 90 x 256 x 256 sinograms), with
+   the error, the tolerance and both median times;
+4. main path: TomoTorch FISTA-TV on the 256 x 256^2 x 90 nanocube problem
+   (one warm-up iteration, then 10), then the functional
+   fista_init_sl + fista_run_sl, timed with CUDA events; every kernel of
+   the path must have launched and no plain version may run;
+5. golden: the 32 x 256^2 x 90, 20-iteration trace of
+   tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
+   1e-3 (final rmse);
+6. result: a JSON line of the kernels, then the device line last.
+
+It imports nothing of JAX. Without a CUDA device it exits with 1 before
+printing any result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+LAM, N_TV = 0.1, 10
+
+
+class PhaseFailed(Exception):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseFailed(msg)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median time of one call of `fn` on the card, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got - ref).abs().max())
+
+
+# ------------------------------------------------------------------ phase 1
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip()
+    require(bool(card), "nvidia-smi printed no card")
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}, "
+          f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card.splitlines()[0]
+
+
+# ------------------------------------------------------------------ phase 2
+
+
+def phase_build() -> None:
+    from tomojax_torch import _build
+
+    info = _build.build()
+    how = (f"built in {info.seconds:.2f} s" if info.seconds
+           else "reused (same source hash)")
+    print(f"build: {info.path.relative_to(ROOT)} {how}")
+    for line in info.log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    _build.lib()
+
+
+# ------------------------------------------------------------------ phase 3
+
+
+def _kernel_table():
+    from tomojax_torch.projector import cuda_joseph as cj
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value
+
+    return {
+        "K1_fp_resid": (cj.fp_resid_sl, "tomojax_torch/csrc/joseph.cu",
+                        "tomojax/projector/pallas_joseph.py:510"),
+        "K1_fp": (cj.fp_sl, "tomojax_torch/csrc/joseph.cu",
+                  "tomojax/projector/pallas_joseph.py:290"),
+        "K2_bp_sirt": (cj.bp_sirt_sl, "tomojax_torch/csrc/joseph.cu",
+                       "tomojax/projector/pallas_joseph.py:660"),
+        "K2_bp": (cj.bp_sl, "tomojax_torch/csrc/joseph.cu",
+                  "tomojax/projector/pallas_joseph.py:660"),
+        "K3_fgp_iter": (cuda_fgp.fgp_iter, "tomojax_torch/csrc/fgp.cu",
+                        "tomojax/tv/pallas_fgp.py:124"),
+        "K4_fgp_obj_mom": (cuda_fgp.fgp_obj_mom, "tomojax_torch/csrc/fgp.cu",
+                           "tomojax/tv/pallas_fgp.py:86"),
+        "K5_tv_value": (cuda_tv_value.tv_value,
+                        "tomojax_torch/csrc/tv_value.cu",
+                        "tomojax/tv/pallas_tv_value.py:32"),
+    }
+
+
+def _launched(wrapper, fn):
+    before = wrapper.launches
+    out = fn()
+    torch.cuda.synchronize()
+    require(wrapper.launches > before, f"{wrapper.__name__} did not launch")
+    return out
+
+
+def phase_kernels(card: str) -> dict:
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector import cuda_joseph as cj
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value
+    from tomojax_torch.tv.cuda_fgp import tv_fgp_fused
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def uni(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    n, na, ns = 256, 90, 256
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+    rows = {}
+
+    def report(name, err, tol, ms, plain_ms, extra=""):
+        require(err <= tol, f"{name}: error {err:.3e} above {tol:.3e}")
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(f"{name}: max|kernel - plain| {err:.3e} <= {tol:.3e}{extra}; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
+
+    # K1 with the residual epilogue
+    x, b, ax_old = uni(n, n, ns), uni(na, n, ns), uni(na, n, ns)
+    inv_row = uni(na, n, lo=0.1)
+    beta = torch.tensor(0.3, device=dev)
+    args = (x, geom, b, ax_old, inv_row, beta)
+    got = _launched(cj.fp_resid_sl, lambda: cj.fp_resid_sl(*args))
+    ref = cj.fp_resid_sl_ref(*args)
+    err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    tol = 1e-5 * max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+    dd_rel = abs(float(got[2]) - float(ref[2])) / float(ref[2])
+    require(dd_rel <= 2e-5, f"K1 ddsq relative error {dd_rel:.3e}")
+    report("K1_fp_resid", err, tol, time_ms(lambda: cj.fp_resid_sl(*args), 5),
+           time_ms(lambda: cj.fp_resid_sl_ref(*args), 3),
+           f" (ddsq rel {dd_rel:.2e} <= 2e-5)")
+
+    # K1 with the epilogue off, K2 both ways, and the adjoint pair
+    got = _launched(cj.fp_sl, lambda: cj.fp_sl(x, geom))
+    ref = cj.fp_sl_ref(x, geom)
+    report("K1_fp", max_err(got, ref), 1e-5 * float(ref.abs().max()),
+           time_ms(lambda: cj.fp_sl(x, geom), 5),
+           time_ms(lambda: cj.fp_sl_ref(x, geom), 3))
+    resid = uni(na, n, ns, lo=-1.0)
+    y_vol, inv_col = uni(n, n, ns), uni(n, n, hi=0.05)
+    args = (resid, geom, y_vol, inv_col)
+    got = _launched(cj.bp_sirt_sl, lambda: cj.bp_sirt_sl(*args))
+    ref = cj.bp_sirt_sl_ref(*args)
+    report("K2_bp_sirt", max_err(got, ref), 1e-5 * float(ref.abs().max()),
+           time_ms(lambda: cj.bp_sirt_sl(*args), 5),
+           time_ms(lambda: cj.bp_sirt_sl_ref(*args), 3))
+    got = _launched(cj.bp_sl, lambda: cj.bp_sl(b, geom))
+    ref = cj.bp_sl_ref(b, geom)
+    lhs = float(torch.sum(cj.fp_sl(x, geom).double() * b.double()))
+    rhs = float(torch.sum(x.double() * got.double()))
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    require(adj <= 1e-5, f"adjointness {adj:.3e} above 1e-5")
+    report("K2_bp", max_err(got, ref), 1e-5 * float(ref.abs().max()),
+           time_ms(lambda: cj.bp_sl(b, geom), 5),
+           time_ms(lambda: cj.bp_sl_ref(b, geom), 3),
+           f" (<Ax,y> vs <x,A^T y> rel {adj:.2e} <= 1e-5)")
+
+    # K3 + K4: 10 chained FGP iterations, f32 and bf16 duals
+    x_old = uni(n, n, ns)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = tuple(torch.zeros(x.shape, dtype=dt, device=dev)
+                  for _ in range(3))
+        for _ in range(N_TV - 1):
+            p = cuda_fgp.fgp_iter_ref(x, *p, LAM)
+        d_ref, y_ref = cuda_fgp.fgp_obj_mom_ref(x, *p, LAM, x_old, beta)
+        d, y = tv_fgp_fused(x, N_TV, LAM, dual_dtype=dt, mom=(x_old, beta))
+        torch.cuda.synchronize()
+        errs[dt] = max(max_err(d, d_ref), max_err(y, y_ref))
+    tol32, tol16 = 1e-4 * float(x.abs().max()), LAM * 2e-2
+    require(errs[torch.float32] <= tol32,
+            f"FGP chain f32: {errs[torch.float32]:.3e} above {tol32:.3e}")
+    print(f"K3+K4 chain of {N_TV}, f32 duals: {errs[torch.float32]:.3e} "
+          f"<= {tol32:.3e}")
+    p = tuple(torch.zeros(x.shape, dtype=torch.bfloat16, device=dev)
+              for _ in range(3))
+    got = _launched(cuda_fgp.fgp_iter, lambda: cuda_fgp.fgp_iter(x, *p, LAM))
+    ref = cuda_fgp.fgp_iter_ref(x, *p, LAM)
+    err3 = max(max_err(g.float(), r.float()) for g, r in zip(got, ref))
+    require(err3 <= 2 ** -7, f"K3 single iteration bf16 duals: {err3:.3e}")
+    p = got
+    report("K3_fgp_iter", errs[torch.bfloat16], tol16,
+           time_ms(lambda: cuda_fgp.fgp_iter(x, *p, LAM), 10),
+           time_ms(lambda: cuda_fgp.fgp_iter_ref(x, *p, LAM), 5),
+           f" (chain of {N_TV}, bf16 duals; one iteration's duals "
+           f"{err3:.2e} <= 2^-7)")
+    got = _launched(cuda_fgp.fgp_obj_mom,
+                    lambda: cuda_fgp.fgp_obj_mom(x, *p, LAM, x_old, beta))
+    ref = cuda_fgp.fgp_obj_mom_ref(x, *p, LAM, x_old, beta)
+    report("K4_fgp_obj_mom",
+           max(max_err(got[0], ref[0]), max_err(got[1], ref[1])),
+           1e-6 * float(ref[1].abs().max()),
+           time_ms(lambda: cuda_fgp.fgp_obj_mom(x, *p, LAM, x_old, beta), 10),
+           time_ms(lambda: cuda_fgp.fgp_obj_mom_ref(x, *p, LAM, x_old, beta),
+                   5), " (one pass, bf16 duals)")
+
+    # K5
+    got = _launched(cuda_tv_value.tv_value, lambda: cuda_tv_value.tv_value(x))
+    ref = cuda_tv_value.tv_value_ref(x)
+    again = cuda_tv_value.tv_value(x)
+    require(float(again) == float(got), "K5 is not repeatable")
+    report("K5_tv_value", abs(float(got) - float(ref)),
+           2e-5 * abs(float(ref)),
+           time_ms(lambda: cuda_tv_value.tv_value(x), 10),
+           time_ms(lambda: cuda_tv_value.tv_value_ref(x), 5),
+           " (rtol 2e-5; two runs identical)")
+    return rows
+
+
+# ------------------------------------------------------------------ phase 4
+
+
+@contextlib.contextmanager
+def plain_versions_forbidden():
+    """Make every plain version raise while the main path runs: on CUDA
+    tensors the wrappers must launch their kernels."""
+    from tomojax_torch.projector import cuda_joseph
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value
+
+    names = {cuda_joseph: ["fp_sl_ref", "fp_resid_sl_ref", "bp_sl_ref",
+                           "bp_sirt_sl_ref"],
+             cuda_fgp: ["fgp_iter_ref", "fgp_obj_mom_ref"],
+             cuda_tv_value: ["tv_value_ref"]}
+    saved = {(m, k): getattr(m, k) for m, ks in names.items() for k in ks}
+
+    def forbidden(name):
+        def raise_(*_a, **_k):
+            raise PhaseFailed(f"plain version {name} ran on the main path")
+        return raise_
+
+    for (m, k) in saved:
+        setattr(m, k, forbidden(k))
+    try:
+        yield
+    finally:
+        for (m, k), fn in saved.items():
+            setattr(m, k, fn)
+
+
+def phase_main_path(card: str, kernels: dict) -> dict:
+    from tomojax_torch import TomoTorch, ops
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+    from tomojax_torch.solvers import fista_init_sl, fista_run_sl, from_sl
+
+    ns, n, na, iters = 256, 256, 90, 10
+    angles = np.linspace(-76, 76, na)
+    dev = torch.device("cuda")
+    for wrapper, _, _ in kernels.values():
+        wrapper.launches = 0
+    with plain_versions_forbidden():
+        vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
+        b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
+        tomo = TomoTorch(angles, b.permute(0, 2, 1).cpu().numpy(),
+                         device="cuda")
+        tomo.fista(Niter=1, lambda_param=LAM, nTViter=N_TV)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tomo.fista(Niter=iters, lambda_param=LAM, nTViter=N_TV)
+        torch.cuda.synchronize()
+        api_s = time.perf_counter() - t0
+        recon = tomo.get_recon()
+        st = fista_init_sl(torch.zeros((ns, n, n), device=dev), tomo.sys,
+                           tomo.b_sl)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, metrics = fista_run_sl(st, tomo.b_sl, tomo.sys, LAM, iters, N_TV)
+        end.record()
+        end.synchronize()
+        run_ms = start.elapsed_time(end)
+        rmse = float(ops.rmse(from_sl(st.x), vol))
+    counts = {name: w.launches for name, (w, _, _) in kernels.items()}
+    print(f"main path launches: {json.dumps(counts)}")
+    for name, c in counts.items():
+        require(c > 0, f"{name} was not launched on the main path")
+    cost = tomo.cost
+    m = metrics.cpu().numpy()
+    require(recon.shape == (ns, n, n) and bool(np.isfinite(recon).all()),
+            "TomoTorch reconstruction is not finite (256^3)")
+    require(bool(np.isfinite(cost).all()) and cost[-1] < cost[0],
+            f"TomoTorch cost does not fall: {cost}")
+    require(bool(np.isfinite(m).all()) and m[-1, 1] < m[0, 1],
+            f"fista_run_sl dd does not fall: {m[:, 1]}")
+    ms_iter = run_ms / iters
+    rate = ns * n * n * iters / (run_ms / 1e3)
+    print(f"main path {ns}x{n}^2x{na}, lam {LAM}, {N_TV} FGP iterations: "
+          f"TomoTorch.fista({iters}) {api_s * 1e3:.1f} ms wall incl. setup "
+          f"FP and metric readback; fista_run_sl {ms_iter:.3f} ms/iter = "
+          f"{rate / 1e6:.1f}M voxel-iters/s [{card}]")
+    print(f"  dd {m[0, 1]:.1f} -> {m[-1, 1]:.1f}, cost {cost[0]:.4g} -> "
+          f"{cost[-1]:.4g}, rmse vs phantom {rmse:.6f}")
+    return counts
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def phase_golden(card: str) -> None:
+    from tomojax_torch import ops
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+    from tomojax_torch.solvers import (
+        fista_init_sl, fista_run_sl, from_sl, make_system, to_sl,
+    )
+
+    golden = json.loads((ROOT / "tests/golden/fista_tpu_256.json").read_text())
+    cfg = golden["config"]
+    ns, n, na = cfg["ns"], cfg["n"], cfg["na"]
+    dev = torch.device("cuda")
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+    sysd = make_system(geom, dev)
+    vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
+    b_sl = to_sl(create_projections(vol, geom))
+    st = fista_init_sl(torch.zeros_like(vol), sysd, b_sl)
+    st, metrics = fista_run_sl(st, b_sl, sysd, cfg["lam"], cfg["niter"],
+                               cfg["ntviter"], True)
+    m = metrics.cpu().numpy().astype(np.float64)
+    rmse = float(ops.rmse(from_sl(st.x), vol))
+    dd_g, tv_g = np.asarray(golden["dd"]), np.asarray(golden["tv"])
+    dev_dd = float(np.max(np.abs(m[:, 1] - dd_g) / np.abs(dd_g)))
+    dev_tv = float(np.max(np.abs(m[:, 2] - tv_g) / np.abs(tv_g)))
+    dev_rmse = abs(rmse - golden["rmse_final"])
+    print(f"golden {ns}x{n}^2x{na}, {cfg['niter']} iterations vs "
+          f"{cfg['device']}: max rel dev dd {dev_dd:.3e}, tv {dev_tv:.3e}; "
+          f"|rmse - rmse_final| {dev_rmse:.3e} (rmse {rmse:.6f}) [{card}]")
+    require(np.allclose(m[:, 1], dd_g, rtol=5e-3)
+            and np.allclose(m[:, 2], tv_g, rtol=5e-3) and dev_rmse < 1e-3,
+            "golden trace outside rtol 5e-3 (dd, tv) or 1e-3 (rmse)")
+
+
+# ------------------------------------------------------------------- main
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        card = phase_device()
+        phase_build()
+        kernels = _kernel_table()
+        rows = phase_kernels(card)
+        counts = phase_main_path(card, kernels)
+        phase_golden(card)
+    except PhaseFailed as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    report = [{"name": name, "route": "cuda", "source": src,
+               "replaces": rep, "launches": counts[name], **rows[name]}
+              for name, (_, src, rep) in kernels.items()]
+    print(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

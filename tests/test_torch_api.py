@@ -1,0 +1,74 @@
+"""TomoTorch held against TomoTPU, and the port's import boundary."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from tomojax import TomoTPU  # noqa: E402
+from tomojax.geometry import Geometry as JGeometry  # noqa: E402
+from tomojax.projector.joseph import fp as j_fp  # noqa: E402
+
+import tomojax_torch.config  # noqa: E402
+from tomojax_torch import TomoTorch  # noqa: E402
+
+N = 32
+ANGLES = np.linspace(-70, 70, 20)
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _series(ns=8):
+    """(Nslice, Nray, Nangles) tilt series of scaled Shepp-Logan slices.
+    Nslice = 8 divides the test suite's 8-device mesh, so TomoTPU runs
+    unpadded."""
+    from tomojax.sim import shepp_logan
+
+    rng = np.random.default_rng(1)
+    ph = np.stack([shepp_logan(N)] * ns) * rng.uniform(
+        0.8, 1.2, size=(ns, 1, 1)).astype(np.float32)
+    b = np.asarray(j_fp(jnp.asarray(ph), JGeometry.make(N,
+                                                        np.deg2rad(ANGLES)),
+                        mode="gather"))
+    return np.transpose(b, (0, 2, 1))
+
+
+@pytest.mark.parametrize("momentum", [True, False])
+def test_fista_matches_tomotpu(monkeypatch, momentum):
+    monkeypatch.setattr(tomojax_torch.config, "fgp_dual_dtype",
+                        torch.float32)
+    ts = _series()
+    ref = TomoTPU(ANGLES, ts).fista(Niter=5, momentum=momentum,
+                                    lambda_param=0.05, nTViter=5)
+    got = TomoTorch(ANGLES, ts, device="cpu").fista(
+        Niter=5, momentum=momentum, lambda_param=0.05, nTViter=5)
+    assert got.get_recon().shape == (8, N, N)
+    np.testing.assert_allclose(got.get_recon(), ref.get_recon(), rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.cost, ref.cost, rtol=1e-3, atol=1e-4)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, tomojax_torch; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'tomojax' not in sys.modules, 'tomojax imported'")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TomoTorch(ANGLES, device="cuda")
+
+
+def test_tilt_series_angle_mismatch_raises():
+    with pytest.raises(ValueError):
+        TomoTorch(ANGLES, np.zeros((2, N, len(ANGLES) - 1), np.float32),
+                  device="cpu")

@@ -1,0 +1,252 @@
+// Joseph projector pair for Hopper: K1 (forward projection with the FISTA
+// residual epilogue) and K2 (matched backprojection with the SIRT-update
+// epilogue). Slice-last layouts: volume x[r][c][s] (N, N, Ns), sinogram
+// y[a][j][s] (Na, Nt, Ns). Both kernels put the slice index s on
+// threadIdx.x, so every tap a warp gathers is one contiguous 128-byte row.
+//
+// Weights: the Joseph closed form W[a,j,r,c] = hat((j - J*)/D_a)/D_a with
+// J* = x_c cos_a + y_r sin_a + (Nt-1)/2 and D_a = max(|cos_a|, |sin_a|)
+// (tomojax/projector/joseph.py). It holds at most two nonzero taps per
+// (pixel, angle) and per (bin, step), so both operators are 2-point
+// gathers with no scatter and no atomics.
+#include "common.cuh"
+
+namespace {
+
+constexpr int FP_BS = 32;  // slices per block (threadIdx.x)
+constexpr int FP_BJ = 8;   // detector bins per block (threadIdx.y)
+constexpr int FP_NT = FP_BS * FP_BJ;
+constexpr int BP_BS = 32;  // slices per block (threadIdx.x)
+constexpr int BP_BC = 8;   // image columns per block (threadIdx.y)
+constexpr int BP_MAX_ANGLES = 3072;  // 16 B each in shared memory (48 KB)
+
+// K1 -- replaces tomojax/projector/pallas_joseph.py:_fp_resid_banded_kernel
+// and _fp_resid_kernel (epilogue _fp_resid_epilogue), and with EPI false
+// _fp_banded_kernel and _fp_kernel.
+//
+// One thread per (angle a, bin j, slice s) walks the driving axis as
+// tomojax/projector/joseph.py:_fp_branch does: row-driven angles step over
+// rows r and interpolate two columns at
+//   pos = t_j / cos + y_r (-sin / cos) + (N-1)/2,
+// column-driven angles step over columns and interpolate two rows at
+//   pos = (N-1)/2 - t_j / sin + x_c (cos / sin);
+// out-of-range taps are masked, and the sum is scaled by 1/D.
+// tab[a] = {1/denom, shear, 1/|denom|, row_driven} from the host in f64
+// rounded to f32, exactly as the plain version uses them. The position is
+// computed with round-to-nearest intrinsics (no FMA contraction), so the
+// kernel picks the same taps as the plain version.
+//
+// Bound on the H100: gather issue. At 256^3 x 90 one launch makes
+// 90*256*256*256*2 = 3.0e9 tap loads, served from L1/L2 (the 64 MiB volume
+// is read ~once from memory per angle band). The design keeps each warp's
+// taps contiguous (s across the warp) and puts 8 neighbouring bins of one
+// angle in a block, whose taps fall on neighbouring columns of the same
+// row, so L1 serves most of them.
+//
+// Epilogue (EPI), in registers: ax = A x, the next FISTA residual
+// resid = (b - (ax + beta (ax - ax_old))) * inv_row[a, j], and the block's
+// partial sum of (ax - b)^2, reduced in shared memory in a fixed order to
+// partials[block]; tj::sum_partials then adds the partials in a fixed
+// order (no float atomics: deterministic metrics). beta is read from
+// device memory, so the host never waits for it.
+template <bool EPI>
+__global__ void __launch_bounds__(FP_NT)
+fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
+          const float* __restrict__ b, const float* __restrict__ ax_old,
+          const float* __restrict__ inv_row, const float* __restrict__ beta,
+          float* __restrict__ ax, float* __restrict__ resid,
+          float* __restrict__ partials, int n, int nt, int ns) {
+  const int s = blockIdx.x * FP_BS + threadIdx.x;
+  const int j = blockIdx.y * FP_BJ + threadIdx.y;
+  const int a = blockIdx.z;
+  const bool valid = s < ns && j < nt;
+  const float4 t = tab[a];  // {inv_d, shear, scale, row_driven}
+  const float ctr = 0.5f * static_cast<float>(n - 1);
+  const float tdet =
+      static_cast<float>(j) - 0.5f * static_cast<float>(nt - 1);
+  const float base = __fmul_rn(tdet, t.x);
+  const size_t plane = static_cast<size_t>(n) * ns;
+
+  float acc = 0.f;
+  if (valid) {
+    if (t.w != 0.f) {  // row-driven: step over rows, taps along columns
+      for (int k = 0; k < n; ++k) {
+        const float coord = ctr - static_cast<float>(k);
+        const float pos = __fadd_rn(__fadd_rn(base, __fmul_rn(coord, t.y)),
+                                    ctr);
+        const float f = floorf(pos);
+        const float frac = pos - f;
+        const int i0 = static_cast<int>(f);
+        const float* row = x + k * plane + s;
+        const float v0 = (i0 >= 0 && i0 < n) ? row[i0 * ns] : 0.f;
+        const float v1 = (i0 + 1 >= 0 && i0 + 1 < n) ? row[(i0 + 1) * ns]
+                                                     : 0.f;
+        acc = fmaf(v1, frac, fmaf(v0, 1.f - frac, acc));
+      }
+    } else {  // column-driven: step over columns, taps along rows
+      for (int k = 0; k < n; ++k) {
+        const float coord = static_cast<float>(k) - ctr;
+        const float pos = __fadd_rn(__fsub_rn(ctr, base),
+                                    __fmul_rn(coord, t.y));
+        const float f = floorf(pos);
+        const float frac = pos - f;
+        const int i0 = static_cast<int>(f);
+        const float* col = x + static_cast<size_t>(k) * ns + s;
+        const float v0 = (i0 >= 0 && i0 < n) ? col[i0 * plane] : 0.f;
+        const float v1 = (i0 + 1 >= 0 && i0 + 1 < n) ? col[(i0 + 1) * plane]
+                                                     : 0.f;
+        acc = fmaf(v1, frac, fmaf(v0, 1.f - frac, acc));
+      }
+    }
+  }
+  const float axv = acc * t.z;
+  const size_t o = (static_cast<size_t>(a) * nt + j) * ns + s;
+  if (!EPI) {
+    if (valid) ax[o] = axv;
+    return;
+  }
+  float sq = 0.f;
+  if (valid) {
+    const float bv = b[o];
+    const float ay = axv + beta[0] * (axv - ax_old[o]);
+    ax[o] = axv;
+    resid[o] = (bv - ay) * inv_row[static_cast<size_t>(a) * nt + j];
+    const float r = axv - bv;
+    sq = r * r;
+  }
+  __shared__ float buf[FP_NT];
+  const float total = tj::block_sum<FP_NT>(sq, buf);
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    partials[(static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
+                 gridDim.x + blockIdx.x] = total;
+  }
+}
+
+// K2 -- replaces tomojax/projector/pallas_joseph.py:_bp_kernel (fused and
+// unfused); it also covers _bp_banded_kernel and _bp_kernel_ab, which
+// compute the same operator with other TPU tilings.
+//
+// One thread per voxel (r, c, s) loops over the angles as
+// tomojax/projector/joseph.py:_bp_impl does: J* = x_c cos + y_r sin +
+// (Nt-1)/2, then a 2-point gather at floor(J*) and floor(J*)+1 with hat
+// weights times 1/D. tab[a] = {cos, sin, 1/D, 0} in f32 sits in shared
+// memory. With EPI (the FISTA/SIRT update) the result is
+// z = max(y_vol + inv_col[r, c] * acc, 0); without, plain A^T y.
+//
+// Bound on the H100: gather issue, like K1: 256*256*256*90*2 = 3.0e9 tap
+// loads per launch at 256^3 x 90. A warp's taps are contiguous in s; the 8
+// columns of a block fall within ~8 bins of each other at every angle, so
+// the block's sinogram reads stay in L1.
+template <bool EPI>
+__global__ void __launch_bounds__(BP_BS * BP_BC)
+bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
+          const float* __restrict__ y_vol, const float* __restrict__ inv_col,
+          float* __restrict__ out, int n, int nt, int na, int ns) {
+  extern __shared__ float4 stab[];
+  const int tid = threadIdx.y * BP_BS + threadIdx.x;
+  for (int i = tid; i < na; i += BP_BS * BP_BC) stab[i] = tab[i];
+  __syncthreads();
+
+  const int s = blockIdx.x * BP_BS + threadIdx.x;
+  const int c = blockIdx.y * BP_BC + threadIdx.y;
+  const int r = blockIdx.z;
+  if (s >= ns || c >= n) return;
+  const float ctr = 0.5f * static_cast<float>(n - 1);
+  const float xc = static_cast<float>(c) - ctr;
+  const float yr = ctr - static_cast<float>(r);
+  const float off = 0.5f * static_cast<float>(nt - 1);
+  const size_t sino_plane = static_cast<size_t>(nt) * ns;
+
+  float acc = 0.f;
+  for (int a = 0; a < na; ++a) {
+    const float4 t = stab[a];  // {cos, sin, 1/D, -}
+    const float jstar = __fadd_rn(__fadd_rn(__fmul_rn(t.x, xc),
+                                            __fmul_rn(t.y, yr)), off);
+    const float f = floorf(jstar);
+    const int j0 = static_cast<int>(f);
+    const float w0 = fmaxf(0.f, 1.f - fabsf(f - jstar) * t.z) * t.z;
+    const float w1 = fmaxf(0.f, 1.f - fabsf((f + 1.f) - jstar) * t.z) * t.z;
+    const float* ya = y + a * sino_plane + s;
+    const float v0 = (j0 >= 0 && j0 < nt) ? ya[j0 * ns] : 0.f;
+    const float v1 = (j0 + 1 >= 0 && j0 + 1 < nt) ? ya[(j0 + 1) * ns] : 0.f;
+    acc = fmaf(v1, w1, fmaf(v0, w0, acc));
+  }
+  const size_t o = (static_cast<size_t>(r) * n + c) * ns + s;
+  if (EPI) {
+    out[o] = fmaxf(y_vol[o] + inv_col[static_cast<size_t>(r) * n + c] * acc,
+                   0.f);
+  } else {
+    out[o] = acc;
+  }
+}
+
+dim3 fp_grid(int nt, int na, int ns) {
+  return dim3((ns + FP_BS - 1) / FP_BS, (nt + FP_BJ - 1) / FP_BJ, na);
+}
+
+bool fp_shape_ok(int n, int nt, int na, int ns) {
+  return n > 0 && nt > 0 && na > 0 && ns > 0 && na <= 65535 &&
+         (nt + FP_BJ - 1) / FP_BJ <= 65535;
+}
+
+}  // namespace
+
+TJ_API const char* tj_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+TJ_API int tj_fp(const float* x, const float* tab, float* ax, int n, int nt,
+                 int na, int ns, void* stream) {
+  if (!fp_shape_ok(n, nt, na, ns)) return cudaErrorInvalidValue;
+  fp_kernel<false><<<fp_grid(nt, na, ns), dim3(FP_BS, FP_BJ), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      x, reinterpret_cast<const float4*>(tab), nullptr, nullptr, nullptr,
+      nullptr, ax, nullptr, nullptr, n, nt, ns);
+  return tj::launch_error();
+}
+
+TJ_API int tj_fp_resid_partials(int nt, int na, int ns) {
+  const dim3 g = fp_grid(nt, na, ns);
+  return static_cast<int>(g.x * g.y * g.z);
+}
+
+// partials: tj_fp_resid_partials(nt, na, ns) floats of scratch; ddsq: 1
+// float, the fixed-order sum of the partials (||A x - b||^2).
+TJ_API int tj_fp_resid(const float* x, const float* tab, const float* b,
+                       const float* ax_old, const float* inv_row,
+                       const float* beta, float* ax, float* resid,
+                       float* partials, float* ddsq, int n, int nt, int na,
+                       int ns, void* stream) {
+  if (!fp_shape_ok(n, nt, na, ns)) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  fp_kernel<true><<<fp_grid(nt, na, ns), dim3(FP_BS, FP_BJ), 0, st>>>(
+      x, reinterpret_cast<const float4*>(tab), b, ax_old, inv_row, beta, ax,
+      resid, partials, n, nt, ns);
+  const int err = tj::launch_error();
+  if (err != 0) return err;
+  return static_cast<int>(tj::sum_partials(
+      partials, ddsq, tj_fp_resid_partials(nt, na, ns), st));
+}
+
+// y_vol and inv_col both null: plain A^T y; both set: the SIRT epilogue.
+TJ_API int tj_bp(const float* y, const float* tab, const float* y_vol,
+                 const float* inv_col, float* out, int n, int nt, int na,
+                 int ns, void* stream) {
+  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || na > BP_MAX_ANGLES ||
+      n > 65535 || (n + BP_BC - 1) / BP_BC > 65535 ||
+      (y_vol == nullptr) != (inv_col == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((ns + BP_BS - 1) / BP_BS, (n + BP_BC - 1) / BP_BC, n);
+  const size_t smem = static_cast<size_t>(na) * sizeof(float4);
+  const auto* t4 = reinterpret_cast<const float4*>(tab);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (y_vol != nullptr) {
+    bp_kernel<true><<<grid, dim3(BP_BS, BP_BC), smem, st>>>(
+        y, t4, y_vol, inv_col, out, n, nt, na, ns);
+  } else {
+    bp_kernel<false><<<grid, dim3(BP_BS, BP_BC), smem, st>>>(
+        y, t4, nullptr, nullptr, out, n, nt, na, ns);
+  }
+  return tj::launch_error();
+}

@@ -1,0 +1,262 @@
+"""Joseph projector kernels on the card, with their plain PyTorch versions.
+
+Counterpart of ``tomojax/projector/pallas_joseph.py``. Layouts are
+slice-last and unpadded: volumes ``(N, N, Ns)``, sinograms
+``(Na, Nt, Ns)``, all float32 and contiguous.
+
+* K1 ``fp_resid_sl`` (``csrc/joseph.cu`` ``fp_kernel<true>``): ``ax = A x``
+  with the FISTA residual epilogue; ``fp_sl`` is the same kernel with the
+  epilogue off (plain ``A x``).
+* K2 ``bp_sirt_sl`` (``csrc/joseph.cu`` ``bp_kernel<true>``): the SIRT
+  update ``max(y_vol + inv_col * A^T r, 0)``; ``bp_sl`` is the same kernel
+  with the epilogue off (plain ``A^T y``).
+
+The plain versions are the 2-point gathers of the reference's XLA
+``gather`` mode (``tomojax/projector/joseph.py`` ``_fp_branch`` and
+``_bp_impl``), the exact transpose pair. A wrapper runs its plain version
+only when its tensors lie on the CPU; on CUDA tensors it launches the
+kernel or raises. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from tomojax_torch import _build
+from tomojax_torch.geometry import Geometry
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AngleTables:
+    """Per-angle constants of one geometry, (Na, 4) float32 each.
+
+    fp: {1/denom, shear, 1/|denom|, row_driven} of the driving-axis walk
+        (denom = cos and shear = -sin/cos for row-driven angles, denom =
+        sin and shear = cos/sin for column-driven ones);
+    bp: {cos, sin, 1/D, 0} of the closed form J* = x_c cos + y_r sin +
+        (Nt-1)/2, D = max(|cos|, |sin|).
+    Computed in float64 and rounded once to float32, so the kernels and
+    the plain versions read the same numbers.
+    """
+
+    fp: torch.Tensor
+    bp: torch.Tensor
+
+
+@functools.lru_cache(maxsize=32)
+def angle_tables(geom: Geometry, device: torch.device) -> AngleTables:
+    rd = geom.row_driven
+    denom = np.where(rd, geom.cos, geom.sin)
+    shear = np.where(rd, -geom.sin, geom.cos) / denom
+    fp = np.stack([1.0 / denom, shear, 1.0 / np.abs(denom),
+                   rd.astype(np.float64)], axis=1)
+    bp = np.stack([geom.cos, geom.sin, 1.0 / geom.driving,
+                   np.zeros(geom.nproj)], axis=1)
+    return AngleTables(
+        torch.as_tensor(fp.astype(np.float32), device=device),
+        torch.as_tensor(bp.astype(np.float32), device=device),
+    )
+
+
+def _hat_taps(pos: torch.Tensor, n: int):
+    """Indices (clamped, safe to gather with) and masked linear weights of
+    the two taps around `pos` (tomojax/projector/joseph.py _hat_weights)."""
+    f = torch.floor(pos)
+    frac = pos - f
+    i0 = f.to(torch.int64)
+    i1 = i0 + 1
+    w0 = torch.where((i0 >= 0) & (i0 < n), 1.0 - frac, 0.0)
+    w1 = torch.where((i1 >= 0) & (i1 < n), frac, 0.0)
+    return i0.clamp(0, n - 1), i1.clamp(0, n - 1), w0, w1
+
+
+# --------------------------------------------------------------- plain A x
+
+
+def fp_sl_ref(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """Plain ``A x``: (N, N, Ns) -> (Na, Nt, Ns).
+
+    The driving-axis walk of ``_fp_branch``: row-driven angles step over
+    rows and interpolate two columns, column-driven angles step over
+    columns and interpolate two rows; the sum is scaled by 1/D."""
+    n, _, ns = x.shape
+    nt, na = geom.nray, geom.nproj
+    tab = angle_tables(geom, x.device).fp
+    out = torch.zeros((na, nt, ns), dtype=F32, device=x.device)
+    tj = torch.arange(nt, dtype=F32, device=x.device) - (nt - 1) / 2.0
+    ctr = (n - 1) / 2.0
+    rd_mask = torch.as_tensor(geom.row_driven, device=x.device)
+    for row_driven in (True, False):
+        idx = torch.nonzero(rd_mask == row_driven).flatten()
+        if idx.numel() == 0:
+            continue
+        inv_d, shear, scale = tab[idx, 0], tab[idx, 1], tab[idx, 2]
+        # (step, interp, Ns): rows then columns, or columns then rows
+        img = x if row_driven else x.transpose(0, 1)
+        base = tj[None, :] * inv_d[:, None]  # (A, Nt)
+        acc = torch.zeros((idx.numel(), nt, ns), dtype=F32, device=x.device)
+        for k in range(n):
+            if row_driven:
+                pos = base + (ctr - k) * shear[:, None] + ctr
+            else:
+                pos = (ctr - base) + (k - ctr) * shear[:, None]
+            i0, i1, w0, w1 = _hat_taps(pos, n)
+            plane = img[k]  # (interp, Ns)
+            acc = acc + plane[i0] * w0[..., None] + plane[i1] * w1[..., None]
+        out[idx] = acc * scale[:, None, None]
+    return out
+
+
+def fp_resid_sl_ref(x, geom: Geometry, b, ax_old, inv_row, beta):
+    """Plain K1: ``(ax, resid, ddsq)`` with ``ax = A x``,
+    ``resid = (b - (ax + beta (ax - ax_old))) * inv_row`` and
+    ``ddsq = sum (ax - b)^2`` (0-dim)."""
+    ax = fp_sl_ref(x, geom)
+    ay = ax + beta * (ax - ax_old)
+    resid = (b - ay) * inv_row[:, :, None]
+    r = ax - b
+    return ax, resid, torch.sum(r * r)
+
+
+# ------------------------------------------------------------- plain A^T y
+
+
+def bp_sl_ref(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """Plain ``A^T y``: (Na, Nt, Ns) -> (N, N, Ns).
+
+    ``_bp_impl``: per angle, J* = x_c cos + y_r sin + (Nt-1)/2 at every
+    pixel and a 2-point gather at floor(J*), floor(J*)+1 with weights
+    hat((j - J*)/D)/D."""
+    na, nt, ns = y.shape
+    n = geom.n
+    tab = angle_tables(geom, torch.device("cpu")).bp.numpy()
+    ctr = (n - 1) / 2.0
+    xc = torch.arange(n, dtype=F32, device=y.device) - ctr
+    yr = ctr - torch.arange(n, dtype=F32, device=y.device)
+    off = (nt - 1) / 2.0
+    acc = torch.zeros((n, n, ns), dtype=F32, device=y.device)
+    for a in range(na):
+        c, s, invd = (float(v) for v in tab[a, :3])
+        jstar = c * xc[None, :] + s * yr[:, None] + off  # (N, N)
+        f = torch.floor(jstar)
+        j0 = f.to(torch.int64)
+        j1 = j0 + 1
+        w0 = torch.clamp_min(1.0 - torch.abs(f - jstar) * invd, 0.0) * invd
+        w1 = torch.clamp_min(1.0 - torch.abs((f + 1.0) - jstar) * invd,
+                             0.0) * invd
+        w0 = torch.where((j0 >= 0) & (j0 < nt), w0, 0.0)
+        w1 = torch.where((j1 >= 0) & (j1 < nt), w1, 0.0)
+        ya = y[a]  # (Nt, Ns)
+        acc = (acc + ya[j0.clamp(0, nt - 1)] * w0[..., None]
+               + ya[j1.clamp(0, nt - 1)] * w1[..., None])
+    return acc
+
+
+def bp_sirt_sl_ref(resid, geom: Geometry, y_vol, inv_col):
+    """Plain K2: ``max(y_vol + inv_col * A^T resid, 0)``."""
+    return torch.clamp_min(y_vol + inv_col[:, :, None] * bp_sl_ref(resid, geom),
+                           0.0)
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _p(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def fp_sl(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """``A x``: (N, N, Ns) -> (Na, Nt, Ns); K1 with the epilogue off."""
+    ns = x.shape[-1]
+    sino = (geom.nproj, geom.nray, ns)
+    _build.check_operand(x, "x", (geom.n, geom.n, ns), F32)
+    if _build.on_cpu(x):
+        return fp_sl_ref(x, geom)
+    tab = angle_tables(geom, x.device).fp
+    ax = torch.empty(sino, dtype=F32, device=x.device)
+    _build.check(_build.lib().tj_fp(
+        _p(x), _p(tab), _p(ax), geom.n, geom.nray, geom.nproj, ns,
+        _build.stream()), "tj_fp")
+    fp_sl.launches += 1
+    return ax
+
+
+def fp_resid_sl(x, geom: Geometry, b, ax_old, inv_row, beta):
+    """K1: ``(ax, resid, ddsq)`` as `fp_resid_sl_ref` says.
+
+    x (N, N, Ns); b and ax_old (Na, Nt, Ns); inv_row (Na, Nt); beta a
+    0-dim float32 tensor on the same device (read there by the kernel).
+    ddsq is a 0-dim tensor, summed on the device in a fixed order."""
+    ns = x.shape[-1]
+    sino = (geom.nproj, geom.nray, ns)
+    _build.check_operand(x, "x", (geom.n, geom.n, ns), F32)
+    _build.check_operand(b, "b", sino, F32)
+    _build.check_operand(ax_old, "ax_old", sino, F32)
+    _build.check_operand(inv_row, "inv_row", sino[:2], F32)
+    _build.check_operand(beta, "beta", (), F32)
+    if _build.on_cpu(x, b, ax_old, inv_row, beta):
+        return fp_resid_sl_ref(x, geom, b, ax_old, inv_row, beta)
+    lib = _build.lib()
+    tab = angle_tables(geom, x.device).fp
+    ax = torch.empty(sino, dtype=F32, device=x.device)
+    resid = torch.empty(sino, dtype=F32, device=x.device)
+    partials = torch.empty(lib.tj_fp_resid_partials(geom.nray, geom.nproj, ns),
+                           dtype=F32, device=x.device)
+    ddsq = torch.empty((), dtype=F32, device=x.device)
+    _build.check(lib.tj_fp_resid(
+        _p(x), _p(tab), _p(b), _p(ax_old), _p(inv_row), _p(beta), _p(ax),
+        _p(resid), _p(partials), _p(ddsq), geom.n, geom.nray, geom.nproj, ns,
+        _build.stream()), "tj_fp_resid")
+    fp_resid_sl.launches += 1
+    return ax, resid, ddsq
+
+
+def _bp_launch(y, geom: Geometry, y_vol, inv_col):
+    ns = y.shape[-1]
+    tab = angle_tables(geom, y.device).bp
+    out = torch.empty((geom.n, geom.n, ns), dtype=F32, device=y.device)
+    _build.check(_build.lib().tj_bp(
+        _p(y), _p(tab), _p(y_vol), _p(inv_col), _p(out), geom.n, geom.nray,
+        geom.nproj, ns, _build.stream()), "tj_bp")
+    return out
+
+
+def bp_sl(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """``A^T y``: (Na, Nt, Ns) -> (N, N, Ns); K2 with the epilogue off."""
+    ns = y.shape[-1]
+    _build.check_operand(y, "y", (geom.nproj, geom.nray, ns), F32)
+    if _build.on_cpu(y):
+        return bp_sl_ref(y, geom)
+    out = _bp_launch(y, geom, None, None)
+    bp_sl.launches += 1
+    return out
+
+
+def bp_sirt_sl(resid, geom: Geometry, y_vol, inv_col):
+    """K2: ``max(y_vol + inv_col * A^T resid, 0)``.
+
+    resid (Na, Nt, Ns); y_vol (N, N, Ns); inv_col (N, N), the SIRT column
+    weights shared by every slice."""
+    ns = resid.shape[-1]
+    vol = (geom.n, geom.n, ns)
+    _build.check_operand(resid, "resid", (geom.nproj, geom.nray, ns), F32)
+    _build.check_operand(y_vol, "y_vol", vol, F32)
+    _build.check_operand(inv_col, "inv_col", vol[:2], F32)
+    if _build.on_cpu(resid, y_vol, inv_col):
+        return bp_sirt_sl_ref(resid, geom, y_vol, inv_col)
+    out = _bp_launch(resid, geom, y_vol, inv_col)
+    bp_sirt_sl.launches += 1
+    return out
+
+
+fp_sl.launches = 0
+fp_resid_sl.launches = 0
+bp_sl.launches = 0
+bp_sirt_sl.launches = 0
