@@ -7,18 +7,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmul and cuDNN;
-2. build: the kernels from tomojax_torch/csrc/ into build/tomojax_torch/,
-   cached by a hash of the sources; build time and ptxas report;
+2. build: the kernels from tomojax_torch/csrc/ into build/tomojax_torch/
+   (one nvcc per source, in parallel), cached by a hash of the sources;
+   build time and ptxas report;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (256^3 volumes, 90 x 256 x 256 sinograms), with
-   the error, the tolerance and both median times;
-4. main path: TomoTorch FISTA-TV on the 256 x 256^2 x 90 nanocube problem
-   (one warm-up iteration, then 10), then the functional
-   fista_init_sl + fista_run_sl, timed with CUDA events; every kernel of
-   the path must have launched and no plain version may run;
+   the main paths' shapes (256^3 volumes, 90 x 256 x 256 sinograms), with
+   the error, the tolerance and both median times; the SART sweep (K8) at
+   three levels: one angle step, one sweep, convergence after 5 sweeps;
+4. main paths, each with every launch count set to 0 just before it and
+   read just after, and with every plain version made to raise:
+   a. FISTA-TV: TomoTorch on the 256 x 256^2 x 90 nanocube problem (one
+      warm-up iteration, then 10), then the functional fista_init_sl +
+      fista_run_sl, timed with CUDA events;
+   b. ASD-POCS: TomoTorch.asd_pocs on the same problem (one warm-up
+      iteration, then 5) and TomoTorch.sart (2 sweeps), then the
+      functional asd_pocs_run and one sart_sweep_sl, timed with CUDA
+      events;
+   every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
-   1e-3 (final rmse);
+   1e-3 (final rmse); the 16 x 64^2 x 30, 10-iteration ASD-POCS trace of
+   tests/golden/asd_pocs_jax_cpu.json replayed within the bounds stored
+   in it;
 6. result: a JSON line of the kernels, then the device line last.
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
@@ -111,7 +121,8 @@ def phase_build() -> None:
 
 def _kernel_table():
     from tomojax_torch.projector import cuda_joseph as cj
-    from tomojax_torch.tv import cuda_fgp, cuda_tv_value
+    from tomojax_torch.solvers import cuda_sart
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd
 
     return {
         "K1_fp_resid": (cj.fp_resid_sl, "tomojax_torch/csrc/joseph.cu",
@@ -129,6 +140,11 @@ def _kernel_table():
         "K5_tv_value": (cuda_tv_value.tv_value,
                         "tomojax_torch/csrc/tv_value.cu",
                         "tomojax/tv/pallas_tv_value.py:32"),
+        "K7_tv_grad": (cuda_tvgd.tv_grad, "tomojax_torch/csrc/tvgd.cu",
+                       "tomojax/tv/pallas_tvgd.py:49"),
+        "K8_sart_sweep": (cuda_sart.sart_sweep_sl,
+                          "tomojax_torch/csrc/sart.cu",
+                          "tomojax/solvers/pallas_sart.py:217"),
     }
 
 
@@ -143,7 +159,7 @@ def _launched(wrapper, fn):
 def phase_kernels(card: str) -> dict:
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector import cuda_joseph as cj
-    from tomojax_torch.tv import cuda_fgp, cuda_tv_value
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd
     from tomojax_torch.tv.cuda_fgp import tv_fgp_fused
 
     dev = torch.device("cuda")
@@ -251,7 +267,73 @@ def phase_kernels(card: str) -> dict:
            time_ms(lambda: cuda_tv_value.tv_value(x), 10),
            time_ms(lambda: cuda_tv_value.tv_value_ref(x), 5),
            " (rtol 2e-5; two runs identical)")
+
+    # K7: the TV-GD subgradient and ||g||^2
+    got, gsq = _launched(cuda_tvgd.tv_grad, lambda: cuda_tvgd.tv_grad(x))
+    ref, gsq_ref = cuda_tvgd.tv_grad_ref(x)
+    again, gsq_again = cuda_tvgd.tv_grad(x)
+    require(torch.equal(again, got) and float(gsq_again) == float(gsq),
+            "K7 is not repeatable")
+    gsq_rel = abs(float(gsq) - float(gsq_ref)) / float(gsq_ref)
+    require(gsq_rel <= 2e-5, f"K7 ||g||^2 relative error {gsq_rel:.3e}")
+    report("K7_tv_grad", max_err(got, ref), 1e-5 * float(ref.abs().max()),
+           time_ms(lambda: cuda_tvgd.tv_grad(x), 10),
+           time_ms(lambda: cuda_tvgd.tv_grad_ref(x), 5),
+           f" (||g||^2 rel {gsq_rel:.2e} <= 2e-5; two runs identical)")
+
+    _check_sart(geom, ns, uni, report)
     return rows
+
+
+def _check_sart(geom, ns: int, uni, report) -> None:
+    """K8 against its plain version at three levels: one angle step (a
+    column- and a row-driven angle) from random x, tightly; one sweep from
+    zero on consistent nanocube projections; the rmse against the phantom
+    after 5 sweeps."""
+    from tomojax_torch import ops
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import (
+        cuda_sart, make_sart_weights, make_system, to_sl,
+    )
+
+    dev = torch.device("cuda")
+    n, na = geom.n, geom.nproj
+    sysd = make_system(geom, dev)
+    vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
+    args = (fp_sl(vol, geom), geom, sysd.inv_row, make_sart_weights(sysd))
+    one = torch.tensor(1.0, device=dev)
+    seq = torch.arange(na, dtype=torch.int32, device=dev)
+    sweep, plain = cuda_sart.sart_sweep_sl, cuda_sart.sart_sweep_sl_ref
+
+    x = uni(n, n, ns)
+    step_err = step_tol = 0.0
+    for a in (0, na // 2):
+        order = torch.tensor([a], dtype=torch.int32, device=dev)
+        got = _launched(sweep, lambda: sweep(x, *args, one, order))
+        ref = plain(x, *args, one, order)
+        err, tol = max_err(got, ref), 1e-5 * float(ref.abs().max())
+        require(err <= tol, f"K8 one step at angle {a}: error {err:.3e} "
+                            f"above {tol:.3e}")
+        step_err, step_tol = max(step_err, err), max(step_tol, tol)
+
+    x0 = torch.zeros_like(vol)
+    got, ref = sweep(x0, *args, one, seq), plain(x0, *args, one, seq)
+    sweep_err, sweep_tol = max_err(got, ref), 1e-4 * float(ref.abs().max())
+    xk = xp = x0
+    for _ in range(5):
+        xk, xp = sweep(xk, *args, one, seq), plain(xp, *args, one, seq)
+    rk, rp = float(ops.rmse(xk, vol)), float(ops.rmse(xp, vol))
+    require(abs(rk - rp) <= 1e-4,
+            f"K8 rmse after 5 sweeps: kernel {rk:.6f}, plain {rp:.6f}")
+    report("K8_sart_sweep", sweep_err, sweep_tol,
+           time_ms(lambda: sweep(x0, *args, one, seq), 5),
+           time_ms(lambda: plain(x0, *args, one, seq), 2),
+           f" (one {na}-angle sweep from zero on nanocube projections, "
+           f"bound 1e-4 max|x|; one angle step {step_err:.2e} <= "
+           f"{step_tol:.2e} (1e-5 max|x|); rmse vs phantom after 5 sweeps "
+           f"kernel {rk:.6f}, plain {rp:.6f}, |d| {abs(rk - rp):.2e} "
+           f"<= 1e-4)")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -262,12 +344,15 @@ def plain_versions_forbidden():
     """Make every plain version raise while the main path runs: on CUDA
     tensors the wrappers must launch their kernels."""
     from tomojax_torch.projector import cuda_joseph
-    from tomojax_torch.tv import cuda_fgp, cuda_tv_value
+    from tomojax_torch.solvers import cuda_sart
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd
 
     names = {cuda_joseph: ["fp_sl_ref", "fp_resid_sl_ref", "bp_sl_ref",
                            "bp_sirt_sl_ref"],
              cuda_fgp: ["fgp_iter_ref", "fgp_obj_mom_ref"],
-             cuda_tv_value: ["tv_value_ref"]}
+             cuda_tv_value: ["tv_value_ref"],
+             cuda_tvgd: ["tv_grad_ref"],
+             cuda_sart: ["sart_sweep_sl_ref"]}
     saved = {(m, k): getattr(m, k) for m, ks in names.items() for k in ks}
 
     def forbidden(name):
@@ -284,6 +369,25 @@ def plain_versions_forbidden():
             setattr(m, k, fn)
 
 
+FISTA_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp", "K3_fgp_iter",
+                 "K4_fgp_obj_mom", "K5_tv_value")
+ASD_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp", "K5_tv_value", "K7_tv_grad",
+               "K8_sart_sweep")
+
+
+def _reset(kernels: dict) -> None:
+    for wrapper, _, _ in kernels.values():
+        wrapper.launches = 0
+
+
+def _read(kernels: dict, path: str, required) -> dict:
+    counts = {name: w.launches for name, (w, _, _) in kernels.items()}
+    print(f"{path} launches: {json.dumps(counts)}")
+    for name in required:
+        require(counts[name] > 0, f"{name} was not launched on the {path}")
+    return counts
+
+
 def phase_main_path(card: str, kernels: dict) -> dict:
     from tomojax_torch import TomoTorch, ops
     from tomojax_torch.geometry import Geometry
@@ -293,8 +397,7 @@ def phase_main_path(card: str, kernels: dict) -> dict:
     ns, n, na, iters = 256, 256, 90, 10
     angles = np.linspace(-76, 76, na)
     dev = torch.device("cuda")
-    for wrapper, _, _ in kernels.values():
-        wrapper.launches = 0
+    _reset(kernels)
     with plain_versions_forbidden():
         vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
         b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
@@ -317,10 +420,7 @@ def phase_main_path(card: str, kernels: dict) -> dict:
         end.synchronize()
         run_ms = start.elapsed_time(end)
         rmse = float(ops.rmse(from_sl(st.x), vol))
-    counts = {name: w.launches for name, (w, _, _) in kernels.items()}
-    print(f"main path launches: {json.dumps(counts)}")
-    for name, c in counts.items():
-        require(c > 0, f"{name} was not launched on the main path")
+    counts = _read(kernels, "FISTA-TV path", FISTA_KERNELS)
     cost = tomo.cost
     m = metrics.cpu().numpy()
     require(recon.shape == (ns, n, n) and bool(np.isfinite(recon).all()),
@@ -337,6 +437,73 @@ def phase_main_path(card: str, kernels: dict) -> dict:
           f"{rate / 1e6:.1f}M voxel-iters/s [{card}]")
     print(f"  dd {m[0, 1]:.1f} -> {m[-1, 1]:.1f}, cost {cost[0]:.4g} -> "
           f"{cost[-1]:.4g}, rmse vs phantom {rmse:.6f}")
+    return counts
+
+
+def phase_asd_path(card: str, kernels: dict) -> dict:
+    from tomojax_torch import TomoTorch, ops
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+    from tomojax_torch.solvers import (
+        AsdPocsParams, asd_pocs_run, make_sart_weights, sart_sweep_sl,
+    )
+
+    ns, n, na, iters = 256, 256, 90, 5
+    angles = np.linspace(-76, 76, na)
+    dev = torch.device("cuda")
+    _reset(kernels)
+    with plain_versions_forbidden():
+        vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
+        b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
+        tomo = TomoTorch(angles, b.permute(0, 2, 1).cpu().numpy(),
+                         device="cuda")
+        tomo.asd_pocs(Niter=1)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tomo.asd_pocs(Niter=iters)
+        torch.cuda.synchronize()
+        api_s = time.perf_counter() - t0
+        dd_vec, tv_vec = tomo.dd_vec.copy(), tomo.tv_vec.copy()
+        recon = tomo.get_recon()
+        rmse = float(ops.rmse(tomo.x, vol))
+        tomo.sart(Niter=2)
+        sart_cost = tomo.cost.copy()
+        w = make_sart_weights(tomo.sys)
+        x0 = torch.zeros((n, n, ns), device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, run_dd, run_tv = asd_pocs_run(x0, tomo.b_sl, tomo.sys, w,
+                                         AsdPocsParams(niter=iters))
+        end.record()
+        end.synchronize()
+        run_ms = start.elapsed_time(end)
+        beta = torch.tensor(1.0, device=dev)
+        seq = torch.arange(na, dtype=torch.int32, device=dev)
+        sweep_ms = time_ms(lambda: sart_sweep_sl(
+            x0, tomo.b_sl, tomo.geom, tomo.sys.inv_row, w, beta, seq), 5)
+    counts = _read(kernels, "ASD-POCS path", ASD_KERNELS)
+    run_dd, run_tv = run_dd.cpu().numpy(), run_tv.cpu().numpy()
+    require(recon.shape == (ns, n, n) and bool(np.isfinite(recon).all()),
+            "TomoTorch.asd_pocs reconstruction is not finite (256^3)")
+    require(bool(np.isfinite(dd_vec).all()) and dd_vec[-1] < dd_vec[0],
+            f"TomoTorch.asd_pocs dd does not fall: {dd_vec}")
+    require(bool((tv_vec > 0).all()), f"TomoTorch.asd_pocs tv: {tv_vec}")
+    require(bool(np.isfinite(sart_cost).all()) and sart_cost[-1] < sart_cost[0],
+            f"TomoTorch.sart dd does not fall: {sart_cost}")
+    require(bool(np.isfinite(run_dd).all()) and run_dd[-1] < run_dd[0]
+            and bool((run_tv > 0).all()),
+            f"asd_pocs_run dd does not fall: {run_dd}")
+    ms_iter = run_ms / iters
+    print(f"ASD-POCS path {ns}x{n}^2x{na}, ng 10, defaults: "
+          f"TomoTorch.asd_pocs({iters}) {api_s * 1e3:.1f} ms wall incl. "
+          f"one host read per iteration; asd_pocs_run {ms_iter:.3f} "
+          f"ms/iter = {ns * n * n / (ms_iter / 1e3) / 1e6:.1f}M "
+          f"voxel-iters/s; sart_sweep_sl {sweep_ms:.3f} ms/sweep = "
+          f"{ns * n * n / (sweep_ms / 1e3) / 1e6:.1f}M voxel-iters/s [{card}]")
+    print(f"  dd {dd_vec[0]:.1f} -> {dd_vec[-1]:.1f}, tv {tv_vec[0]:.1f} -> "
+          f"{tv_vec[-1]:.1f}, rmse vs phantom {rmse:.6f}; sart dd "
+          f"{sart_cost[0]:.1f} -> {sart_cost[-1]:.1f}")
     return counts
 
 
@@ -376,6 +543,48 @@ def phase_golden(card: str) -> None:
             "golden trace outside rtol 5e-3 (dd, tv) or 1e-3 (rmse)")
 
 
+def phase_golden_asd(card: str) -> None:
+    from tomojax_torch import ops
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+    from tomojax_torch.solvers import (
+        AsdPocsParams, asd_pocs_host_loop, from_sl, make_sart_weights,
+        make_system, to_sl,
+    )
+
+    golden = json.loads(
+        (ROOT / "tests/golden/asd_pocs_jax_cpu.json").read_text())
+    c, bd = golden["config"], golden["bounds"]
+    p = AsdPocsParams(**golden["params"])
+    ns, n, na = c["ns"], c["n"], c["na"]
+    dev = torch.device("cuda")
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-c["span_deg"],
+                                                   c["span_deg"], na)))
+    sysd = make_system(geom, dev)
+    vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
+    b_sl = to_sl(create_projections(vol, geom))
+    x, dd, tv, used = asd_pocs_host_loop(
+        torch.zeros((n, n, ns), device=dev), b_sl, sysd,
+        make_sart_weights(sysd), p)
+    rmse = float(ops.rmse(from_sl(x), vol))
+
+    def rel(got, want):
+        want = np.asarray(want)
+        return float(np.max(np.abs(np.asarray(got) - want) / np.abs(want)))
+
+    dev_dd, dev_tv, dev_dp = rel(dd, golden["dd"]), rel(tv, golden["tv"]), \
+        rel(used, golden["dpocs"])
+    dev_rmse = abs(rmse - golden["rmse_final"])
+    print(f"golden ASD-POCS {ns}x{n}^2x{na}, {p.niter} iterations vs "
+          f"{c['device']}: max rel dev dd {dev_dd:.3e} (<= {bd['dd_rtol']}), "
+          f"tv {dev_tv:.3e} (<= {bd['tv_rtol']}), dpocs {dev_dp:.3e} "
+          f"(<= {bd['dpocs_rtol']}); |rmse - rmse_final| {dev_rmse:.3e} "
+          f"(< {bd['rmse_atol']}; rmse {rmse:.6f}) [{card}]")
+    require(dev_dd <= bd["dd_rtol"] and dev_tv <= bd["tv_rtol"]
+            and dev_dp <= bd["dpocs_rtol"] and dev_rmse < bd["rmse_atol"],
+            "ASD-POCS golden trace outside its bounds")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -389,12 +598,16 @@ def main() -> int:
         kernels = _kernel_table()
         rows = phase_kernels(card)
         counts = phase_main_path(card, kernels)
+        asd_counts = phase_asd_path(card, kernels)
         phase_golden(card)
+        phase_golden_asd(card)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    # launches: the kernel's count over the two main paths' runs
     report = [{"name": name, "route": "cuda", "source": src,
-               "replaces": rep, "launches": counts[name], **rows[name]}
+               "replaces": rep, "launches": counts[name] + asd_counts[name],
+               **rows[name]}
               for name, (_, src, rep) in kernels.items()]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,9 @@ def test_fista_matches_tomotpu(monkeypatch, momentum):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, tomojax_torch; "
+    code = ("import sys, tomojax_torch, tomojax_torch.convert, "
+            "tomojax_torch.solvers.asd_pocs, tomojax_torch.solvers.cuda_sart, "
+            "tomojax_torch.solvers.iterative, tomojax_torch.tv.cuda_tvgd; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tomojax' not in sys.modules, 'tomojax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

@@ -1,9 +1,9 @@
 """Build, load and call the port's CUDA kernels.
 
-The kernels live in ``csrc/*.cu`` behind a plain C interface. They are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library and
-loaded with ``ctypes``; no PyTorch header is compiled, so a build takes
-seconds. The library goes to ``build/tomojax_torch/`` beside the package,
+The kernels live in ``csrc/*.cu`` behind a plain C interface. Each source
+is compiled with its own ``nvcc`` for Hopper (``sm_90a``), all started
+together, and the objects are linked into one shared library loaded with
+``ctypes``; no PyTorch header is compiled, so a build takes seconds. The library goes to ``build/tomojax_torch/`` beside the package,
 named by a hash of the sources and flags, so an unchanged tree reuses it.
 
 Nothing here runs at import: the first kernel launch builds and loads.
@@ -27,10 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tomojax_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry (pointers and the stream as c_void_p, so that
@@ -47,6 +46,10 @@ _SIGNATURES = {
                    _F, _P],
     "tj_tv_value": [_P, _P, _P, _I, _I, _I, _P],
     "tj_tv_value_partials": [_I, _I, _I],
+    "tj_tv_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tj_tv_grad_partials": [_I, _I, _I],
+    "tj_sart_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                      _I, _I, _I, _I, _P],
 }
 
 
@@ -70,30 +73,57 @@ def _nvcc() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile csrc/*.cu into one shared library unless it exists."""
+    """Compile csrc/*.cu into one shared library unless it exists: one
+    nvcc per source, run in parallel, then one link."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sources + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     lib = BUILD_DIR / f"libtomojax_torch_{h.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
+    log_path = lib.with_suffix(".log")
     if lib.exists():
-        return BuildInfo(lib, 0.0, log.read_text() if log.exists() else "")
+        return BuildInfo(lib, 0.0,
+                         log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = lib.with_name(f"{lib.stem}.{os.getpid()}.objs")
+    objs.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [
+            (src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+                 str(objs / f"{src.stem}.o")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sources]
+        try:
+            outs = [(src, p.communicate()[0], p.returncode)
+                    for src, p in procs]
+        finally:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        log = "".join(out for _, out, _ in outs)
+        failed = [f"{src.name} ({rc})" for src, _, rc in outs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        proc = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp),
+             *(str(objs / f"{src.stem}.o") for src in sources)],
+            capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
+    log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
-    return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+    return BuildInfo(lib, seconds, log)
 
 
 @functools.cache

@@ -4,6 +4,7 @@
     tomo = TomoTorch(tilt_angles_deg, tilt_series)   # device="cuda"
     tomo.fista(Niter=50, lambda_param=0.1)
     recon = tomo.get_recon()                         # (Nslice, Nray, Nray)
+    tomo.asd_pocs(Niter=20)                          # or tomo.sart(Niter=20)
 
 The tilt series is (Nslice, Nray, Nangles), as in the reference. Every
 tensor lives on the device given at construction: there is no automatic
@@ -15,12 +16,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tomojax_torch import tv as tvmod
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.solvers import (
+    AsdPocsParams,
+    asd_pocs_host_loop,
+    asd_pocs_run,
+    data_distance_sl,
     fista_init_sl,
     fista_run_sl,
     from_sl,
+    make_sart_weights,
     make_system,
+    sart_sweep_sl,
+    to_sl,
 )
 
 
@@ -36,6 +45,10 @@ class TomoTorch:
         self.tilt_angles = np.asarray(tilt_angles_deg, np.float64)
         self.recon = None
         self.cost = None
+        self._sart_w = None
+        # visiting orders of init='random' (the reference draws them from
+        # jax.random.PRNGKey(0); the streams differ, the seed is the same)
+        self._order_gen = torch.Generator().manual_seed(0)
         if tilt_series is not None:
             self.set_tilt_series(tilt_series)
 
@@ -52,6 +65,7 @@ class TomoTorch:
         # slice-last sinogram (Nangles, Nray, Nslice)
         self.b_sl = torch.as_tensor(
             np.ascontiguousarray(ts.transpose(2, 1, 0)), device=self.device)
+        self._sart_w = None
         self.restart_recon()
 
     def restart_recon(self):
@@ -74,8 +88,91 @@ class TomoTorch:
         self.x = from_sl(st.x)
         return self
 
+    def sart(self, Niter: int = 150, init: str = "sequential",
+             beta: float = 1.0, show_convergence: bool = True):
+        """SART sweeps from zero (K8), 'sequential' or 'random' angle order.
+        With show_convergence, ``self.cost`` holds ||A x - b|| after each
+        sweep, read from the device once at the end."""
+        init = self._check_init(init)
+        self.restart_recon()
+        w = self._sart_weights()
+        beta_t = torch.tensor(beta, dtype=torch.float32, device=self.device)
+        x = to_sl(self.x)
+        orders = self._orders(init, Niter)
+        dds = []
+        for i in range(Niter):
+            x = sart_sweep_sl(x, self.b_sl, self.geom, self.sys.inv_row, w,
+                              beta_t, orders[i])
+            if show_convergence:
+                dds.append(data_distance_sl(x, self.b_sl, self.sys))
+        self.cost = (torch.stack(dds).cpu().numpy() if dds
+                     else np.zeros(Niter, np.float32))
+        self.x = from_sl(x)
+        return self
+
+    def asd_pocs(self, Niter: int = 100, eps: float = 0.025,
+                 beta0: float = 0.25, beta_reduce: float = 0.9985,
+                 r_max: float = 0.95, nTViter: int = 10, alpha: float = 0.2,
+                 alpha_reduce: float = 0.95, init: str = "sequential",
+                 show_convergence: bool = True, fused: bool = False):
+        """ASD-POCS from zero with the reference's working adaptation
+        (solvers/asd_pocs.py). Sets ``dd_vec``, ``tv_vec`` and ``cost`` (=
+        dd_vec); show_convergence is taken for the reference's signature,
+        which records them always. The default host loop reads dp, dd and
+        dg after every iteration and adapts beta and dpocs in Python, as
+        the reference's driver does; fused=True carries them on the device
+        (asd_pocs_run) and reads the metrics once at the end."""
+        init = self._check_init(init)
+        self.restart_recon()
+        params = AsdPocsParams(
+            niter=Niter, eps=eps, beta0=beta0, beta_red=beta_reduce,
+            r_max=r_max, ng=nTViter, alpha=alpha, alpha_red=alpha_reduce)
+        args = (to_sl(self.x), self.b_sl, self.sys, self._sart_weights(),
+                params, self._orders(init, Niter))
+        if fused:
+            x, dd_vec, tv_vec = asd_pocs_run(*args)
+            self.dd_vec = dd_vec.cpu().numpy()
+            self.tv_vec = tv_vec.cpu().numpy()
+        else:
+            x, self.dd_vec, self.tv_vec, _ = asd_pocs_host_loop(*args)
+        self.cost = self.dd_vec
+        self.x = from_sl(x)
+        return self
+
+    def data_distance(self) -> float:
+        """||A x - b|| of the current reconstruction (K1)."""
+        return float(data_distance_sl(to_sl(self.x), self.b_sl, self.sys))
+
+    def tv(self) -> float:
+        """Periodic isotropic TV of the current reconstruction (K5)."""
+        return float(tvmod.tv(self.x))
+
     def get_recon(self) -> np.ndarray:
         """The reconstruction, (Nslice, Nray, Nray) float32 numpy."""
         if self.recon is None:
             self.recon = self.x.cpu().numpy()
         return self.recon
+
+    @staticmethod
+    def _check_init(init: str) -> str:
+        if init not in ("sequential", "random"):
+            print(f"{init} order not supported. Defaulting to sequential.")
+            return "sequential"
+        return init
+
+    def _sart_weights(self) -> torch.Tensor:
+        if self._sart_w is None:
+            self._sart_w = make_sart_weights(self.sys)
+        return self._sart_w
+
+    def _orders(self, init: str, count: int) -> torch.Tensor:
+        """(count, Na) int32 visiting orders on the device: arange rows, or
+        permutations drawn from the instance's generator."""
+        na = self.geom.nproj
+        if init == "random":
+            orders = torch.empty((count, na), dtype=torch.int32)
+            for row in orders:
+                row.copy_(torch.randperm(na, generator=self._order_gen))
+        else:
+            orders = torch.arange(na, dtype=torch.int32).expand(count, -1)
+        return orders.to(self.device).contiguous()

@@ -31,6 +31,15 @@ def system_from_numpy(geom: Geometry, row_sum, col_sum, lipschitz,
                   _tensor(np.asarray(lipschitz).reshape(()), device))
 
 
+def sart_weights_from_numpy(inv_col_a, device) -> torch.Tensor:
+    """The (Na, N, N) per-angle inverse column sums of the reference's
+    ``make_sart_weights`` as a contiguous float32 tensor on `device`."""
+    w = np.asarray(inv_col_a)
+    if w.ndim != 3 or w.shape[1] != w.shape[2]:
+        raise ValueError(f"inv_col_a: shape {w.shape}, expected (Na, N, N)")
+    return _tensor(w, device)
+
+
 def state_sl_from_numpy(x, x_old, yk, t, ax_pad, resid_pad, na: int,
                         ns: int, device) -> FistaStateSL:
     """A FistaStateSL from the reference's slice-last state: volumes

@@ -9,7 +9,7 @@
 // (tomojax/projector/joseph.py). It holds at most two nonzero taps per
 // (pixel, angle) and per (bin, step), so both operators are 2-point
 // gathers with no scatter and no atomics.
-#include "common.cuh"
+#include "joseph.cuh"
 
 namespace {
 
@@ -24,17 +24,10 @@ constexpr int BP_MAX_ANGLES = 3072;  // 16 B each in shared memory (48 KB)
 // and _fp_resid_kernel (epilogue _fp_resid_epilogue), and with EPI false
 // _fp_banded_kernel and _fp_kernel.
 //
-// One thread per (angle a, bin j, slice s) walks the driving axis as
-// tomojax/projector/joseph.py:_fp_branch does: row-driven angles step over
-// rows r and interpolate two columns at
-//   pos = t_j / cos + y_r (-sin / cos) + (N-1)/2,
-// column-driven angles step over columns and interpolate two rows at
-//   pos = (N-1)/2 - t_j / sin + x_c (cos / sin);
-// out-of-range taps are masked, and the sum is scaled by 1/D.
-// tab[a] = {1/denom, shear, 1/|denom|, row_driven} from the host in f64
-// rounded to f32, exactly as the plain version uses them. The position is
-// computed with round-to-nearest intrinsics (no FMA contraction), so the
-// kernel picks the same taps as the plain version.
+// One thread per (angle a, bin j, slice s) walks the driving axis
+// (tj::fp_ray, joseph.cuh) and scales the sum by 1/D. tab[a] = {1/denom,
+// shear, 1/|denom|, row_driven} from the host in f64 rounded to f32,
+// exactly as the plain version uses them.
 //
 // Bound on the H100: gather issue. At 256^3 x 90 one launch makes
 // 90*256*256*256*2 = 3.0e9 tap loads, served from L1/L2 (the 64 MiB volume
@@ -61,44 +54,7 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
   const int a = blockIdx.z;
   const bool valid = s < ns && j < nt;
   const float4 t = tab[a];  // {inv_d, shear, scale, row_driven}
-  const float ctr = 0.5f * static_cast<float>(n - 1);
-  const float tdet =
-      static_cast<float>(j) - 0.5f * static_cast<float>(nt - 1);
-  const float base = __fmul_rn(tdet, t.x);
-  const size_t plane = static_cast<size_t>(n) * ns;
-
-  float acc = 0.f;
-  if (valid) {
-    if (t.w != 0.f) {  // row-driven: step over rows, taps along columns
-      for (int k = 0; k < n; ++k) {
-        const float coord = ctr - static_cast<float>(k);
-        const float pos = __fadd_rn(__fadd_rn(base, __fmul_rn(coord, t.y)),
-                                    ctr);
-        const float f = floorf(pos);
-        const float frac = pos - f;
-        const int i0 = static_cast<int>(f);
-        const float* row = x + k * plane + s;
-        const float v0 = (i0 >= 0 && i0 < n) ? row[i0 * ns] : 0.f;
-        const float v1 = (i0 + 1 >= 0 && i0 + 1 < n) ? row[(i0 + 1) * ns]
-                                                     : 0.f;
-        acc = fmaf(v1, frac, fmaf(v0, 1.f - frac, acc));
-      }
-    } else {  // column-driven: step over columns, taps along rows
-      for (int k = 0; k < n; ++k) {
-        const float coord = static_cast<float>(k) - ctr;
-        const float pos = __fadd_rn(__fsub_rn(ctr, base),
-                                    __fmul_rn(coord, t.y));
-        const float f = floorf(pos);
-        const float frac = pos - f;
-        const int i0 = static_cast<int>(f);
-        const float* col = x + static_cast<size_t>(k) * ns + s;
-        const float v0 = (i0 >= 0 && i0 < n) ? col[i0 * plane] : 0.f;
-        const float v1 = (i0 + 1 >= 0 && i0 + 1 < n) ? col[(i0 + 1) * plane]
-                                                     : 0.f;
-        acc = fmaf(v1, frac, fmaf(v0, 1.f - frac, acc));
-      }
-    }
-  }
+  const float acc = valid ? tj::fp_ray(x, t, n, nt, ns, j, s) : 0.f;
   const float axv = acc * t.z;
   const size_t o = (static_cast<size_t>(a) * nt + j) * ns + s;
   if (!EPI) {
@@ -126,10 +82,9 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
 // unfused); it also covers _bp_banded_kernel and _bp_kernel_ab, which
 // compute the same operator with other TPU tilings.
 //
-// One thread per voxel (r, c, s) loops over the angles as
-// tomojax/projector/joseph.py:_bp_impl does: J* = x_c cos + y_r sin +
-// (Nt-1)/2, then a 2-point gather at floor(J*) and floor(J*)+1 with hat
-// weights times 1/D. tab[a] = {cos, sin, 1/D, 0} in f32 sits in shared
+// One thread per voxel (r, c, s) loops over the angles, a 2-point gather
+// per angle (tj::bp_angle, joseph.cuh). tab[a] = {cos, sin, 1/D, 0} in f32
+// sits in shared
 // memory. With EPI (the FISTA/SIRT update) the result is
 // z = max(y_vol + inv_col[r, c] * acc, 0); without, plain A^T y.
 //
@@ -159,17 +114,8 @@ bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
 
   float acc = 0.f;
   for (int a = 0; a < na; ++a) {
-    const float4 t = stab[a];  // {cos, sin, 1/D, -}
-    const float jstar = __fadd_rn(__fadd_rn(__fmul_rn(t.x, xc),
-                                            __fmul_rn(t.y, yr)), off);
-    const float f = floorf(jstar);
-    const int j0 = static_cast<int>(f);
-    const float w0 = fmaxf(0.f, 1.f - fabsf(f - jstar) * t.z) * t.z;
-    const float w1 = fmaxf(0.f, 1.f - fabsf((f + 1.f) - jstar) * t.z) * t.z;
-    const float* ya = y + a * sino_plane + s;
-    const float v0 = (j0 >= 0 && j0 < nt) ? ya[j0 * ns] : 0.f;
-    const float v1 = (j0 + 1 >= 0 && j0 + 1 < nt) ? ya[(j0 + 1) * ns] : 0.f;
-    acc = fmaf(v1, w1, fmaf(v0, w0, acc));
+    acc = tj::bp_angle(y + a * sino_plane + s, stab[a], xc, yr, off, nt, ns,
+                       acc);
   }
   const size_t o = (static_cast<size_t>(r) * n + c) * ns + s;
   if (EPI) {

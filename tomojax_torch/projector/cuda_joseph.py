@@ -13,7 +13,9 @@ slice-last and unpadded: volumes ``(N, N, Ns)``, sinograms
 
 The plain versions are the 2-point gathers of the reference's XLA
 ``gather`` mode (``tomojax/projector/joseph.py`` ``_fp_branch`` and
-``_bp_impl``), the exact transpose pair. A wrapper runs its plain version
+``_bp_impl``), the exact transpose pair, built from one-angle bodies
+(``fp_angle_ref``, ``bp_angle_ref``) that the SART sweep's plain version
+(``solvers/cuda_sart.py``) shares. A wrapper runs its plain version
 only when its tensors lie on the CPU; on CUDA tensors it launches the
 kernel or raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
@@ -80,38 +82,38 @@ def _hat_taps(pos: torch.Tensor, n: int):
 # --------------------------------------------------------------- plain A x
 
 
-def fp_sl_ref(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
-    """Plain ``A x``: (N, N, Ns) -> (Na, Nt, Ns).
+def fp_angle_ref(x: torch.Tensor, t, n: int, nt: int) -> torch.Tensor:
+    """One angle's ``A_a x``: (N, N, Ns) -> (Nt, Ns).
 
-    The driving-axis walk of ``_fp_branch``: row-driven angles step over
-    rows and interpolate two columns, column-driven angles step over
-    columns and interpolate two rows; the sum is scaled by 1/D."""
-    n, _, ns = x.shape
-    nt, na = geom.nray, geom.nproj
-    tab = angle_tables(geom, x.device).fp
-    out = torch.zeros((na, nt, ns), dtype=F32, device=x.device)
-    tj = torch.arange(nt, dtype=F32, device=x.device) - (nt - 1) / 2.0
+    The driving-axis walk of ``_fp_branch`` as one 2-tap gather over all
+    driving steps: row-driven angles step over rows and interpolate two
+    columns, column-driven angles step over columns and interpolate two
+    rows; the sum is scaled by 1/D. t = (1/denom, shear, scale, row_driven)
+    floats, a row of ``angle_tables(...).fp``; positions are rounded in
+    the kernels' order."""
+    inv_d, shear, scale, row_driven = t
     ctr = (n - 1) / 2.0
-    rd_mask = torch.as_tensor(geom.row_driven, device=x.device)
-    for row_driven in (True, False):
-        idx = torch.nonzero(rd_mask == row_driven).flatten()
-        if idx.numel() == 0:
-            continue
-        inv_d, shear, scale = tab[idx, 0], tab[idx, 1], tab[idx, 2]
-        # (step, interp, Ns): rows then columns, or columns then rows
-        img = x if row_driven else x.transpose(0, 1)
-        base = tj[None, :] * inv_d[:, None]  # (A, Nt)
-        acc = torch.zeros((idx.numel(), nt, ns), dtype=F32, device=x.device)
-        for k in range(n):
-            if row_driven:
-                pos = base + (ctr - k) * shear[:, None] + ctr
-            else:
-                pos = (ctr - base) + (k - ctr) * shear[:, None]
-            i0, i1, w0, w1 = _hat_taps(pos, n)
-            plane = img[k]  # (interp, Ns)
-            acc = acc + plane[i0] * w0[..., None] + plane[i1] * w1[..., None]
-        out[idx] = acc * scale[:, None, None]
-    return out
+    steps = torch.arange(n, dtype=F32, device=x.device)
+    base = (torch.arange(nt, dtype=F32, device=x.device)
+            - (nt - 1) / 2.0) * inv_d  # (Nt,)
+    if row_driven:
+        pos = (base[None, :] + (ctr - steps)[:, None] * shear) + ctr
+    else:
+        pos = (ctr - base)[None, :] + (steps - ctr)[:, None] * shear
+    i0, i1, w0, w1 = _hat_taps(pos, n)  # (N steps, Nt)
+    k = torch.arange(n, device=x.device)[:, None]
+    if row_driven:  # x[step, tap, s]
+        v0, v1 = x[k, i0], x[k, i1]
+    else:  # x[tap, step, s]
+        v0, v1 = x[i0, k], x[i1, k]
+    return (v0 * w0[..., None] + v1 * w1[..., None]).sum(0) * scale
+
+
+def fp_sl_ref(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """Plain ``A x``: (N, N, Ns) -> (Na, Nt, Ns), `fp_angle_ref` for every
+    angle."""
+    tab = angle_tables(geom, torch.device("cpu")).fp.tolist()
+    return torch.stack([fp_angle_ref(x, t, geom.n, geom.nray) for t in tab])
 
 
 def fp_resid_sl_ref(x, geom: Geometry, b, ax_old, inv_row, beta):
@@ -128,34 +130,39 @@ def fp_resid_sl_ref(x, geom: Geometry, b, ax_old, inv_row, beta):
 # ------------------------------------------------------------- plain A^T y
 
 
-def bp_sl_ref(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
-    """Plain ``A^T y``: (Na, Nt, Ns) -> (N, N, Ns).
+def bp_angle_ref(ya: torch.Tensor, t, n: int, acc=0.0) -> torch.Tensor:
+    """``acc`` plus one angle's ``A_a^T ya``: (Nt, Ns) -> (N, N, Ns).
 
-    ``_bp_impl``: per angle, J* = x_c cos + y_r sin + (Nt-1)/2 at every
+    ``_bp_impl`` for one angle: J* = x_c cos + y_r sin + (Nt-1)/2 at every
     pixel and a 2-point gather at floor(J*), floor(J*)+1 with weights
-    hat((j - J*)/D)/D."""
-    na, nt, ns = y.shape
-    n = geom.n
-    tab = angle_tables(geom, torch.device("cpu")).bp.numpy()
+    hat((j - J*)/D)/D. t = (cos, sin, 1/D, -) floats, a row of
+    ``angle_tables(...).bp``."""
+    c, s, invd = t[:3]
+    nt = ya.shape[0]
     ctr = (n - 1) / 2.0
-    xc = torch.arange(n, dtype=F32, device=y.device) - ctr
-    yr = ctr - torch.arange(n, dtype=F32, device=y.device)
-    off = (nt - 1) / 2.0
-    acc = torch.zeros((n, n, ns), dtype=F32, device=y.device)
-    for a in range(na):
-        c, s, invd = (float(v) for v in tab[a, :3])
-        jstar = c * xc[None, :] + s * yr[:, None] + off  # (N, N)
-        f = torch.floor(jstar)
-        j0 = f.to(torch.int64)
-        j1 = j0 + 1
-        w0 = torch.clamp_min(1.0 - torch.abs(f - jstar) * invd, 0.0) * invd
-        w1 = torch.clamp_min(1.0 - torch.abs((f + 1.0) - jstar) * invd,
-                             0.0) * invd
-        w0 = torch.where((j0 >= 0) & (j0 < nt), w0, 0.0)
-        w1 = torch.where((j1 >= 0) & (j1 < nt), w1, 0.0)
-        ya = y[a]  # (Nt, Ns)
-        acc = (acc + ya[j0.clamp(0, nt - 1)] * w0[..., None]
-               + ya[j1.clamp(0, nt - 1)] * w1[..., None])
+    xc = torch.arange(n, dtype=F32, device=ya.device) - ctr
+    yr = ctr - torch.arange(n, dtype=F32, device=ya.device)
+    jstar = c * xc[None, :] + s * yr[:, None] + (nt - 1) / 2.0  # (N, N)
+    f = torch.floor(jstar)
+    j0 = f.to(torch.int64)
+    j1 = j0 + 1
+    w0 = torch.clamp_min(1.0 - torch.abs(f - jstar) * invd, 0.0) * invd
+    w1 = torch.clamp_min(1.0 - torch.abs((f + 1.0) - jstar) * invd,
+                         0.0) * invd
+    w0 = torch.where((j0 >= 0) & (j0 < nt), w0, 0.0)
+    w1 = torch.where((j1 >= 0) & (j1 < nt), w1, 0.0)
+    return (acc + ya[j0.clamp(0, nt - 1)] * w0[..., None]
+            + ya[j1.clamp(0, nt - 1)] * w1[..., None])
+
+
+def bp_sl_ref(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """Plain ``A^T y``: (Na, Nt, Ns) -> (N, N, Ns), `bp_angle_ref` summed
+    over the angles."""
+    tab = angle_tables(geom, torch.device("cpu")).bp.tolist()
+    acc = torch.zeros((geom.n, geom.n, y.shape[-1]), dtype=F32,
+                      device=y.device)
+    for a in range(y.shape[0]):
+        acc = bp_angle_ref(y[a], tab[a], geom.n, acc)
     return acc
 
 

@@ -5,7 +5,8 @@ One weight set serves every slice, as in the reference: row sums A 1
 over the sinogram plane, column sums A^T 1 over the image plane, and the
 Lipschitz estimate max(A^T A 1). The port keeps them without the
 reference's leading batch axis: ``row_sum`` is (Na, Nt) and ``col_sum``
-(N, N).
+(N, N). ``bp_single_angle`` gives the per-angle column sums that SART
+weights its steps with (``solvers/iterative.make_sart_weights``).
 """
 
 from __future__ import annotations
@@ -57,3 +58,33 @@ def make_system(geom: Geometry, device) -> System:
     lip = torch.max(bp_sl(row, geom))
     return System(geom, row[:, :, 0].contiguous(), col[:, :, 0].contiguous(),
                   lip)
+
+
+def bp_single_angle(y: torch.Tensor, cosv, sinv, n: int) -> torch.Tensor:
+    """Backprojection of one angle per row of ``y``: (B, Nt) -> (B, N, N).
+
+    Counterpart of ``tomojax/solvers/base.py:bp_single_angle``, with the
+    same float32 arithmetic (D = max(|cos|, |sin|) and 1/D in float32).
+    cosv and sinv are 0-dim (every row at that angle) or (B,) tensors or
+    numbers (row b at angle b); ``bp_single_angle(ones((Na, Nt)), cos,
+    sin, n)`` gives all Na per-angle column sums at once."""
+    f32 = torch.float32
+    nb, nt = y.shape
+    cosv = torch.as_tensor(cosv, dtype=f32, device=y.device).reshape(-1, 1, 1)
+    sinv = torch.as_tensor(sinv, dtype=f32, device=y.device).reshape(-1, 1, 1)
+    xc = torch.arange(n, dtype=f32, device=y.device) - (n - 1) / 2.0
+    yr = (n - 1) / 2.0 - torch.arange(n, dtype=f32, device=y.device)
+    invd = 1.0 / torch.maximum(cosv.abs(), sinv.abs())
+    jstar = cosv * xc[None, None, :] + sinv * yr[None, :, None] + (nt - 1) / 2.0
+    j0 = torch.floor(jstar).to(torch.int64)
+    j1 = j0 + 1
+    w0 = torch.clamp_min(1.0 - torch.abs(j0 - jstar) * invd, 0.0) * invd
+    w1 = torch.clamp_min(1.0 - torch.abs(j1 - jstar) * invd, 0.0) * invd
+    w0 = torch.where((j0 >= 0) & (j0 < nt), w0, 0.0)
+    w1 = torch.where((j1 >= 0) & (j1 < nt), w1, 0.0)
+
+    def gather(j):  # y[b, j[b or 0, r, c]] -> (B, N, N)
+        idx = j.clamp(0, nt - 1).reshape(j.shape[0], n * n).expand(nb, -1)
+        return torch.gather(y, 1, idx).reshape(nb, n, n)
+
+    return gather(j0) * w0 + gather(j1) * w1

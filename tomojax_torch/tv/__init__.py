@@ -1,11 +1,13 @@
-"""Total-variation value and FGP prox (counterpart of ``tomojax.tv``).
+"""Total-variation value, subgradient descent and FGP prox (counterpart
+of ``tomojax.tv``).
 
 Semantics are the reference's (``tomojax/tv/__init__.py``): the TV value
-is isotropic with periodic wrap and eps = 1e-6; the FGP prox uses the
-zero-boundary divergence/gradient chain, dual step 1/(26 lam), no dual
-momentum, a nonnegativity clamp and the isotropic dual-ball projection.
-Both dispatch by device inside their kernel wrappers (plain PyTorch on
-the CPU, the CUDA kernels on the card).
+is isotropic with periodic wrap and eps = 1e-6; TV-GD takes normalised
+steps along the periodic 4-term subgradient with the global norm; the FGP
+prox uses the zero-boundary divergence/gradient chain, dual step
+1/(26 lam), no dual momentum, a nonnegativity clamp and the isotropic
+dual-ball projection. All dispatch by device inside their kernel wrappers
+(plain PyTorch on the CPU, the CUDA kernels on the card).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from tomojax_torch.tv.cuda_fgp import tv_fgp_fused
 from tomojax_torch.tv.cuda_tv_value import EPS_TV, tv_value
+from tomojax_torch.tv.cuda_tvgd import tv_grad
 
 
 def tv(x: torch.Tensor) -> torch.Tensor:
@@ -33,4 +36,21 @@ def tv_fgp(x: torch.Tensor, n_iter: int, lam: float, dual_dtype=None):
     return tv_fgp_fused(x, n_iter, lam, dual_dtype), tv(x)
 
 
-__all__ = ["EPS_TV", "tv", "tv_fgp", "tv_fgp_fused", "tv_value"]
+def tv_gd(x: torch.Tensor, ng: int, dpocs):
+    """`ng` normalised TV-subgradient steps ``x -= dpocs g / ||g||_2``
+    (global norm, no eps), then positivity, of a slice-last 3D volume.
+
+    Returns (x_new, tv_of_input), as ``tomojax.tv.tv_gd`` does for 3D
+    inputs. dpocs is a float or a 0-dim tensor on x's device; the norm
+    stays on the device (K7), so the steps never wait for the host."""
+    if x.dim() != 3:
+        raise ValueError(f"tv_gd takes a 3D volume, got {tuple(x.shape)}")
+    tv0 = tv(x)
+    for _ in range(ng):
+        g, gsq = tv_grad(x)
+        x = x - dpocs * g / torch.sqrt(gsq)
+    return torch.clamp_min(x, 0.0), tv0
+
+
+__all__ = ["EPS_TV", "tv", "tv_fgp", "tv_fgp_fused", "tv_gd", "tv_grad",
+           "tv_value"]
