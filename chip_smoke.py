@@ -14,6 +14,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the main paths' shapes (256^3 volumes, 90 x 256 x 256 sinograms), with
    the error, the tolerance and both median times; the SART sweep (K8) at
    three levels: one angle step, one sweep, convergence after 5 sweeps;
+   the slab kernels K9a/K9b/K9c (and K5's right halo) on a 256^3 volume
+   cut into 4 slabs of 64 slices, each rank role (bottom, interior, top)
+   against the plain version with random halo planes, and on the whole
+   256^3 volume as the one rank of phase 4c's group (the shape and halos
+   that path gives them, where they are timed), then 4-slab chains
+   in one process (10 FGP iterations with f32 and bf16 duals, 10 TV-GD
+   gradients) against K3/K4 and K7 on the whole volume;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, and with every plain version made to raise:
    a. FISTA-TV: TomoTorch on the 256 x 256^2 x 90 nanocube problem (one
@@ -23,6 +30,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       iteration, then 5) and TomoTorch.sart (2 sweeps), then the
       functional asd_pocs_run and one sart_sweep_sl, timed with CUDA
       events;
+   c. the slab-sharded path: an NCCL group of world size 1 (file store
+      under build/), TomoTorch(..., group=g).fista (10 iterations) and
+      .asd_pocs (5) on the same problem, and the functional runs with the
+      group; their traces against the unsharded path's (FISTA dd and tv
+      rtol 1e-5, ASD-POCS dd rtol 1e-3) and ms/iteration of both paths;
    every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
@@ -39,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -75,6 +88,24 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of the kernels one call of `fn` launches (mean of `reps`
+    calls after a warm-up, from torch.profiler's CUDA events): unlike
+    `time_ms` it leaves out the gaps while the host issues the launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == cuda)
+    return us / reps / 1e3
 
 
 def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -122,7 +153,10 @@ def phase_build() -> None:
 def _kernel_table():
     from tomojax_torch.projector import cuda_joseph as cj
     from tomojax_torch.solvers import cuda_sart
-    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd
+    from tomojax_torch.tv import (
+        cuda_fgp, cuda_fgp_sharded, cuda_tv_value, cuda_tvgd,
+        cuda_tvgd_sharded,
+    )
 
     return {
         "K1_fp_resid": (cj.fp_resid_sl, "tomojax_torch/csrc/joseph.cu",
@@ -145,6 +179,15 @@ def _kernel_table():
         "K8_sart_sweep": (cuda_sart.sart_sweep_sl,
                           "tomojax_torch/csrc/sart.cu",
                           "tomojax/solvers/pallas_sart.py:217"),
+        "K9a_fgp_iter_halo": (cuda_fgp_sharded.fgp_iter_halo,
+                              "tomojax_torch/csrc/fgp.cu",
+                              "tomojax/tv/pallas_fgp_sharded.py:40"),
+        "K9b_fgp_obj_halo": (cuda_fgp_sharded.fgp_obj_halo,
+                             "tomojax_torch/csrc/fgp.cu",
+                             "tomojax/tv/pallas_fgp_sharded.py:110"),
+        "K9c_tv_grad_halo": (cuda_tvgd_sharded.tv_grad_halo,
+                             "tomojax_torch/csrc/tvgd.cu",
+                             "tomojax/tv/pallas_tvgd_sharded.py:42"),
     }
 
 
@@ -282,6 +325,8 @@ def phase_kernels(card: str) -> dict:
            f" (||g||^2 rel {gsq_rel:.2e} <= 2e-5; two runs identical)")
 
     _check_sart(geom, ns, uni, report)
+    _check_halo_kernels(x, uni, report, card)
+    _check_slab_chains(x, x_old, beta)
     return rows
 
 
@@ -336,6 +381,209 @@ def _check_sart(geom, ns: int, uni, report) -> None:
            f"<= 1e-4)")
 
 
+SLABS = 4  # phase 3's emulated ranks: 256^3 as 4 slabs of 64 slices
+
+
+def _slabs(x: torch.Tensor):
+    n = x.shape[2] // SLABS
+    return [x[:, :, i * n:(i + 1) * n].contiguous() for i in range(SLABS)]
+
+
+def _first(t):
+    return t[:, :, 0].contiguous()
+
+
+def _last(t):
+    return t[:, :, -1].contiguous()
+
+
+def _check_halo_kernels(x: torch.Tensor, uni, report, card: str) -> None:
+    """K9a/K9b/K9c and K5's right halo against their plain versions: on one
+    64-slice slab with random halo planes, once per rank role: bottom (zero
+    P3 plane below), interior, top (no right halo on the FGP chain), K9c's
+    ring giving every role both planes; then on the whole 256^3 volume as
+    the one rank of phase 4c's group, where they are timed."""
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd
+    from tomojax_torch.tv import cuda_fgp_sharded as fs
+    from tomojax_torch.tv import cuda_tvgd_sharded as gs
+
+    dev = x.device
+    slab = _slabs(x)[1]
+    plane_shape = slab.shape[:2]
+    p = tuple((uni(*slab.shape) - 0.5).to(torch.bfloat16) for _ in range(3))
+    x_old, beta = uni(*slab.shape), torch.tensor(0.3, device=dev)
+    roles = {}
+    for role in ("bottom", "interior", "top"):
+        lo = (torch.zeros(plane_shape, dtype=torch.bfloat16, device=dev)
+              if role == "bottom" else (uni(*plane_shape) - 0.5).bfloat16())
+        hi = None if role == "top" else (
+            uni(*plane_shape), *((uni(*plane_shape) - 0.5).bfloat16()
+                                 for _ in range(3)))
+        got = _launched(fs.fgp_iter_halo,
+                        lambda: fs.fgp_iter_halo(slab, *p, LAM, lo, hi))
+        ref = fs.fgp_iter_halo_ref(slab, *p, LAM, lo, hi)
+        e_a = max(max_err(g.float(), r.float()) for g, r in zip(got, ref))
+        got = _launched(fs.fgp_obj_halo, lambda: fs.fgp_obj_halo(
+            slab, *p, LAM, lo, x_old, beta))
+        ref = fs.fgp_obj_halo_ref(slab, *p, LAM, lo, x_old, beta)
+        e_b = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+        t_b = 1e-6 * float(ref[1].abs().max())
+        lo_x, hi_x = uni(*plane_shape), uni(*plane_shape)
+        g, gsq = _launched(gs.tv_grad_halo,
+                           lambda: gs.tv_grad_halo(slab, lo_x, hi_x))
+        g_r, gsq_r = gs.tv_grad_halo_ref(slab, lo_x, hi_x)
+        e_c, t_c = max_err(g, g_r), 1e-5 * float(g_r.abs().max())
+        gsq_rel = abs(float(gsq) - float(gsq_r)) / float(gsq_r)
+        tv_rel = abs(float(cuda_tv_value.tv_value(slab, hi_x))
+                     - float(cuda_tv_value.tv_value_ref(slab, hi_x))) \
+            / float(cuda_tv_value.tv_value_ref(slab, hi_x))
+        require(e_a <= 2 ** -7 and e_b <= t_b and e_c <= t_c
+                and gsq_rel <= 2e-5 and tv_rel <= 2e-5,
+                f"{role} slab: K9a {e_a:.3e} (<= 2^-7), K9b {e_b:.3e} "
+                f"(<= {t_b:.3e}), K9c {e_c:.3e} (<= {t_c:.3e}), ||g||^2 rel "
+                f"{gsq_rel:.3e} (<= 2e-5), K5 halo rel {tv_rel:.3e} (<= 2e-5)")
+        roles[role] = (e_a, e_b, t_b, e_c, t_c, gsq_rel, tv_rel)
+    print("K9 per role (bottom, interior, top) on a 256x256x64 slab: "
+          + "; ".join(f"{r}: K9a {v[0]:.2e}, K9b {v[1]:.2e}, K9c {v[3]:.2e}, "
+                      f"||g||^2 rel {v[5]:.2e}, K5 halo rel {v[6]:.2e}"
+                      for r, v in roles.items()))
+    # The world-size-1 role at 256^3, the shape and halos that the sharded
+    # main path (phase 4c) gives the kernels: the top of a chain of one (a
+    # zero P3 plane below, no right halo) and a ring whose halos are the
+    # volume's own last and first slices. The rows report this error beside
+    # the 256^3 times; device times of each K9 kernel and its unsharded
+    # twin follow, on the whole volume and on the 64-slice slab.
+    p_all = tuple((uni(*x.shape) - 0.5).to(torch.bfloat16) for _ in range(3))
+    zero = torch.zeros(x.shape[:2], dtype=torch.bfloat16, device=dev)
+    x_old_all = uni(*x.shape)
+    lo_x, hi_x = _last(x), _first(x)
+    got = _launched(fs.fgp_iter_halo,
+                    lambda: fs.fgp_iter_halo(x, *p_all, LAM, zero))
+    ref = fs.fgp_iter_halo_ref(x, *p_all, LAM, zero)
+    s_a = max(max_err(g.float(), r.float()) for g, r in zip(got, ref))
+    got = _launched(fs.fgp_obj_halo, lambda: fs.fgp_obj_halo(
+        x, *p_all, LAM, zero, x_old_all, beta))
+    ref = fs.fgp_obj_halo_ref(x, *p_all, LAM, zero, x_old_all, beta)
+    s_b = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    s_tb = 1e-6 * float(ref[1].abs().max())
+    g, gsq = _launched(gs.tv_grad_halo, lambda: gs.tv_grad_halo(x, lo_x, hi_x))
+    g_r, gsq_r = gs.tv_grad_halo_ref(x, lo_x, hi_x)
+    s_c, s_tc = max_err(g, g_r), 1e-5 * float(g_r.abs().max())
+    s_gsq = abs(float(gsq) - float(gsq_r)) / float(gsq_r)
+    tv_r = float(cuda_tv_value.tv_value_ref(x, hi_x))
+    s_tv = abs(float(cuda_tv_value.tv_value(x, hi_x)) - tv_r) / tv_r
+    require(s_gsq <= 2e-5 and s_tv <= 2e-5,
+            f"world size 1 at 256^3: ||g||^2 rel {s_gsq:.3e} (<= 2e-5), K5 "
+            f"halo rel {s_tv:.3e} (<= 2e-5)")
+    worst = [max(v[i] for v in roles.values()) for i in (0, 1, 3)]
+    report("K9a_fgp_iter_halo", s_a, 2 ** -7,
+           time_ms(lambda: fs.fgp_iter_halo(x, *p_all, LAM, zero), 10),
+           time_ms(lambda: fs.fgp_iter_halo_ref(x, *p_all, LAM, zero), 5),
+           f" (256^3, world size 1, bf16 duals; worst of the 3 slab roles "
+           f"{worst[0]:.2e})")
+    report("K9b_fgp_obj_halo", s_b, s_tb,
+           time_ms(lambda: fs.fgp_obj_halo(x, *p_all, LAM, zero, x_old_all,
+                                           beta), 10),
+           time_ms(lambda: fs.fgp_obj_halo_ref(x, *p_all, LAM, zero,
+                                               x_old_all, beta), 5),
+           f" (256^3, world size 1, bf16 duals, Nesterov epilogue, bound "
+           f"1e-6 max|y|; worst of the 3 slab roles {worst[1]:.2e})")
+    report("K9c_tv_grad_halo", s_c, s_tc,
+           time_ms(lambda: gs.tv_grad_halo(x, lo_x, hi_x), 10),
+           time_ms(lambda: gs.tv_grad_halo_ref(x, lo_x, hi_x), 5),
+           f" (256^3, world size 1, bound 1e-5 max|g|; ||g||^2 rel "
+           f"{s_gsq:.2e} <= 2e-5; K5 with its own first slice as right "
+           f"halo rel {s_tv:.2e} <= 2e-5; worst of the 3 slab roles "
+           f"{worst[2]:.2e})")
+    lo = (uni(*plane_shape) - 0.5).bfloat16()
+    hi = (uni(*plane_shape), *((uni(*plane_shape) - 0.5).bfloat16()
+                               for _ in range(3)))
+    pairs = {
+        "K9a top/K3": (lambda v, q: fs.fgp_iter_halo(v, *q, LAM, zero),
+                       lambda v, q: cuda_fgp.fgp_iter(v, *q, LAM)),
+        "K9a interior/K3": (lambda v, q: fs.fgp_iter_halo(v, *q, LAM, lo,
+                                                          hi),
+                            lambda v, q: cuda_fgp.fgp_iter(v, *q, LAM)),
+        "K9b/K4": (lambda v, q: fs.fgp_obj_halo(v, *q, LAM, lo),
+                   lambda v, q: cuda_fgp.fgp_obj_mom(v, *q, LAM)),
+        "K9c/K7": (lambda v, q: gs.tv_grad_halo(v, lo_x, hi_x),
+                   lambda v, q: cuda_tvgd.tv_grad(v)),
+    }
+    out = []
+    for shape, v, q in (("256^3", x, p_all), ("256x256x64", slab, p)):
+        out.append(f"{shape}: " + ", ".join(
+            f"{k} {device_ms(lambda: a(v, q)):.4f}/"
+            f"{device_ms(lambda: b(v, q)):.4f}" for k, (a, b) in pairs.items()))
+    print("K9 device ms (torch.profiler, kernel/twin) " + "; ".join(out)
+          + f" [{card}]")
+
+
+def _check_slab_chains(x: torch.Tensor, x_old: torch.Tensor, beta) -> None:
+    """4 emulated slabs in one process, halo planes sliced from the
+    neighbouring slabs: 10 FGP iterations (K9a x 9, K9b) with f32 and bf16
+    duals against K3/K4 on the whole volume, bound 0.0 (shared bodies);
+    10 TV-GD gradients (K9c) at the whole-volume descent's iterates against
+    K7, bound 0.0, and the slab descent (the slabs' ||g||^2 summed) against
+    the whole-volume one, bound 1e-6 max|x| (the norm is summed in another
+    order)."""
+    from tomojax_torch.tv import cuda_fgp_sharded as fs
+    from tomojax_torch.tv import cuda_tvgd_sharded as gs
+    from tomojax_torch.tv.cuda_fgp import tv_fgp_fused
+    from tomojax_torch.tv.cuda_tvgd import tv_grad
+
+    xs, olds = _slabs(x), _slabs(x_old)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        zero = torch.zeros(x.shape[:2], dtype=dt, device=x.device)
+        p = [tuple(torch.zeros_like(s, dtype=dt) for _ in range(3))
+             for s in xs]
+        for _ in range(N_TV - 1):
+            p = [fs.fgp_iter_halo(
+                xs[i], *p[i], LAM, _last(p[i - 1][2]) if i else zero,
+                None if i == SLABS - 1 else (
+                    _first(xs[i + 1]), *(_first(q) for q in p[i + 1])))
+                 for i in range(SLABS)]
+        out = [fs.fgp_obj_halo(xs[i], *p[i], LAM,
+                               _last(p[i - 1][2]) if i else zero, olds[i],
+                               beta) for i in range(SLABS)]
+        d, y = tv_fgp_fused(x, N_TV, LAM, dual_dtype=dt, mom=(x_old, beta))
+        errs[dt] = max(max_err(torch.cat([o[0] for o in out], 2), d),
+                       max_err(torch.cat([o[1] for o in out], 2), y))
+    require(max(errs.values()) == 0.0,
+            f"4-slab FGP chain vs K3/K4: f32 {errs[torch.float32]:.3e}, "
+            f"bf16 {errs[torch.bfloat16]:.3e} (bound 0.0)")
+
+    def halos(parts, i):
+        return _last(parts[i - 1]), _first(parts[(i + 1) % SLABS])
+
+    dpocs = 0.02 * float(x.abs().max())
+    xw, xc = x, xs
+    g_err = gsq_rel = 0.0
+    for _ in range(N_TV):
+        g, gsq = tv_grad(xw)
+        parts = _slabs(xw)
+        at_w = [gs.tv_grad_halo(parts[i], *halos(parts, i))
+                for i in range(SLABS)]
+        g_err = max(g_err, max_err(torch.cat([o[0] for o in at_w], 2), g))
+        gsq_rel = max(gsq_rel, abs(float(sum(o[1] for o in at_w))
+                                   - float(gsq)) / float(gsq))
+        xw = xw - dpocs * g / torch.sqrt(gsq)
+        own = [gs.tv_grad_halo(xc[i], *halos(xc, i)) for i in range(SLABS)]
+        total = sum(o[1] for o in own)
+        xc = [s - dpocs * o[0] / torch.sqrt(total) for s, o in zip(xc, own)]
+    x_err = max_err(torch.cat(xc, 2), xw)
+    x_tol = 1e-6 * float(x.abs().max())
+    require(g_err == 0.0 and x_err <= x_tol,
+            f"4-slab TV-GD vs K7: g {g_err:.3e} (bound 0.0), x after "
+            f"{N_TV} steps {x_err:.3e} (bound {x_tol:.3e})")
+    print(f"4-slab chains at 256^3: FGP ({N_TV} iterations, Nesterov "
+          f"epilogue) vs K3/K4 f32 duals {errs[torch.float32]:.1e}, bf16 "
+          f"{errs[torch.bfloat16]:.1e} (bound 0.0); TV-GD ({N_TV} gradients) "
+          f"g vs K7 {g_err:.1e} (bound 0.0), ||g||^2 summed over slabs rel "
+          f"{gsq_rel:.2e}, x after {N_TV} steps {x_err:.3e} <= {x_tol:.3e} "
+          f"(1e-6 max|x|)")
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -345,13 +593,18 @@ def plain_versions_forbidden():
     tensors the wrappers must launch their kernels."""
     from tomojax_torch.projector import cuda_joseph
     from tomojax_torch.solvers import cuda_sart
-    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd
+    from tomojax_torch.tv import (
+        cuda_fgp, cuda_fgp_sharded, cuda_tv_value, cuda_tvgd,
+        cuda_tvgd_sharded,
+    )
 
     names = {cuda_joseph: ["fp_sl_ref", "fp_resid_sl_ref", "bp_sl_ref",
                            "bp_sirt_sl_ref"],
              cuda_fgp: ["fgp_iter_ref", "fgp_obj_mom_ref"],
+             cuda_fgp_sharded: ["fgp_iter_halo_ref", "fgp_obj_halo_ref"],
              cuda_tv_value: ["tv_value_ref"],
              cuda_tvgd: ["tv_grad_ref"],
+             cuda_tvgd_sharded: ["tv_grad_halo_ref"],
              cuda_sart: ["sart_sweep_sl_ref"]}
     saved = {(m, k): getattr(m, k) for m, ks in names.items() for k in ks}
 
@@ -373,6 +626,9 @@ FISTA_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp", "K3_fgp_iter",
                  "K4_fgp_obj_mom", "K5_tv_value")
 ASD_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp", "K5_tv_value", "K7_tv_grad",
                "K8_sart_sweep")
+SHARDED_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp",
+                   "K5_tv_value", "K8_sart_sweep", "K9a_fgp_iter_halo",
+                   "K9b_fgp_obj_halo", "K9c_tv_grad_halo")
 
 
 def _reset(kernels: dict) -> None:
@@ -507,6 +763,121 @@ def phase_asd_path(card: str, kernels: dict) -> dict:
     return counts
 
 
+def _events_ms(fn):
+    """fn's result and its time on the card (CUDA events around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_sharded_path(card: str, kernels: dict) -> dict:
+    """The slab-sharded path through an NCCL group of world size 1: one
+    slab holds the whole volume, the ring halos are local copies, the chain
+    ends are zeros and every scalar goes through an NCCL all-reduce."""
+    import torch.distributed as dist
+
+    from tomojax_torch import TomoTorch
+    from tomojax_torch.dist import init_distributed
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+    from tomojax_torch.solvers import (
+        AsdPocsParams, asd_pocs_run, fista_init_sl, fista_run_sl,
+        make_sart_weights,
+    )
+
+    require(dist.is_available() and dist.is_nccl_available(),
+            "torch.distributed has no NCCL backend")
+    ns, n, na, iters, asd_iters = 256, 256, 90, 10, 5
+    angles = np.linspace(-76, 76, na)
+    dev = torch.device("cuda")
+    store = ROOT / "build" / f"chip_smoke_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    group = init_distributed(f"file://{store}", 1, 0, device="cuda")
+    try:
+        vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
+        b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
+        series = b.permute(0, 2, 1).cpu().numpy()
+        zeros = torch.zeros((ns, n, n), device=dev)
+        _reset(kernels)
+        with plain_versions_forbidden():
+            tomo = TomoTorch(angles, series, group=group)
+            tomo.fista(Niter=1, lambda_param=LAM, nTViter=N_TV)  # warm-up
+            tomo.fista(Niter=iters, lambda_param=LAM, nTViter=N_TV)
+            sh_cost = tomo.cost.copy()
+            recon = tomo.get_recon()
+            st = fista_init_sl(zeros, tomo.sys, tomo.b_sl)
+            (_, sh_m), sh_fista_ms = _events_ms(lambda: fista_run_sl(
+                st, tomo.b_sl, tomo.sys, LAM, iters, N_TV, group=group))
+            tomo.asd_pocs(Niter=1)  # warm-up
+            tomo.asd_pocs(Niter=asd_iters)
+            sh_dd, sh_tv = tomo.dd_vec.copy(), tomo.tv_vec.copy()
+            w = make_sart_weights(tomo.sys)
+            x0 = torch.zeros((n, n, ns), device=dev)
+            params = AsdPocsParams(niter=asd_iters)
+            (_, sh_run_dd, _), sh_asd_ms = _events_ms(lambda: asd_pocs_run(
+                x0, tomo.b_sl, tomo.sys, w, params, group=group))
+        counts = _read(kernels, "sharded path (NCCL, world size 1)",
+                       SHARDED_KERNELS)
+        # the unsharded path on the same problem, then both in turn
+        # (unsharded, sharded, sharded, unsharded) for the times
+        with plain_versions_forbidden():
+            ref = TomoTorch(angles, series, device="cuda")
+            ref.fista(Niter=iters, lambda_param=LAM, nTViter=N_TV)
+            un_cost = ref.cost.copy()
+            ref.asd_pocs(Niter=asd_iters)
+            times = {"fista": {True: [sh_fista_ms], False: []},
+                     "asd": {True: [sh_asd_ms], False: []}}
+            for sharded in (False, True, False):
+                g = group if sharded else None
+                (_, m), ms = _events_ms(lambda: fista_run_sl(
+                    st, ref.b_sl, ref.sys, LAM, iters, N_TV, group=g))
+                times["fista"][sharded].append(ms)
+                if not sharded:
+                    un_m = m
+                (_, dd, _), ms = _events_ms(lambda: asd_pocs_run(
+                    x0, ref.b_sl, ref.sys, w, params, group=g))
+                times["asd"][sharded].append(ms)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    sh_m, un_m = sh_m.cpu().numpy(), un_m.cpu().numpy()
+
+    def rel(a, b_):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b_))
+                            / np.abs(np.asarray(b_))))
+
+    dev_dd, dev_tv = rel(sh_m[:, 1], un_m[:, 1]), rel(sh_m[:, 2], un_m[:, 2])
+    dev_cost, dev_asd = rel(sh_cost, un_cost), rel(sh_dd, ref.dd_vec)
+    require(recon.shape == (ns, n, n) and bool(np.isfinite(recon).all()),
+            "sharded TomoTorch.fista reconstruction is not finite")
+    require(bool(np.isfinite(sh_run_dd.cpu().numpy()).all())
+            and bool((sh_tv > 0).all()), "sharded ASD-POCS is not finite")
+    require(dev_dd <= 1e-5 and dev_tv <= 1e-5 and dev_cost <= 1e-5,
+            f"sharded FISTA trace vs unsharded: dd {dev_dd:.3e}, tv "
+            f"{dev_tv:.3e}, cost {dev_cost:.3e} (rtol 1e-5)")
+    require(dev_asd <= 1e-3, f"sharded ASD-POCS dd vs unsharded: "
+                             f"{dev_asd:.3e} (rtol 1e-3)")
+    f_sh = statistics.median(times["fista"][True]) / iters
+    f_un = statistics.median(times["fista"][False]) / iters
+    a_sh = statistics.median(times["asd"][True]) / asd_iters
+    a_un = statistics.median(times["asd"][False]) / asd_iters
+    print(f"sharded path {ns}x{n}^2x{na}, NCCL group of world size 1: "
+          f"FISTA trace vs unsharded max rel dd {dev_dd:.2e}, tv "
+          f"{dev_tv:.2e}, cost {dev_cost:.2e} (rtol 1e-5); ASD-POCS dd "
+          f"{dev_asd:.2e} (rtol 1e-3)")
+    print(f"  fista_run_sl ms/iter: sharded {f_sh:.3f}, unsharded "
+          f"{f_un:.3f} (+{100 * (f_sh / f_un - 1):.2f} %); asd_pocs_run "
+          f"ms/iter: sharded {a_sh:.3f}, unsharded {a_un:.3f} "
+          f"(+{100 * (a_sh / a_un - 1):.2f} %); median of 2 runs each, "
+          f"in turn [{card}]")
+    return counts
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -599,15 +970,17 @@ def main() -> int:
         rows = phase_kernels(card)
         counts = phase_main_path(card, kernels)
         asd_counts = phase_asd_path(card, kernels)
+        sharded_counts = phase_sharded_path(card, kernels)
         phase_golden(card)
         phase_golden_asd(card)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: the kernel's count over the two main paths' runs
+    # launches: the kernel's count over the three main paths' runs
     report = [{"name": name, "route": "cuda", "source": src,
-               "replaces": rep, "launches": counts[name] + asd_counts[name],
-               **rows[name]}
+               "replaces": rep,
+               "launches": counts[name] + asd_counts[name]
+               + sharded_counts[name], **rows[name]}
               for name, (_, src, rep) in kernels.items()]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -56,7 +56,9 @@ def test_fista_matches_tomotpu(monkeypatch, momentum):
 def test_import_leaves_jax_out():
     code = ("import sys, tomojax_torch, tomojax_torch.convert, "
             "tomojax_torch.solvers.asd_pocs, tomojax_torch.solvers.cuda_sart, "
-            "tomojax_torch.solvers.iterative, tomojax_torch.tv.cuda_tvgd; "
+            "tomojax_torch.solvers.iterative, tomojax_torch.tv.cuda_tvgd, "
+            "tomojax_torch.dist, tomojax_torch.tv.cuda_fgp_sharded, "
+            "tomojax_torch.tv.cuda_tvgd_sharded; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tomojax' not in sys.modules, 'tomojax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -74,3 +76,12 @@ def test_tilt_series_angle_mismatch_raises():
     with pytest.raises(ValueError):
         TomoTorch(ANGLES, np.zeros((2, N, len(ANGLES) - 1), np.float32),
                   device="cpu")
+
+
+def test_device_and_group_together_raise():
+    from tomojax_torch.dist import SlabGroup
+
+    group = SlabGroup(rank=0, size=1, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="device or a group"):
+        TomoTorch(ANGLES, device="cpu", group=group)
+    assert TomoTorch(ANGLES, group=group).device == torch.device("cpu")

@@ -1,0 +1,309 @@
+"""tomojax_torch slab-sharded runs over gloo, held against tomojax under a
+mesh.
+
+Groups of 1, 2 and 4 ranks are spawned (torch.multiprocessing, start
+method spawn) with a file-store rendezvous in a temporary directory. Each
+rank runs ``tests/test_torch_dist_ranks.py``, which imports no jax, on its
+slab of one problem saved by this process, and rank 0 saves what the
+ranks gather. This process computes the JAX side on its 8 virtual CPU
+devices (``tomojax.dist.make_mesh(k)``): the sharded Pallas kernels in
+interpret mode (``tv_fgp_sharded``, ``tv_gd_sharded``; ``tv_impl='pallas'``
+inside the solvers), as tests/test_pallas_tv.py and tests/test_dist.py run
+them. Volumes cross over as ``x.transpose(1, 2, 0)`` (the port's slabs are
+slice-last). All ranks are joined within 60 s or the test fails.
+
+Bounds, each stated at its assertion: the TV stencils at atol 1e-5 and
+rtol 1e-5 (test_torch_tv.py's bounds for the same functions unsharded);
+sharded FISTA at tests/test_dist.py:268-271's (x rtol 1e-4 / atol 1e-5,
+dd and tv rtol 1e-4, f32 duals); sharded ASD-POCS at test_dist.py:324-326's
+(x atol 2e-3, dd rtol 1e-3); TomoTorch against TomoTPU at
+test_torch_api.py's and test_torch_asd_pocs.py's.
+"""
+
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import torch.multiprocessing as mp  # noqa: E402
+
+from tomojax import TomoTPU, dist as jdist  # noqa: E402
+from tomojax import config as tjconfig  # noqa: E402
+from tomojax import tv as jtv  # noqa: E402
+from tomojax.geometry import Geometry as JGeometry  # noqa: E402
+from tomojax.projector.joseph import fp as j_fp  # noqa: E402
+from tomojax.sim import shepp_logan  # noqa: E402
+from tomojax.solvers import (  # noqa: E402
+    fista_init, fista_step, make_asd_pocs_iteration, make_sart_weights,
+    make_system,
+)
+from tomojax.tv.pallas_fgp_sharded import tv_fgp_sharded  # noqa: E402
+from tomojax.tv.pallas_tvgd_sharded import tv_gd_sharded  # noqa: E402
+
+import tomojax_torch.config  # noqa: E402
+import test_torch_dist_ranks as rank_body  # noqa: E402
+from tomojax_torch import TomoTorch  # noqa: E402
+from tomojax_torch.tv import tv_fgp  # noqa: E402
+
+WORLDS = (1, 2, 4)
+JOIN_S = 60.0
+TV_SHAPE = (16, 16, 16)  # (Ns, N, N): 4-slice slabs at 4 ranks
+NS, N, NA = 8, 32, 20  # solvers: 2-slice slabs at 4 ranks
+FGP_ITERS, FGP_LAM, GD_NG, GD_DPOCS = 5, 0.2, 5, 0.07
+FISTA_LAM, FISTA_NTV, ASD_NG = 0.1, 4, 4
+TOMO_NS = 6  # not a multiple of 4: padded to 8, as TomoTPU pads it
+ANGLES_DEG = np.linspace(-70, 70, NA)
+
+
+def _sl(a):
+    return np.ascontiguousarray(np.asarray(a).transpose(1, 2, 0))
+
+
+def _public(a):
+    return np.asarray(a).transpose(2, 0, 1)
+
+
+def _problem() -> dict:
+    rng = np.random.default_rng(11)
+    tv_x = rng.normal(size=TV_SHAPE).astype(np.float32) + 0.5
+    jgeom = JGeometry.make(N, np.deg2rad(ANGLES_DEG))
+    jsys = make_system(jgeom)
+    ph = np.stack([shepp_logan(N) * (0.5 + i / NS) for i in range(NS)])
+    b = np.asarray(j_fp(jnp.asarray(ph, jnp.float32), jgeom, mode="gather"))
+    series = np.transpose(b[:TOMO_NS], (0, 2, 1))
+    return {
+        "tv_x": tv_x, "tv_x_sl": _sl(tv_x), "fgp_iters": FGP_ITERS,
+        "fgp_lam": FGP_LAM, "gd_ng": GD_NG, "gd_dpocs": GD_DPOCS,
+        "angles_rad": np.deg2rad(ANGLES_DEG),
+        "row_sum": np.asarray(jsys.row_sum), "col_sum": np.asarray(jsys.col_sum),
+        "lipschitz": np.asarray(jsys.lipschitz),
+        "sart_w": np.asarray(make_sart_weights(jsys)), "b": b, "b_sl": _sl(b),
+        "fista_lam": FISTA_LAM, "fista_ntv": FISTA_NTV, "asd_ng": ASD_NG,
+        "tomo_angles_deg": ANGLES_DEG,
+        "tomo_series": np.ascontiguousarray(series, np.float32),
+    }
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return _problem()
+
+
+@pytest.fixture(scope="module")
+def ranks(problem, tmp_path_factory):
+    """Starts every group at once; ``ranks(k)`` joins group k (failing
+    the test past JOIN_S from the start) and loads rank 0's results."""
+    tmp = tmp_path_factory.mktemp("torch_dist")
+    problem_file = tmp / "problem.npz"
+    np.savez(problem_file, **problem)
+    start = time.monotonic()
+    ctxs = {k: mp.start_processes(
+        rank_body.run,
+        args=(k, str(tmp / f"store{k}"), str(problem_file),
+              str(tmp / f"out{k}.npz")),
+        nprocs=k, join=False, start_method="spawn") for k in WORLDS}
+    results = {}
+
+    def join(k):
+        if k not in results:
+            ctx = ctxs[k]
+            while not ctx.join(timeout=max(0.0, start + JOIN_S
+                                           - time.monotonic())):
+                if time.monotonic() >= start + JOIN_S:
+                    pytest.fail(f"{k} ranks did not finish within {JOIN_S} s")
+            with np.load(tmp / f"out{k}.npz") as f:
+                results[k] = dict(f)
+        return results[k]
+
+    yield join
+    for ctx in ctxs.values():
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def _jax_tv(problem, k):
+    """tomojax's sharded TV stencils on make_mesh(k), f32 duals."""
+    mesh = jdist.make_mesh(k)
+    xs = jdist.shard_volume(jnp.asarray(problem["tv_x"]), mesh)
+    d, tv0 = jax.jit(lambda v: tv_fgp_sharded(
+        v, FGP_ITERS, FGP_LAM, mesh, dual_dtype=jnp.float32))(xs)
+    g, _ = jax.jit(lambda v, dp: tv_gd_sharded(v, GD_NG, dp, mesh))(
+        xs, jnp.float32(GD_DPOCS))
+    with tjconfig.mesh_scope(mesh):
+        m, tv_m = jax.jit(lambda v: jtv.tv_gd(
+            v, GD_NG, GD_DPOCS, compat="reference-mpi"))(xs)
+    return [np.asarray(a) for a in (d, tv0, g, m, tv_m)]
+
+
+@pytest.mark.parametrize("k", WORLDS)
+def test_halo_exchange_chain_ring_and_rank0_value(ranks, k):
+    """Row r: chain (from left, from right), ring (from left, from right),
+    ring leftward only, process_zero_value of a tensor and of an object,
+    the ring again with every P2P tag equal (from left, from right). Rank
+    r sends 10 r + 1 to the left and 10 r + 2 to the right."""
+    got = ranks(k)["exchange"]
+    r = np.arange(k)
+    left, right = (r - 1) % k, (r + 1) % k
+    want = np.stack([
+        np.where(r > 0, 10 * left + 2, 0), np.where(r < k - 1, 10 * right + 1, 0),
+        10 * left + 2, 10 * right + 1, 10 * right + 1,
+        np.ones(k), np.ones(k), 10 * left + 2, 10 * right + 1], axis=1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_tv_fgp_gd_with_group_match_jax_sharded(problem, ranks, k):
+    d_j, tv_j, g_j, m_j, tvm_j = _jax_tv(problem, k)
+    got = ranks(k)
+    tv_ref = float(jtv.tv(jnp.asarray(problem["tv_x"])))
+    # the TV value: rtol 1e-5 (summed in another order)
+    np.testing.assert_allclose(float(got["tv"]), tv_ref, rtol=1e-5)
+    np.testing.assert_allclose(float(got["fgp_tv"]), float(tv_j), rtol=1e-5)
+    np.testing.assert_allclose(float(got["gd_tv"]), tv_ref, rtol=1e-5)
+    # stencils: atol 1e-5 (the port sums its divergence in another axis
+    # order; the descent divides by a norm summed in another order)
+    np.testing.assert_allclose(_public(got["fgp_d"]), d_j, atol=1e-5)
+    np.testing.assert_allclose(_public(got["gd_x"]), g_j, atol=1e-5)
+    # bf16 duals: the same plain arithmetic as the unsharded prox, exactly
+    d16, _ = tv_fgp(torch.from_numpy(problem["tv_x_sl"]), FGP_ITERS, FGP_LAM,
+                    torch.bfloat16)
+    np.testing.assert_array_equal(got["fgp_d_bf16"], d16.numpy())
+    # compat='reference-mpi': atol 1e-5 / rtol 1e-5, as above
+    np.testing.assert_allclose(_public(got["mpi_x"]), m_j, atol=1e-5)
+    np.testing.assert_allclose(float(got["mpi_tv"]), float(tvm_j), rtol=1e-5)
+
+
+def test_reference_mpi_depends_on_rank_count(ranks):
+    """The reference's multi-rank TV-GD differs with the number of ranks
+    (slab-local wrap and norm), and from the global default."""
+    x2, x4 = ranks(2)["mpi_x"], ranks(4)["mpi_x"]
+    assert not np.allclose(x2, x4, atol=1e-5)
+    assert not np.allclose(x2, ranks(2)["gd_x"], atol=1e-5)
+    # one rank: reference-mpi is the default
+    np.testing.assert_allclose(ranks(1)["mpi_x"], ranks(1)["gd_x"], atol=1e-6)
+
+
+def _jax_fista(problem, k):
+    """3 FISTA iterations of tomojax.fista_step under make_mesh(k), the FGP
+    through the sharded Pallas kernels with f32 duals."""
+    mesh = jdist.make_mesh(k)
+    sysd = make_system(JGeometry.make(N, problem["angles_rad"]))
+    prev = (tjconfig.tv_impl, tjconfig.fgp_dual_dtype)
+    try:
+        tjconfig.set_tv_impl("pallas", dual_dtype=jnp.float32)
+        with tjconfig.mesh_scope(mesh):
+            b = jdist.shard_volume(jnp.asarray(problem["b"]), mesh)
+            st = fista_init(jdist.shard_volume(jnp.zeros((NS, N, N)), mesh),
+                            sysd)
+            step = jax.jit(lambda s, bb: fista_step(s, bb, sysd, FISTA_LAM,
+                                                    FISTA_NTV, True))
+            metrics = []
+            for _ in range(3):
+                st, m = step(st, b)
+                metrics.append([float(v) for v in m])
+    finally:
+        tjconfig.set_tv_impl(prev[0], dual_dtype=prev[1])
+    return np.asarray(st.x), np.asarray(metrics)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_fista_matches_jax_under_mesh(problem, ranks, k):
+    x_j, m_j = _jax_fista(problem, k)
+    got = ranks(k)
+    # tests/test_dist.py:268-271: x rtol 1e-4 / atol 1e-5, dd and tv
+    # rtol 1e-4
+    np.testing.assert_allclose(_public(got["fista_x"]), x_j, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["fista_m"][:, 1:], m_j[:, 1:], rtol=1e-4)
+
+
+def _jax_asd(problem, k):
+    """3 host-loop ASD-POCS iterations of tomojax under make_mesh(k), TV-GD
+    through the sharded Pallas kernel (test_dist.py's host loop)."""
+    mesh = jdist.make_mesh(k)
+    sysd = make_system(JGeometry.make(N, problem["angles_rad"]))
+    order = jnp.arange(NA, dtype=jnp.int32)
+    prev = tjconfig.tv_impl
+    try:
+        tjconfig.set_tv_impl("pallas")
+        with tjconfig.mesh_scope(mesh):
+            run = make_asd_pocs_iteration(sysd, make_sart_weights(sysd),
+                                          ng=ASD_NG)
+            x = jdist.shard_volume(jnp.zeros((NS, N, N)), mesh)
+            b = jdist.shard_volume(jnp.asarray(problem["b"]), mesh)
+            beta, dpocs, dds = 0.25, 0.0, []
+            for i in range(3):
+                x, dp, dd, dg, _, dpocs_eff = run(x, b, beta, dpocs, order,
+                                                  i == 0, 0.2)
+                beta *= 0.9985
+                dpocs = float(dpocs_eff)
+                dds.append(float(dd))
+                if float(dg) > 0.95 * float(dp) and float(dd) > 0.025:
+                    dpocs *= 0.95
+    finally:
+        tjconfig.set_tv_impl(prev)
+    return np.asarray(x), np.asarray(dds)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_asd_pocs_matches_jax_under_mesh(problem, ranks, k):
+    x_j, dd_j = _jax_asd(problem, k)
+    got = ranks(k)
+    # tests/test_dist.py:324-326: x atol 2e-3, dd rtol 1e-3
+    np.testing.assert_allclose(_public(got["asd_x"]), x_j, atol=2e-3)
+    np.testing.assert_allclose(got["asd_dd"], dd_j, rtol=1e-3)
+
+
+def test_tomotorch_padded_slabs_match_tomotpu(problem, ranks):
+    """Nslice = 6 over 4 ranks: both packages pad to 8 slices, and the
+    periodic TV wrap then meets a zero slice (the padding caveat)."""
+    ts = problem["tomo_series"]
+    ref = TomoTPU(ANGLES_DEG, ts, mesh=jdist.make_mesh(4))
+    got = ranks(4)
+    ref.fista(Niter=3, lambda_param=FISTA_LAM, nTViter=FISTA_NTV)
+    assert got["tomo_fista_recon"].shape == (TOMO_NS, N, N)
+    # test_torch_api.py's bounds: rtol 1e-3, atol 1e-4
+    np.testing.assert_allclose(got["tomo_fista_recon"], ref.get_recon(),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got["tomo_fista_cost"], ref.cost, rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(float(got["tomo_tv"]), ref.tv(), rtol=1e-3)
+    np.testing.assert_allclose(float(got["tomo_dd"]), ref.data_distance(),
+                               rtol=1e-3)
+    ref.asd_pocs(Niter=3, nTViter=ASD_NG)
+    # test_torch_asd_pocs.py's bounds: dd rtol 1e-3, x atol 2e-3
+    np.testing.assert_allclose(got["tomo_asd_dd"], ref.dd_vec, rtol=1e-3)
+    np.testing.assert_allclose(got["tomo_asd_recon"], ref.get_recon(),
+                               atol=2e-3)
+    ref.sart(Niter=2)
+    np.testing.assert_allclose(got["tomo_sart_cost"], ref.cost, rtol=1e-3)
+    np.testing.assert_allclose(got["tomo_sart_recon"], ref.get_recon(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_world_size_one_group_matches_unsharded_tomotorch(problem, ranks,
+                                                         monkeypatch):
+    """A group of one rank runs the sharded path (K9 plain versions, ring
+    halos as local copies, all-reduces of one) and gives the unsharded
+    result. The ranks store FGP duals in f32, so does this reference."""
+    monkeypatch.setattr(tomojax_torch.config, "fgp_dual_dtype",
+                        torch.float32)
+    ts = problem["tomo_series"]
+    ref = TomoTorch(ANGLES_DEG, ts, device="cpu")
+    got = ranks(1)
+    ref.fista(Niter=3, lambda_param=FISTA_LAM, nTViter=FISTA_NTV)
+    np.testing.assert_allclose(got["tomo_fista_recon"], ref.get_recon(),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got["tomo_fista_cost"], ref.cost, rtol=1e-6)
+    np.testing.assert_allclose(float(got["tomo_tv"]), ref.tv(), rtol=1e-6)
+    ref.asd_pocs(Niter=3, nTViter=ASD_NG)
+    np.testing.assert_allclose(got["tomo_asd_dd"], ref.dd_vec, rtol=1e-5)
+    np.testing.assert_allclose(got["tomo_asd_recon"], ref.get_recon(),
+                               atol=1e-5)

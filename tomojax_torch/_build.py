@@ -3,7 +3,8 @@
 The kernels live in ``csrc/*.cu`` behind a plain C interface. Each source
 is compiled with its own ``nvcc`` for Hopper (``sm_90a``), all started
 together, and the objects are linked into one shared library loaded with
-``ctypes``; no PyTorch header is compiled, so a build takes seconds. The library goes to ``build/tomojax_torch/`` beside the package,
+``ctypes``; no PyTorch header is compiled, so a build takes seconds. The library goes to
+``build/tomojax_torch/`` beside the package,
 named by a hash of the sources and flags, so an unchanged tree reuses it.
 
 Nothing here runs at import: the first kernel launch builds and loads.
@@ -42,11 +43,16 @@ _SIGNATURES = {
     "tj_bp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tj_fgp_iter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _F, _F, _P],
+    "tj_fgp_iter_halo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _F, _F, _P],
     "tj_fgp_obj": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _F, _P],
-    "tj_tv_value": [_P, _P, _P, _I, _I, _I, _P],
+    "tj_fgp_obj_halo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _F, _P],
+    "tj_tv_value": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tj_tv_value_partials": [_I, _I, _I],
     "tj_tv_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tj_tv_grad_halo": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tj_tv_grad_partials": [_I, _I, _I],
     "tj_sart_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _P],

@@ -9,6 +9,19 @@
 The tilt series is (Nslice, Nray, Nangles), as in the reference. Every
 tensor lives on the device given at construction: there is no automatic
 device choice, and device="cuda" on a machine without CUDA raises.
+
+Slab-sharded runs (counterpart of ``TomoTPU(mesh=...)``): every rank
+constructs ``TomoTorch(angles, series, group=g)`` with the whole series
+and the `SlabGroup` of ``tomojax_torch.dist.init_distributed``, then makes
+the same calls. Each rank keeps the slices of its z-slab; the solvers
+exchange halo planes and all-reduce their scalars, and ``get_recon``
+gathers the slabs (a collective: every rank calls it). When Nslice is not
+a multiple of the group size, the slice axis is padded with zero slices at
+the high end, as the JAX package pads it: the data term does not see the
+padding, but the periodic TV wrap then couples slice Nslice - 1 to a zero
+slice instead of slice 0, so TV-regularised results (fista, asd_pocs)
+differ from the unsharded run near that boundary. For the same result as
+one device, choose Nslice divisible by the group size.
 """
 
 from __future__ import annotations
@@ -17,6 +30,9 @@ import numpy as np
 import torch
 
 from tomojax_torch import tv as tvmod
+from tomojax_torch.dist import (
+    SlabGroup, gather_slabs, pad_slices, shard_global, unpad_slices,
+)
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.solvers import (
     AsdPocsParams,
@@ -34,9 +50,19 @@ from tomojax_torch.solvers import (
 
 
 class TomoTorch:
-    """Batched tilt-series reconstructor on one device."""
+    """Batched tilt-series reconstructor on one device, or on one z-slab
+    per rank of a `SlabGroup`."""
 
-    def __init__(self, tilt_angles_deg, tilt_series=None, device="cuda"):
+    def __init__(self, tilt_angles_deg, tilt_series=None, device=None,
+                 group: SlabGroup | None = None):
+        """device: default "cuda". group: run slab-sharded over its ranks,
+        on the group's device (then pass no device)."""
+        if group is not None and device is not None:
+            raise ValueError("pass a device or a group, not both: a group's "
+                             "tensors live on group.device")
+        self.group = group
+        if device is None:
+            device = "cuda" if group is None else group.device
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -62,14 +88,20 @@ class TomoTorch:
         self.Nslice, self.Nray, self.Nangles = ts.shape
         self.geom = Geometry.make(self.Nray, np.deg2rad(self.tilt_angles))
         self.sys = make_system(self.geom, self.device)
-        # slice-last sinogram (Nangles, Nray, Nslice)
-        self.b_sl = torch.as_tensor(
-            np.ascontiguousarray(ts.transpose(2, 1, 0)), device=self.device)
+        # slice-last sinogram (Nangles, Nray, Nslice), or this rank's slab
+        # of it after padding to a multiple of the group size
+        b_sl = torch.from_numpy(np.ascontiguousarray(ts.transpose(2, 1, 0)))
+        if self.group is None:
+            self.b_sl = b_sl.to(self.device)
+        else:
+            self.b_sl = shard_global(pad_slices(b_sl, self.group, 2)[0],
+                                     self.group, 2)
         self._sart_w = None
         self.restart_recon()
 
     def restart_recon(self):
-        self.x = torch.zeros((self.Nslice, self.Nray, self.Nray),
+        """Zero volume (this rank's slab with a group), public layout."""
+        self.x = torch.zeros((self.b_sl.shape[2], self.Nray, self.Nray),
                              dtype=torch.float32, device=self.device)
         self.recon = None
 
@@ -83,7 +115,8 @@ class TomoTorch:
         st = fista_init_sl(self.x, self.sys, self.b_sl)
         st, metrics = fista_run_sl(st, self.b_sl, self.sys, lambda_param,
                                    Niter, nTViter, momentum, compat,
-                                   compute_metrics=show_convergence)
+                                   compute_metrics=show_convergence,
+                                   group=self.group)
         self.cost = metrics[:, 0].cpu().numpy()
         self.x = from_sl(st.x)
         return self
@@ -104,7 +137,8 @@ class TomoTorch:
             x = sart_sweep_sl(x, self.b_sl, self.geom, self.sys.inv_row, w,
                               beta_t, orders[i])
             if show_convergence:
-                dds.append(data_distance_sl(x, self.b_sl, self.sys))
+                dds.append(data_distance_sl(x, self.b_sl, self.sys,
+                                            self.group))
         self.cost = (torch.stack(dds).cpu().numpy() if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
@@ -128,7 +162,7 @@ class TomoTorch:
             niter=Niter, eps=eps, beta0=beta0, beta_red=beta_reduce,
             r_max=r_max, ng=nTViter, alpha=alpha, alpha_red=alpha_reduce)
         args = (to_sl(self.x), self.b_sl, self.sys, self._sart_weights(),
-                params, self._orders(init, Niter))
+                params, self._orders(init, Niter), self.group)
         if fused:
             x, dd_vec, tv_vec = asd_pocs_run(*args)
             self.dd_vec = dd_vec.cpu().numpy()
@@ -141,16 +175,21 @@ class TomoTorch:
 
     def data_distance(self) -> float:
         """||A x - b|| of the current reconstruction (K1)."""
-        return float(data_distance_sl(to_sl(self.x), self.b_sl, self.sys))
+        return float(data_distance_sl(to_sl(self.x), self.b_sl, self.sys,
+                                      self.group))
 
     def tv(self) -> float:
         """Periodic isotropic TV of the current reconstruction (K5)."""
-        return float(tvmod.tv(self.x))
+        return float(tvmod.tv(to_sl(self.x), self.group))
 
     def get_recon(self) -> np.ndarray:
-        """The reconstruction, (Nslice, Nray, Nray) float32 numpy."""
+        """The reconstruction, (Nslice, Nray, Nray) float32 numpy; with a
+        group the gathered slabs without the padding, on every rank."""
         if self.recon is None:
-            self.recon = self.x.cpu().numpy()
+            x = self.x
+            if self.group is not None:
+                x = unpad_slices(gather_slabs(x, self.group), self.Nslice)
+            self.recon = x.cpu().numpy()
         return self.recon
 
     @staticmethod

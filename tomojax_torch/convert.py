@@ -5,6 +5,10 @@ no JAX. The reference's slice-last FISTA state pads its sinogram fields
 to (na_pad, nt, ns_pad) for its TPU kernels (na_pad = na rounded up to
 16, ns_pad = ns rounded up to the kernels' slice block); the port's state
 is unpadded, so the padding is cut off here.
+
+For slab-sharded runs, `slab_from_numpy` cuts one rank's z-slab out of
+the reference's whole arrays, so that a test feeds both packages the same
+slabs.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tomojax_torch.dist import SlabGroup, pad_slices, shard_global
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.solvers.base import System
 from tomojax_torch.solvers.fista import FistaStateSL
@@ -40,15 +45,32 @@ def sart_weights_from_numpy(inv_col_a, device) -> torch.Tensor:
     return _tensor(w, device)
 
 
+def slab_from_numpy(a, group: SlabGroup, axis: int) -> torch.Tensor:
+    """This rank's slab of the whole array `a` (float32 on the group's
+    device), `axis` first padded with zero slices to a multiple of the
+    group size, as ``TomoTorch`` and ``tomojax.dist.pad_slices`` pad it."""
+    padded, _ = pad_slices(torch.from_numpy(np.asarray(a, np.float32)),
+                           group, axis)
+    return shard_global(padded, group, axis)
+
+
 def state_sl_from_numpy(x, x_old, yk, t, ax_pad, resid_pad, na: int,
-                        ns: int, device) -> FistaStateSL:
+                        ns: int, device,
+                        group: SlabGroup | None = None) -> FistaStateSL:
     """A FistaStateSL from the reference's slice-last state: volumes
     (N, N, Ns) as they are, ax and resid cut from (na_pad, Nt, ns_pad) to
-    (na, Nt, ns)."""
+    (na, Nt, ns). With a group: this rank's slabs of them (on the group's
+    device; `device` is not read)."""
     ax = np.asarray(ax_pad)[:na, :, :ns]
     resid = np.asarray(resid_pad)[:na, :, :ns]
+    if group is not None:
+        device = group.device
+
+    def field(a) -> torch.Tensor:
+        return (_tensor(a, device) if group is None
+                else slab_from_numpy(a, group, 2))
+
     return FistaStateSL(
-        x=_tensor(x, device), x_old=_tensor(x_old, device),
-        yk=_tensor(yk, device),
-        t=_tensor(np.asarray(t).reshape(()), device),
-        ax=_tensor(ax, device), resid=_tensor(resid, device))
+        x=field(x), x_old=field(x_old), yk=field(yk),
+        t=_tensor(np.asarray(t).reshape(()), device), ax=field(ax),
+        resid=field(resid))

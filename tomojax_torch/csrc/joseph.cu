@@ -79,8 +79,10 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
 }
 
 // K2 -- replaces tomojax/projector/pallas_joseph.py:_bp_kernel (fused and
-// unfused); it also covers _bp_banded_kernel and _bp_kernel_ab, which
-// compute the same operator with other TPU tilings.
+// unfused); it also covers _bp_banded_kernel, which computes the same
+// operator with another TPU tiling. The angle-blocked _bp_kernel_ab
+// (bp_pallas_sl with ab > 1) is not ported: it is queued as an option of K2
+// to be measured.
 //
 // One thread per voxel (r, c, s) loops over the angles, a 2-point gather
 // per angle (tj::bp_angle, joseph.cuh). tab[a] = {cos, sin, 1/D, 0} in f32

@@ -2,7 +2,10 @@
 //
 // Isotropic TV value with periodic wrap on all three axes,
 //   sum sqrt(1e-6 + (x - x[i0+1])^2 + (x - x[i1+1])^2 + (x - x[i2+1])^2),
-// of a contiguous (n0, n1, n2) f32 volume (the FISTA metric).
+// of a contiguous (n0, n1, n2) f32 volume (the FISTA metric). On a slab of
+// a z-sharded volume (HALO) the axis-2 neighbour of the last slice is the
+// right rank's first slice, a (n0, n1) halo plane, instead of the in-slab
+// wrap; the caller all-reduces the slab's sum.
 //
 // Bound on the H100: one streaming pass (64 MiB at 256^3). Stage 1: one
 // thread per voxel, axis 2 across the warp so that every load is a
@@ -19,9 +22,10 @@ constexpr int TV_BY = 8;   // axis-1 voxels per block (threadIdx.y)
 constexpr int TV_NT = TV_BX * TV_BY;
 constexpr int SUM_NT = 1024;
 
+template <bool HALO>
 __global__ void __launch_bounds__(TV_NT)
-tv_value_kernel(const float* __restrict__ x, float* __restrict__ partials,
-                int n0, int n1, int n2) {
+tv_value_kernel(const float* __restrict__ x, const float* __restrict__ hi,
+                float* __restrict__ partials, int n0, int n1, int n2) {
   const int i2 = blockIdx.x * TV_BX + threadIdx.x;
   const int i1 = blockIdx.y * TV_BY + threadIdx.y;
   const int i0 = blockIdx.z;
@@ -34,7 +38,8 @@ tv_value_kernel(const float* __restrict__ x, float* __restrict__ partials,
     const float c = x[(row + i1) * n2 + i2];
     const float d0 = c - x[(static_cast<size_t>(j0) * n1 + i1) * n2 + i2];
     const float d1 = c - x[(row + j1) * n2 + i2];
-    const float d2 = c - x[(row + i1) * n2 + j2];
+    const float d2 =
+        c - (HALO && j2 == 0 ? hi[row + i1] : x[(row + i1) * n2 + j2]);
     t = sqrtf(1e-6f + d0 * d0 + d1 * d1 + d2 * d2);
   }
   __shared__ float buf[TV_NT];
@@ -83,12 +88,20 @@ TJ_API int tj_tv_value_partials(int n0, int n1, int n2) {
 }
 
 // partials: tj_tv_value_partials(n0, n1, n2) floats of scratch; out: 1 float.
-TJ_API int tj_tv_value(const float* x, float* partials, float* out, int n0,
-                       int n1, int n2, void* stream) {
+// hi: null (periodic wrap on axis 2) or the (n0, n1) plane above slice
+// n2 - 1.
+TJ_API int tj_tv_value(const float* x, const float* hi, float* partials,
+                       float* out, int n0, int n1, int n2, void* stream) {
   if (!tv_shape_ok(n0, n1, n2)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  tv_value_kernel<<<tv_grid(n0, n1, n2), dim3(TV_BX, TV_BY), 0, st>>>(
-      x, partials, n0, n1, n2);
+  const dim3 grid = tv_grid(n0, n1, n2), block(TV_BX, TV_BY);
+  if (hi != nullptr) {
+    tv_value_kernel<true><<<grid, block, 0, st>>>(x, hi, partials, n0, n1,
+                                                  n2);
+  } else {
+    tv_value_kernel<false><<<grid, block, 0, st>>>(x, nullptr, partials, n0,
+                                                   n1, n2);
+  }
   const int err = tj::launch_error();
   if (err != 0) return err;
   return static_cast<int>(

@@ -15,6 +15,13 @@ dd and dg back, as the reference's driver and ``TomoTPU.asd_pocs`` do;
 `asd_pocs_run` carries them as 0-dim device tensors
 (``make_asd_pocs_run``), so a whole run queues without a host read.
 Volumes are (N, N, Ns), sinograms (Na, Nt, Ns).
+
+With ``group=`` (a `tomojax_torch.dist.SlabGroup`) they are this rank's
+z-slabs, (N, N, n_loc) and (Na, Nt, n_loc): the SART sweep runs on the
+slab as it is (``sart_sweep_pallas_sharded``), TV-GD runs K9c on the
+periodic ring, and dp^2, dd^2 and dg^2 are all-reduced before the square
+root. Every rank reads the same scalars, so in the host loop every rank
+makes the same beta and dpocs decisions and issues the same collectives.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tomojax_torch.dist import SlabGroup, all_reduce_sum
 from tomojax_torch.projector.cuda_joseph import fp_resid_sl
 from tomojax_torch.solvers.base import System
 from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
@@ -49,38 +57,46 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=F32, device=device)
 
 
-def _norm(d: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(d * d))
+def _sqrt_sum(sq: torch.Tensor, group: SlabGroup | None) -> torch.Tensor:
+    """sqrt of a sum of squares, all-reduced first with a group."""
+    if group is not None:
+        all_reduce_sum(sq, group)
+    return torch.sqrt(sq)
 
 
-def data_distance_sl(x: torch.Tensor, b_sl: torch.Tensor,
-                     sys: System) -> torch.Tensor:
+def _norm(d: torch.Tensor, group: SlabGroup | None) -> torch.Tensor:
+    return _sqrt_sum(torch.sum(d * d), group)
+
+
+def data_distance_sl(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
+                     group: SlabGroup | None = None) -> torch.Tensor:
     """``||A x - b||`` as a 0-dim device tensor: K1 with beta = 0 against a
-    zero ax_old, whose ddsq is a fixed-order sum on the device."""
+    zero ax_old, whose ddsq is a fixed-order sum on the device (with a
+    group, all-reduced over the slabs)."""
     zero = torch.zeros((), dtype=F32, device=x.device)
     _, _, ddsq = fp_resid_sl(x, sys.geom, b_sl, torch.zeros_like(b_sl),
                              sys.inv_row, zero)
-    return torch.sqrt(ddsq)
+    return _sqrt_sum(ddsq, group)
 
 
 def asd_pocs_iteration(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
                        inv_col_a: torch.Tensor, beta, dpocs,
                        order: torch.Tensor, ng: int, first: bool = False,
-                       alpha: float = 0.2):
-    """One iteration from x (N, N, Ns). beta and dpocs are floats or 0-dim
-    tensors, order an int32 (Na,) tensor on x's device. Returns
-    (x, dp, dd, dg, tv0, dpocs), the scalars as 0-dim device tensors;
-    dpocs is the value the TV step used."""
+                       alpha: float = 0.2, group: SlabGroup | None = None):
+    """One iteration from x (N, N, Ns), or this rank's slab with a group.
+    beta and dpocs are floats or 0-dim tensors, order an int32 (Na,)
+    tensor on x's device. Returns (x, dp, dd, dg, tv0, dpocs), the scalars
+    as 0-dim device tensors; dpocs is the value the TV step used."""
     dev = x.device
     x0 = x
     x = sart_sweep_sl(x, b_sl, sys.geom, sys.inv_row, inv_col_a,
                       _scalar(beta, dev), order)
-    dp = _norm(x - x0)
+    dp = _norm(x - x0, group)
     dpocs = alpha * dp if first else _scalar(dpocs, dev)
-    dd = data_distance_sl(x, b_sl, sys)
+    dd = data_distance_sl(x, b_sl, sys, group)
     x1 = x
-    x, tv0 = tv_gd(x, ng, dpocs)
-    dg = _norm(x - x1)
+    x, tv0 = tv_gd(x, ng, dpocs, group)
+    dg = _norm(x - x1, group)
     return x, dp, dd, dg, tv0, dpocs
 
 
@@ -93,7 +109,8 @@ def _sequential(orders, sys: System, niter: int, device) -> torch.Tensor:
 
 def asd_pocs_host_loop(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
                        inv_col_a: torch.Tensor, params: AsdPocsParams,
-                       orders: torch.Tensor | None = None):
+                       orders: torch.Tensor | None = None,
+                       group: SlabGroup | None = None):
     """`params.niter` iterations, adapting beta and dpocs in Python after
     reading dp, dd and dg back from every iteration (the reference's
     driver loop).
@@ -108,7 +125,7 @@ def asd_pocs_host_loop(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
     for it in range(p.niter):
         x, dp, dd, dg, tv0, dpocs_used = asd_pocs_iteration(
             x, b_sl, sys, inv_col_a, beta, dpocs, orders[it].contiguous(),
-            p.ng, it == 0, p.alpha)
+            p.ng, it == 0, p.alpha, group)
         beta *= p.beta_red
         dp, dd, dg = float(dp), float(dd), float(dg)
         dpocs = float(dpocs_used)
@@ -120,7 +137,8 @@ def asd_pocs_host_loop(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
 
 def asd_pocs_run(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
                  inv_col_a: torch.Tensor, params: AsdPocsParams,
-                 orders: torch.Tensor | None = None):
+                 orders: torch.Tensor | None = None,
+                 group: SlabGroup | None = None):
     """`params.niter` iterations with beta and dpocs carried on the device.
 
     orders: None (sequential) or an int32 (niter, Na) tensor of visiting
@@ -135,7 +153,7 @@ def asd_pocs_run(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
     for it in range(p.niter):
         x, dp, dd, dg, tv0, dpocs = asd_pocs_iteration(
             x, b_sl, sys, inv_col_a, beta, dpocs, orders[it].contiguous(),
-            p.ng, it == 0, p.alpha)
+            p.ng, it == 0, p.alpha, group)
         beta = beta * p.beta_red
         dpocs = torch.where((dg > p.r_max * dp) & (dd > p.eps),
                             dpocs * p.alpha_red, dpocs)

@@ -20,6 +20,13 @@ returns the (n_iter, 3) metrics (cost, dd, tv) as one device tensor.
 compat='reference' reproduces the reference's momentum-SIRT behaviour
 (the TV prox result is discarded when momentum is on); momentum=False runs
 the same program with beta = 0.
+
+With ``group=`` (a `tomojax_torch.dist.SlabGroup`) the state is this
+rank's z-slab: volumes (N, N, n_loc), sinograms (Na, Nt, n_loc). K1 and
+K2 run on the slab as they are (slices are a batch); the prox runs K9a/K9b
+with halo exchanges, and ||A x - b||^2 and the TV value are all-reduced,
+so every rank holds the whole volume's metrics. `fista_init_sl` needs no
+group: seeding the projections crosses no slab.
 """
 
 from __future__ import annotations
@@ -29,9 +36,10 @@ import dataclasses
 import torch
 
 from tomojax_torch import ops
+from tomojax_torch.dist import SlabGroup, all_reduce_sum
 from tomojax_torch.projector.cuda_joseph import bp_sirt_sl, fp_resid_sl
 from tomojax_torch.solvers.base import System
-from tomojax_torch.tv import tv, tv_fgp_fused
+from tomojax_torch.tv import tv, tv_fgp_fused, tv_fgp_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +77,12 @@ def fista_init_sl(x0: torch.Tensor, sys: System,
 
 def fista_step_sl(state: FistaStateSL, b_sl: torch.Tensor, sys: System,
                   lam: float, n_tv_iter: int = 10, momentum: bool = True,
-                  compat: str = "correct", compute_metrics: bool = True):
+                  compat: str = "correct", compute_metrics: bool = True,
+                  group: SlabGroup | None = None):
     """One slice-last FISTA-TV iteration. Returns (state, metrics) with
     metrics a (3,) device tensor (cost, dd, tv), zeros when
-    compute_metrics is False."""
+    compute_metrics is False. With a group every rank calls it on its
+    slab together."""
     if compat not in ("correct", "reference"):
         raise ValueError(f"compat must be 'correct' or 'reference': {compat}")
     z = bp_sirt_sl(state.resid, sys.geom, state.yk, sys.inv_col)
@@ -85,16 +95,21 @@ def fista_step_sl(state: FistaStateSL, b_sl: torch.Tensor, sys: System,
     if compat == "reference" and momentum:
         x_new = z
         y_new = ops.nesterov(x_new, state.x_old, beta)
-    else:
+    elif group is None:
         x_new, y_new = tv_fgp_fused(z, n_tv_iter, lam,
                                     mom=(state.x_old, beta))
+    else:
+        x_new, y_new = tv_fgp_sharded(z, n_tv_iter, lam, group,
+                                      mom=(state.x_old, beta))
     ax_new, resid_new, ddsq = fp_resid_sl(x_new, sys.geom, b_sl, state.ax,
                                           sys.inv_row, beta)
     state = FistaStateSL(x=x_new, x_old=x_new, yk=y_new, t=t_new, ax=ax_new,
                          resid=resid_new)
     if not compute_metrics:
         return state, torch.zeros(3, dtype=torch.float32, device=z.device)
-    tv_val = tv(x_new)
+    if group is not None:
+        all_reduce_sum(ddsq, group)
+    tv_val = tv(x_new, group)
     cost = 0.5 * ddsq + lam * tv_val
     return state, torch.stack([cost, torch.sqrt(ddsq), tv_val])
 
@@ -102,12 +117,13 @@ def fista_step_sl(state: FistaStateSL, b_sl: torch.Tensor, sys: System,
 def fista_run_sl(state: FistaStateSL, b_sl: torch.Tensor, sys: System,
                  lam: float, n_iter: int, n_tv_iter: int = 10,
                  momentum: bool = True, compat: str = "correct",
-                 compute_metrics: bool = True):
+                 compute_metrics: bool = True,
+                 group: SlabGroup | None = None):
     """`n_iter` iterations; returns (state, metrics (n_iter, 3))."""
     metrics = []
     for _ in range(n_iter):
         state, m = fista_step_sl(state, b_sl, sys, lam, n_tv_iter, momentum,
-                                 compat, compute_metrics)
+                                 compat, compute_metrics, group)
         metrics.append(m)
     if not metrics:
         return state, torch.zeros((0, 3), dtype=torch.float32,

@@ -23,8 +23,8 @@ F32 = torch.float32
 _I, _J, _K = 2, 0, 1  # the reference's (slice, row, column) axes
 
 
-def tv_grad_ref(x: torch.Tensor):
-    """Plain ``(g, ||g||^2)`` of a slice-last 3D volume (0-dim norm)."""
+def tv_grad_field(x: torch.Tensor) -> torch.Tensor:
+    """Plain g of a slice-last 3D volume (periodic on every axis)."""
     ip = torch.roll(x, -1, _I)
     jp = torch.roll(x, -1, _J)
     kp = torch.roll(x, -1, _K)
@@ -33,7 +33,12 @@ def tv_grad_ref(x: torch.Tensor):
     g = (3.0 * x - ip - jp - kp) / d
     g = g + (x - torch.roll(x, 1, _I)) / torch.roll(d, 1, _I)
     g = g + (x - torch.roll(x, 1, _J)) / torch.roll(d, 1, _J)
-    g = g + (x - torch.roll(x, 1, _K)) / torch.roll(d, 1, _K)
+    return g + (x - torch.roll(x, 1, _K)) / torch.roll(d, 1, _K)
+
+
+def tv_grad_ref(x: torch.Tensor):
+    """Plain ``(g, ||g||^2)`` of a slice-last 3D volume (0-dim norm)."""
+    g = tv_grad_field(x)
     return g, torch.sum(g * g)
 
 
