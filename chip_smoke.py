@@ -12,8 +12,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    build time and ptxas report;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (256^3 volumes, 90 x 256 x 256 sinograms), with
-   the error, the tolerance and both median times; the SART sweep (K8) at
-   three levels: one angle step, one sweep, convergence after 5 sweeps;
+   the error, the tolerance, both median times, the least time the card
+   could take (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32) and,
+   for the projectors, the time of torch.sparse.mm with the CSR form of A
+   or A^T (built once, not timed); K10 at ab = 3, 6, 10 against K2 (0.0
+   expected), K11 with f32 and bf16 duals and K12 with f32 duals (0.0),
+   with device times beside K2, two K3 launches, and K12 + K4 against K3;
+   the SART sweep (K8) at three levels: one angle step, one sweep,
+   convergence after 5 sweeps;
    the slab kernels K9a/K9b/K9c (and K5's right halo) on a 256^3 volume
    cut into 4 slabs of 64 slices, each rank role (bottom, interior, top)
    against the plain version with random halo planes, and on the whole
@@ -35,12 +41,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       .asd_pocs (5) on the same problem, and the functional runs with the
       group; their traces against the unsharded path's (FISTA dd and tv
       rtol 1e-5, ASD-POCS dd rtol 1e-3) and ms/iteration of both paths;
+   d. the fusion path: ChemicalTomo on a simulated 3 x 128 x 256^2
+      problem (HAADF 90, chemistry 45 angles over +-76 deg):
+      chemical_tomography, the data_fusion host loop (K1-K5 must launch
+      there), data_fusion(fused=True) and method='sart' (K8); K1, K2, K3,
+      K4, K5 and K8 then held against their plain versions at the shapes
+      this path gives them (element 0 of its state, 256^2 x 128, under both
+      geometries), with phase 3's bounds; then the
+      outer iteration as bench.py times it (random data from
+      default_rng(0)), ms/iteration over 5 iterations with CUDA events
+      and a torch.profiler breakdown with the idle share;
+   e. the variant entry points at 256^3: tv_fgp_fused(fuse_pairs=True)
+      (K11) against the K3 chain with f32 and bf16 duals, tv_fgp_two_pass
+      (K12) against tv_fgp_fused with f32 duals, 10 ASTRA-SIRT iterations
+      at 256^3 x 90 with bp_sirt_sl(ab=6) (K10) against K2;
    every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
    1e-3 (final rmse); the 16 x 64^2 x 30, 10-iteration ASD-POCS trace of
-   tests/golden/asd_pocs_jax_cpu.json replayed within the bounds stored
-   in it;
+   tests/golden/asd_pocs_jax_cpu.json and the 2 x 8 x 64^2 ChemicalTomo
+   trace of tests/golden/fusion_jax_cpu.json (float32 FGP duals; the
+   lambda_chem decay iterations first, as a branch check) replayed within
+   the bounds stored in them;
 6. result: a JSON line of the kernels, then the device line last.
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
@@ -56,6 +78,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -188,7 +211,71 @@ def _kernel_table():
         "K9c_tv_grad_halo": (cuda_tvgd_sharded.tv_grad_halo,
                              "tomojax_torch/csrc/tvgd.cu",
                              "tomojax/tv/pallas_tvgd_sharded.py:42"),
+        "K10_bp_ab": (cj.bp_ab_sl, "tomojax_torch/csrc/joseph.cu",
+                      "tomojax/projector/pallas_joseph.py:606"),
+        "K11_fgp_iter2": (cuda_fgp.fgp_iter2, "tomojax_torch/csrc/fgp.cu",
+                          "tomojax/tv/pallas_fgp.py:217"),
+        "K12_fgp_grad": (cuda_fgp.fgp_grad, "tomojax_torch/csrc/fgp.cu",
+                         "tomojax/tv/pallas_fgp.py:98"),
     }
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def bound(bytes_: float, ops: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over the float32
+    rate (each input read once, each output written once)."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def fgp_iter_work(v: int, dual_bytes: int, iters: int = 1):
+    """(bytes, operations) of `iters` fused FGP iterations on v voxels: x
+    read, three duals read and written once; per voxel and iteration 51
+    operations (d at the voxel and its 3 forward neighbours, 8 each; the
+    differences, the dual step and the projection, 19)."""
+    return v * (4 + 6 * dual_bytes), 51 * v * iters
+
+
+def joseph_csr(geom, dev):
+    """A (Na Nt x N^2) and A^T as CSR on the card, from the Joseph closed
+    form that K2 gathers with (the tables of cuda_joseph.angle_tables), and
+    the number of nonzeros: the yardstick `torch.sparse.mm` multiplies with
+    (cuSPARSE SpMM), built once and not timed."""
+    from tomojax_torch.projector.cuda_joseph import angle_tables
+
+    n, nt, na = geom.n, geom.nray, geom.nproj
+    t = angle_tables(geom, dev).bp
+    c, s, invd = (t[:, i, None, None] for i in range(3))
+    ctr = (n - 1) / 2.0
+    xc = torch.arange(n, dtype=torch.float32, device=dev) - ctr
+    yr = ctr - torch.arange(n, dtype=torch.float32, device=dev)
+    jstar = c * xc[None, None, :] + s * yr[None, :, None] + (nt - 1) / 2.0
+    f = torch.floor(jstar)
+    j0 = f.long()
+    pix = torch.arange(n * n, device=dev).reshape(1, n, n).expand(na, n, n)
+    ang = torch.arange(na, device=dev).reshape(na, 1, 1).expand(na, n, n)
+    rows, cols, vals = [], [], []
+    for j, fj in ((j0, f), (j0 + 1, f + 1.0)):
+        w = torch.clamp_min(1.0 - torch.abs(fj - jstar) * invd, 0.0) * invd
+        keep = (j >= 0) & (j < nt) & (w != 0)
+        rows.append((ang * nt + j)[keep])
+        cols.append(pix[keep])
+        vals.append(w[keep])
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    with warnings.catch_warnings():  # CSR support is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                    (na * nt, n * n),
+                                    check_invariants=False).coalesce()
+        at = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals,
+                                     (n * n, na * nt),
+                                     check_invariants=False).coalesce()
+        return a.to_sparse_csr(), at.to_sparse_csr(), int(a.values().numel())
 
 
 def _launched(wrapper, fn):
@@ -214,12 +301,24 @@ def phase_kernels(card: str) -> dict:
     n, na, ns = 256, 90, 256
     geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
     rows = {}
+    # this run's work: V voxels, S sinogram entries, P pixels per slice,
+    # nnz nonzero weights of A (from K2's taps at this geometry)
+    V, S, P = n * n * ns, na * n * ns, n * n
+    A, At, nnz = joseph_csr(geom, dev)
+    spmv = 2 * nnz * ns  # one multiply-add per nonzero and slice
 
-    def report(name, err, tol, ms, plain_ms, extra=""):
+    def report(name, err, tol, ms, plain_ms, extra="", *, work,
+               library_ms=None):
+        """work = (bytes, operations) the function must move and do."""
         require(err <= tol, f"{name}: error {err:.3e} above {tol:.3e}")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        bound_ms, bound_by = bound(*work)
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
         print(f"{name}: max|kernel - plain| {err:.3e} <= {tol:.3e}{extra}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
 
     # K1 with the residual epilogue
     x, b, ax_old = uni(n, n, ns), uni(na, n, ns), uni(na, n, ns)
@@ -232,24 +331,43 @@ def phase_kernels(card: str) -> dict:
     tol = 1e-5 * max(float(ref[0].abs().max()), float(ref[1].abs().max()))
     dd_rel = abs(float(got[2]) - float(ref[2])) / float(ref[2])
     require(dd_rel <= 2e-5, f"K1 ddsq relative error {dd_rel:.3e}")
+    xm = x.reshape(P, ns)
+    fp_lib = time_ms(lambda: torch.sparse.mm(A, xm), 5)
+    lib_rel = max_err(torch.sparse.mm(A, xm).reshape(got[0].shape), got[0]) \
+        / float(got[0].abs().max())
+    require(lib_rel <= 1e-5, f"CSR A x vs K1: {lib_rel:.3e}")
     report("K1_fp_resid", err, tol, time_ms(lambda: cj.fp_resid_sl(*args), 5),
            time_ms(lambda: cj.fp_resid_sl_ref(*args), 3),
-           f" (ddsq rel {dd_rel:.2e} <= 2e-5)")
+           f" (ddsq rel {dd_rel:.2e} <= 2e-5; CSR A x ({nnz} nonzeros) vs "
+           f"K1 rel {lib_rel:.1e})",
+           work=(4 * (V + 4 * S + na * n + 1), spmv + 8 * S),
+           library_ms=fp_lib)
 
     # K1 with the epilogue off, K2 both ways, and the adjoint pair
     got = _launched(cj.fp_sl, lambda: cj.fp_sl(x, geom))
     ref = cj.fp_sl_ref(x, geom)
     report("K1_fp", max_err(got, ref), 1e-5 * float(ref.abs().max()),
            time_ms(lambda: cj.fp_sl(x, geom), 5),
-           time_ms(lambda: cj.fp_sl_ref(x, geom), 3))
+           time_ms(lambda: cj.fp_sl_ref(x, geom), 3),
+           work=(4 * (V + S), spmv), library_ms=fp_lib)
     resid = uni(na, n, ns, lo=-1.0)
     y_vol, inv_col = uni(n, n, ns), uni(n, n, hi=0.05)
     args = (resid, geom, y_vol, inv_col)
     got = _launched(cj.bp_sirt_sl, lambda: cj.bp_sirt_sl(*args))
     ref = cj.bp_sirt_sl_ref(*args)
+    ym = resid.reshape(na * n, ns)
+    bp_lib = time_ms(lambda: torch.sparse.mm(At, ym), 5)
+    k2 = cj.bp_sl(resid, geom)
+    lib_rel = max_err(torch.sparse.mm(At, ym).reshape(k2.shape), k2) \
+        / float(k2.abs().max())
+    require(lib_rel <= 1e-5, f"CSR A^T y vs K2: {lib_rel:.3e}")
     report("K2_bp_sirt", max_err(got, ref), 1e-5 * float(ref.abs().max()),
            time_ms(lambda: cj.bp_sirt_sl(*args), 5),
-           time_ms(lambda: cj.bp_sirt_sl_ref(*args), 3))
+           time_ms(lambda: cj.bp_sirt_sl_ref(*args), 3),
+           f" (CSR A^T y vs K2 rel {lib_rel:.1e})",
+           work=(4 * (S + 2 * V + P), spmv + 3 * V), library_ms=bp_lib)
+    _check_bp_ab(args, report, work=(4 * (S + 2 * V + P), spmv + 3 * V),
+                 library_ms=bp_lib)
     got = _launched(cj.bp_sl, lambda: cj.bp_sl(b, geom))
     ref = cj.bp_sl_ref(b, geom)
     lhs = float(torch.sum(cj.fp_sl(x, geom).double() * b.double()))
@@ -259,7 +377,9 @@ def phase_kernels(card: str) -> dict:
     report("K2_bp", max_err(got, ref), 1e-5 * float(ref.abs().max()),
            time_ms(lambda: cj.bp_sl(b, geom), 5),
            time_ms(lambda: cj.bp_sl_ref(b, geom), 3),
-           f" (<Ax,y> vs <x,A^T y> rel {adj:.2e} <= 1e-5)")
+           f" (<Ax,y> vs <x,A^T y> rel {adj:.2e} <= 1e-5)",
+           work=(4 * (S + V), spmv), library_ms=bp_lib)
+    del A, At
 
     # K3 + K4: 10 chained FGP iterations, f32 and bf16 duals
     x_old = uni(n, n, ns)
@@ -289,7 +409,7 @@ def phase_kernels(card: str) -> dict:
            time_ms(lambda: cuda_fgp.fgp_iter(x, *p, LAM), 10),
            time_ms(lambda: cuda_fgp.fgp_iter_ref(x, *p, LAM), 5),
            f" (chain of {N_TV}, bf16 duals; one iteration's duals "
-           f"{err3:.2e} <= 2^-7)")
+           f"{err3:.2e} <= 2^-7)", work=fgp_iter_work(V, 2))
     got = _launched(cuda_fgp.fgp_obj_mom,
                     lambda: cuda_fgp.fgp_obj_mom(x, *p, LAM, x_old, beta))
     ref = cuda_fgp.fgp_obj_mom_ref(x, *p, LAM, x_old, beta)
@@ -298,7 +418,9 @@ def phase_kernels(card: str) -> dict:
            1e-6 * float(ref[1].abs().max()),
            time_ms(lambda: cuda_fgp.fgp_obj_mom(x, *p, LAM, x_old, beta), 10),
            time_ms(lambda: cuda_fgp.fgp_obj_mom_ref(x, *p, LAM, x_old, beta),
-                   5), " (one pass, bf16 duals)")
+                   5), " (one pass, bf16 duals)",
+           work=(V * (4 + 3 * 2 + 4 + 4 + 4) + 4, 11 * V))
+    _check_fgp_variants(x, p, report)
 
     # K5
     got = _launched(cuda_tv_value.tv_value, lambda: cuda_tv_value.tv_value(x))
@@ -309,7 +431,7 @@ def phase_kernels(card: str) -> dict:
            2e-5 * abs(float(ref)),
            time_ms(lambda: cuda_tv_value.tv_value(x), 10),
            time_ms(lambda: cuda_tv_value.tv_value_ref(x), 5),
-           " (rtol 2e-5; two runs identical)")
+           " (rtol 2e-5; two runs identical)", work=(4 * V + 4, 11 * V))
 
     # K7: the TV-GD subgradient and ||g||^2
     got, gsq = _launched(cuda_tvgd.tv_grad, lambda: cuda_tvgd.tv_grad(x))
@@ -322,15 +444,89 @@ def phase_kernels(card: str) -> dict:
     report("K7_tv_grad", max_err(got, ref), 1e-5 * float(ref.abs().max()),
            time_ms(lambda: cuda_tvgd.tv_grad(x), 10),
            time_ms(lambda: cuda_tvgd.tv_grad_ref(x), 5),
-           f" (||g||^2 rel {gsq_rel:.2e} <= 2e-5; two runs identical)")
+           f" (||g||^2 rel {gsq_rel:.2e} <= 2e-5; two runs identical)",
+           work=(8 * V + 4, 27 * V))
 
-    _check_sart(geom, ns, uni, report)
+    _check_sart(geom, ns, uni, report, nnz)
     _check_halo_kernels(x, uni, report, card)
     _check_slab_chains(x, x_old, beta)
     return rows
 
 
-def _check_sart(geom, ns: int, uni, report) -> None:
+def _check_bp_ab(args, report, *, work, library_ms) -> None:
+    """K10 at ab = 3, 6, 10, fused and unfused, against K2's output (bound
+    1e-6 max|out|; 0.0 expected: the same taps added in K2's order) and,
+    at ab = 6 fused (the row's time), against its plain version on the
+    zero-padded angle set (K2's bound, 1e-5 max|out|); device times beside
+    K2's."""
+    from tomojax_torch.projector import cuda_joseph as cj
+
+    resid, geom, y_vol, inv_col = args
+    k2, k2u = cj.bp_sirt_sl(*args), cj.bp_sl(resid, geom)
+    worst, out = 0.0, []
+    for ab in (3, 6, 10):
+        got = _launched(cj.bp_ab_sl, lambda: cj.bp_sirt_sl(*args, ab=ab))
+        gu = cj.bp_sl(resid, geom, ab=ab)
+        e = max(max_err(got, k2), max_err(gu, k2u))
+        tol = 1e-6 * float(k2.abs().max())
+        require(e <= tol, f"K10 ab={ab} vs K2: {e:.3e} above {tol:.3e}")
+        worst = max(worst, e)
+        ms = device_ms(lambda: cj.bp_sirt_sl(*args, ab=ab), 5)
+        out.append(f"ab={ab} {ms:.4f}")
+    ref = cj.bp_sirt_sl_ref(*args, ab=6)
+    got = cj.bp_sirt_sl(*args, ab=6)
+    k2_dev = device_ms(lambda: cj.bp_sirt_sl(*args), 5)
+    report("K10_bp_ab", max_err(got, ref), 1e-5 * float(ref.abs().max()),
+           time_ms(lambda: cj.bp_sirt_sl(*args, ab=6), 5),
+           time_ms(lambda: cj.bp_sirt_sl_ref(*args, ab=6), 3),
+           f" (ab=6, fused; vs K2 at ab 3/6/10 fused and unfused {worst:.1e} "
+           f"<= 1e-6 max|out|; device ms {', '.join(out)} vs K2 "
+           f"{k2_dev:.4f})", work=work, library_ms=library_ms)
+
+
+def _check_fgp_variants(x, p, report) -> None:
+    """K11 with f32 and bf16 duals and K12 with f32 duals against their
+    plain versions (bound 0.0: the same arithmetic in the same order), with
+    device times beside their twins: one K11 launch against two K3
+    launches, K12 + K4 against one K3."""
+    from tomojax_torch.tv import cuda_fgp
+
+    V = x.numel()
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = tuple(v.to(dt) for v in p)
+        got = _launched(cuda_fgp.fgp_iter2,
+                        lambda: cuda_fgp.fgp_iter2(x, *q, LAM))
+        ref = cuda_fgp.fgp_iter2_ref(x, *q, LAM)
+        errs[dt] = max(max_err(g.float(), r.float())
+                       for g, r in zip(got, ref))
+    qb = tuple(v.to(torch.bfloat16) for v in p)
+    k11 = device_ms(lambda: cuda_fgp.fgp_iter2(x, *qb, LAM))
+    k3 = device_ms(lambda: cuda_fgp.fgp_iter(x, *qb, LAM))
+    report("K11_fgp_iter2", max(errs.values()), 0.0,
+           time_ms(lambda: cuda_fgp.fgp_iter2(x, *qb, LAM), 10),
+           time_ms(lambda: cuda_fgp.fgp_iter2_ref(x, *qb, LAM), 5),
+           f" (f32 duals {errs[torch.float32]:.1e}, bf16 "
+           f"{errs[torch.bfloat16]:.1e}; "
+           f"device ms K11 {k11:.4f} vs two K3 {2 * k3:.4f}, bf16 duals)",
+           work=fgp_iter_work(V, 2, iters=2))
+    d, _ = cuda_fgp.fgp_obj_mom(x, *(v.float() for v in p), LAM)
+    pf = tuple(v.float() for v in p)
+    got = _launched(cuda_fgp.fgp_grad, lambda: cuda_fgp.fgp_grad(d, *pf, LAM))
+    ref = cuda_fgp.fgp_grad_ref(d, *pf, LAM)
+    err = max(max_err(g, r) for g, r in zip(got, ref))
+    k12 = device_ms(lambda: cuda_fgp.fgp_grad(d, *pf, LAM))
+    k4 = device_ms(lambda: cuda_fgp.fgp_obj_mom(x, *pf, LAM))
+    k3f = device_ms(lambda: cuda_fgp.fgp_iter(x, *pf, LAM))
+    report("K12_fgp_grad", err, 0.0,
+           time_ms(lambda: cuda_fgp.fgp_grad(d, *pf, LAM), 10),
+           time_ms(lambda: cuda_fgp.fgp_grad_ref(d, *pf, LAM), 5),
+           f" (f32 duals; device ms K12 {k12:.4f} + K4 {k4:.4f} = "
+           f"{k12 + k4:.4f} vs one K3 {k3f:.4f}, f32 duals)",
+           work=(V * (4 + 12 + 12), 19 * V))
+
+
+def _check_sart(geom, ns: int, uni, report, nnz: int) -> None:
     """K8 against its plain version at three levels: one angle step (a
     column- and a row-driven angle) from random x, tightly; one sweep from
     zero on consistent nanocube projections; the rmse against the phantom
@@ -378,7 +574,13 @@ def _check_sart(geom, ns: int, uni, report) -> None:
            f"bound 1e-4 max|x|; one angle step {step_err:.2e} <= "
            f"{step_tol:.2e} (1e-5 max|x|); rmse vs phantom after 5 sweeps "
            f"kernel {rk:.6f}, plain {rp:.6f}, |d| {abs(rk - rp):.2e} "
-           f"<= 1e-4)")
+           f"<= 1e-4)",
+           # x in and out once; b, inv_row, inv_col_a, order read once;
+           # per angle its FP and BP taps and a 4-operation update of
+           # every voxel (V = n^2 ns)
+           work=(4 * (2 * n * n * ns + na * geom.nray * (ns + 1)
+                      + na * n * n + na + 1),
+                 4 * nnz * ns + 4 * na * n * n * ns))
 
 
 SLABS = 4  # phase 3's emulated ranks: 256^3 as 4 slabs of 64 slices
@@ -476,25 +678,28 @@ def _check_halo_kernels(x: torch.Tensor, uni, report, card: str) -> None:
             f"world size 1 at 256^3: ||g||^2 rel {s_gsq:.3e} (<= 2e-5), K5 "
             f"halo rel {s_tv:.3e} (<= 2e-5)")
     worst = [max(v[i] for v in roles.values()) for i in (0, 1, 3)]
+    V, P = x.numel(), x.shape[0] * x.shape[1]
     report("K9a_fgp_iter_halo", s_a, 2 ** -7,
            time_ms(lambda: fs.fgp_iter_halo(x, *p_all, LAM, zero), 10),
            time_ms(lambda: fs.fgp_iter_halo_ref(x, *p_all, LAM, zero), 5),
            f" (256^3, world size 1, bf16 duals; worst of the 3 slab roles "
-           f"{worst[0]:.2e})")
+           f"{worst[0]:.2e})",
+           work=(fgp_iter_work(V, 2)[0] + 2 * P, fgp_iter_work(V, 2)[1]))
     report("K9b_fgp_obj_halo", s_b, s_tb,
            time_ms(lambda: fs.fgp_obj_halo(x, *p_all, LAM, zero, x_old_all,
                                            beta), 10),
            time_ms(lambda: fs.fgp_obj_halo_ref(x, *p_all, LAM, zero,
                                                x_old_all, beta), 5),
            f" (256^3, world size 1, bf16 duals, Nesterov epilogue, bound "
-           f"1e-6 max|y|; worst of the 3 slab roles {worst[1]:.2e})")
+           f"1e-6 max|y|; worst of the 3 slab roles {worst[1]:.2e})",
+           work=(V * (4 + 3 * 2 + 4 + 4 + 4) + 2 * P + 4, 11 * V))
     report("K9c_tv_grad_halo", s_c, s_tc,
            time_ms(lambda: gs.tv_grad_halo(x, lo_x, hi_x), 10),
            time_ms(lambda: gs.tv_grad_halo_ref(x, lo_x, hi_x), 5),
            f" (256^3, world size 1, bound 1e-5 max|g|; ||g||^2 rel "
            f"{s_gsq:.2e} <= 2e-5; K5 with its own first slice as right "
            f"halo rel {s_tv:.2e} <= 2e-5; worst of the 3 slab roles "
-           f"{worst[2]:.2e})")
+           f"{worst[2]:.2e})", work=(8 * V + 8 * P + 4, 27 * V))
     lo = (uni(*plane_shape) - 0.5).bfloat16()
     hi = (uni(*plane_shape), *((uni(*plane_shape) - 0.5).bfloat16()
                                for _ in range(3)))
@@ -600,7 +805,8 @@ def plain_versions_forbidden():
 
     names = {cuda_joseph: ["fp_sl_ref", "fp_resid_sl_ref", "bp_sl_ref",
                            "bp_sirt_sl_ref"],
-             cuda_fgp: ["fgp_iter_ref", "fgp_obj_mom_ref"],
+             cuda_fgp: ["fgp_iter_ref", "fgp_iter2_ref", "fgp_grad_ref",
+                        "fgp_obj_mom_ref"],
              cuda_fgp_sharded: ["fgp_iter_halo_ref", "fgp_obj_halo_ref"],
              cuda_tv_value: ["tv_value_ref"],
              cuda_tvgd: ["tv_grad_ref"],
@@ -629,6 +835,9 @@ ASD_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp", "K5_tv_value", "K7_tv_grad",
 SHARDED_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp",
                    "K5_tv_value", "K8_sart_sweep", "K9a_fgp_iter_halo",
                    "K9b_fgp_obj_halo", "K9c_tv_grad_halo")
+FUSION_KERNELS = ("K1_fp", "K2_bp_sirt", "K2_bp", "K3_fgp_iter",
+                  "K4_fgp_obj_mom", "K5_tv_value")
+VARIANT_KERNELS = ("K10_bp_ab", "K11_fgp_iter2", "K12_fgp_grad")
 
 
 def _reset(kernels: dict) -> None:
@@ -878,6 +1087,292 @@ def phase_sharded_path(card: str, kernels: dict) -> dict:
     return counts
 
 
+FUSION_ELEMENTS = ("c", "o", "zn")
+
+
+def _fusion_problem(dev, nel=3, ns=128, n=256, nah=90, nac=45,
+                    elements=FUSION_ELEMENTS, span=76.0):
+    """Simulated problem: nanocube phantoms (element e from seed e + 1),
+    the HAADF series of their sigma-weighted model (gamma 1.6, sigma
+    method 3) at nah angles and the chemistry series at nac angles, both
+    over +-span deg, projected on the card. Returns gt (Nel, Ns, N, N),
+    the (Nslice, Nray, Nangles) series and the angles in degrees."""
+    from tomojax_torch.fusion import (
+        fp4d, make_fusion_system, model_haadf, weights_for_elements,
+    )
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import from_sl, to_sl
+
+    ha, ca = np.linspace(-span, span, nah), np.linspace(-span, span, nac)
+    gt = torch.stack([torch.from_numpy(nanocube_phantom(ns, n, seed=e + 1))
+                      for e in range(nel)]).to(dev)
+    fs = make_fusion_system(
+        n, np.deg2rad(ha), np.deg2rad(ca),
+        weights_for_elements(elements[:nel], 1.6, 3), 1.6, dev)
+    x = to_sl(gt)
+    haadf = from_sl(fp_sl(model_haadf(x, fs), fs.haadf.geom)).permute(0, 2, 1)
+    chem = from_sl(fp4d(x, fs.chem)).permute(0, 1, 3, 2)
+    return (gt, haadf.cpu().numpy(),
+            {el: c.cpu().numpy() for el, c in zip(elements, chem)},
+            ha, ca)
+
+
+def _delta(kernels, before):
+    return {k: w.launches - before[k] for k, (w, _, _) in kernels.items()}
+
+
+def phase_fusion_path(card: str, kernels: dict) -> dict:
+    """ChemicalTomo on the simulated 3 x 128 x 256^2 problem (HAADF 90,
+    chemistry 45 angles): chemical_tomography, the data_fusion host loop,
+    data_fusion(fused=True) and method='sart'; then the outer iteration as
+    bench.py times it, with CUDA events and a torch.profiler breakdown."""
+    from tomojax_torch import ChemicalTomo
+
+    dev = torch.device("cuda")
+    gt, haadf, chem, ha, ca = _fusion_problem(dev)
+    nel, ns, n = gt.shape[0], gt.shape[1], gt.shape[2]
+    _reset(kernels)
+    runs = {}
+    with plain_versions_forbidden():
+        tomo = ChemicalTomo(haadf, ha, chem, ca)
+        for name, kw in (("host loop", {}), ("fused", {"fused": True}),
+                         ("sart", {"method": "sart"})):
+            tomo.chemical_tomography(Niter=3)
+            before = {k: w.launches for k, (w, _, _) in kernels.items()}
+            tomo.data_fusion(Niter=3, **kw)
+            torch.cuda.synchronize()
+            runs[name] = (_delta(kernels, before),
+                          np.stack([tomo.costHAADF, tomo.costCHEM,
+                                    tomo.costTV]))
+        recon = tomo.get_recon()
+        rmse = tomo.rmse_per_element(gt.cpu().numpy())
+    counts = _read(kernels, "fusion path (ChemicalTomo)", FUSION_KERNELS)
+    for name in FUSION_KERNELS:
+        require(runs["host loop"][0][name] > 0,
+                f"{name} was not launched in the data_fusion host loop")
+    require(runs["sart"][0]["K8_sart_sweep"] > 0,
+            "K8 was not launched by data_fusion(method='sart')")
+    for name, (_, m) in runs.items():
+        require(bool(np.isfinite(m).all()) and bool((m[2] > 0).all()),
+                f"data_fusion ({name}) costs are not finite: {m}")
+    require(recon.shape == (nel, ns, n, n) and bool(np.isfinite(recon).all())
+            and bool(np.isfinite(rmse).all()),
+            "ChemicalTomo reconstruction is not finite")
+    _check_fusion_kernels(tomo, card)
+    print(f"fusion path {nel}x{ns}x{n}^2, HAADF {len(ha)} / chemistry "
+          f"{len(ca)} angles: ChemicalTomo chemical_tomography(3) + "
+          f"data_fusion(3) each way; costHAADF host loop "
+          f"{np.array2string(runs['host loop'][1][0], precision=4)}, fused "
+          f"{np.array2string(runs['fused'][1][0], precision=4)}, sart "
+          f"{np.array2string(runs['sart'][1][0], precision=4)}; rmse per "
+          f"element {np.array2string(rmse, precision=4)}")
+    _time_fusion_outer(card)
+    return counts
+
+
+def _check_fusion_kernels(tomo, card: str) -> None:
+    """The fusion path's kernels against their plain versions at the shapes
+    that path gives them, with phase 3's bounds, after its launch counts
+    were read: on element 0 of ChemicalTomo's state (N, N, 128) and its
+    HAADF model h, K1 and K2 (plain and fused, as SIRT and Poisson-ML call
+    it) under the chemistry geometry (45 angles) and the HAADF geometry
+    (90), the FGP chain of 5 iterations (K3, then K4 with momentum off)
+    with f32 and bf16 duals, K5, and one HAADF SART sweep (K8) from h."""
+    from tomojax_torch.fusion import model_haadf
+    from tomojax_torch.projector import cuda_joseph as cj
+    from tomojax_torch.solvers import cuda_sart, make_sart_weights
+    from tomojax_torch.solvers.iterative import POISSON_EPS
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value
+    from tomojax_torch.tv.cuda_fgp import tv_fgp_fused
+
+    fsys = tomo.fsys
+    xe = tomo.x[0].contiguous()
+    h = model_haadf(tomo.x, fsys).contiguous()
+    dev = xe.device
+    out = []
+
+    def held(name, got, ref, tol):
+        err = max_err(got, ref)
+        require(err <= tol, f"fusion shapes, {name}: error {err:.3e} above "
+                            f"{tol:.3e}")
+        out.append(f"{name} {err:.2e} <= {tol:.2e}")
+
+    def rel(ref):
+        return 1e-5 * float(ref.abs().max())
+
+    for tag, sysd, v, b in (("chem", fsys.chem, xe, tomo.b_chem[0]),
+                            ("haadf", fsys.haadf, h, tomo.b_haadf)):
+        geom = sysd.geom
+        ax = cj.fp_sl(v, geom)
+        ref = cj.fp_sl_ref(v, geom)
+        held(f"K1 {tag} {geom.nproj}", ax, ref, rel(ref))
+        if tag == "chem":  # Poisson-ML's ratio and constant C = -lam/L
+            y = (ax - b) / (ax + POISSON_EPS)
+            c = (-0.05 / fsys.l_aps).expand(geom.n, geom.n).contiguous()
+        else:  # SIRT's weighted residual and C = inv_col
+            y, c = (b - ax) * sysd.inv_row[:, :, None], sysd.inv_col
+        ref = cj.bp_sl_ref(y, geom)
+        held(f"K2 {tag}", cj.bp_sl(y, geom), ref, rel(ref))
+        ref = cj.bp_sirt_sl_ref(y, geom, v, c)
+        held(f"K2 fused {tag}", cj.bp_sirt_sl(y, geom, v, c), ref, rel(ref))
+
+    for dt, tol in ((torch.float32, 1e-4 * float(xe.abs().max())),
+                    (torch.bfloat16, LAM * 2e-2)):
+        p = tuple(torch.zeros(xe.shape, dtype=dt, device=dev)
+                  for _ in range(3))
+        for _ in range(4):
+            p = cuda_fgp.fgp_iter_ref(xe, *p, LAM)
+        d_ref, _ = cuda_fgp.fgp_obj_mom_ref(xe, *p, LAM)
+        d = tv_fgp_fused(xe, 5, LAM, dual_dtype=dt)
+        held(f"K3+K4 chain of 5 {str(dt)[6:]}", d, d_ref, tol)
+    got, ref = cuda_tv_value.tv_value(xe), cuda_tv_value.tv_value_ref(xe)
+    err = abs(float(got) - float(ref))
+    require(err <= 2e-5 * abs(float(ref)), f"fusion shapes, K5: {err:.3e}")
+    out.append(f"K5 rel {err / abs(float(ref)):.2e} <= 2e-5")
+
+    sh = fsys.haadf
+    args = (tomo.b_haadf, sh.geom, sh.inv_row, make_sart_weights(sh),
+            torch.ones((), device=dev),
+            torch.arange(sh.geom.nproj, dtype=torch.int32, device=dev))
+    ref = cuda_sart.sart_sweep_sl_ref(h, *args)
+    held("K8 haadf sweep", cuda_sart.sart_sweep_sl(h, *args), ref,
+         1e-4 * float(ref.abs().max()))
+    torch.cuda.synchronize()
+    print(f"fusion path kernels at its shapes ({tuple(xe.shape)} per "
+          f"element; bounds of phase 3): " + "; ".join(out) + f" [{card}]")
+
+
+def _time_fusion_outer(card: str, nel=3, ns=128, n=256, na=90, nac=45,
+                       iters=5) -> None:
+    """bench.py's fusion row: random x, bh, bc from default_rng(0), weights
+    ones, gamma 1.6, lam_HAADF 10, lam_chem 0.05, iterSIRT 5, tvIter 5,
+    lam_TV 1e-4; ms per outer iteration over `iters` iterations (CUDA
+    events), then a torch.profiler window of 2 iterations by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tomojax_torch.fusion import data_fusion_step, make_fusion_system
+    from tomojax_torch.solvers import to_sl
+    from tomojax_torch.tv import tv_fgp_4d
+
+    dev = torch.device("cuda")
+    fsys = make_fusion_system(n, np.deg2rad(np.linspace(-76, 76, na)),
+                              np.deg2rad(np.linspace(-76, 76, nac)),
+                              np.ones(nel, np.float32), 1.6, dev)
+    rng = np.random.default_rng(0)
+
+    def draw(*shape):  # as bench.py draws them: float64, then float32
+        return to_sl(torch.from_numpy(
+            rng.random(shape).astype(np.float32)).to(dev))
+
+    x, bh, bc = draw(nel, ns, n, n), draw(ns, na, n), draw(nel, ns, nac, n)
+
+    def outer(v):
+        v, _, _ = data_fusion_step(v, bh, bc, fsys, 10.0, 0.05, 5)
+        return tv_fgp_4d(v, 5, 1e-4)[0]
+
+    with plain_versions_forbidden():
+        v = outer(x)  # warm-up
+        v, run_ms = _events_ms(lambda: _chain(outer, v, iters))
+        require(bool(torch.isfinite(v).all()), "fusion outer iteration "
+                                               "is not finite")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _chain(outer, v, 2)
+            torch.cuda.synchronize()
+    ms = run_ms / iters
+    print(f"fusion outer iteration {nel}x{ns}x{n}^2, HAADF {na} / chemistry "
+          f"{nac} angles, iterSIRT 5, tvIter 5: {ms:.3f} ms/iteration = "
+          f"{nel * ns * n * n / (ms / 1e3) / 1e6:.1f}M voxel-iters/s over "
+          f"{iters} iterations [{card}]")
+    print("  profile (2 iterations): " + _profile_summary(prof, 2))
+
+
+def _chain(fn, v, k):
+    for _ in range(k):
+        v = fn(v)
+    return v
+
+
+def _profile_summary(prof, iters: int) -> str:
+    """Device ms per iteration by kernel name (the 12 largest), the total,
+    and the idle share of the device window (1 - busy / first start to
+    last end)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    if not evs:
+        return "no device events"
+    by = {}
+    for e in evs:
+        by[e.name] = by.get(e.name, 0.0) + (e.time_range.end
+                                            - e.time_range.start)
+    busy = sum(by.values())
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs))
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:12]
+    return (f"device busy {busy / iters / 1e3:.4f} ms/iteration, idle share "
+            f"{100 * (1 - busy / span):.2f} %; " + "; ".join(
+                f"{name[:60]} {us / iters / 1e3:.4f}" for name, us in top))
+
+
+def phase_variants(card: str, kernels: dict) -> dict:
+    """The variant entry points at 256^3: tv_fgp_fused(fuse_pairs=True)
+    (K11) with f32 and bf16 duals against the K3 chain, tv_fgp_two_pass
+    (K12 + K4) against tv_fgp_fused with f32 duals, and ten ASTRA-SIRT
+    iterations at 256^3 x 90 with bp_sirt_sl(ab=6) (K10) against K2."""
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector.cuda_joseph import bp_sirt_sl, fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import make_system, sirt_sweep_sl, to_sl
+    from tomojax_torch.tv.cuda_fgp import tv_fgp_fused, tv_fgp_two_pass
+
+    dev = torch.device("cuda")
+    n, na, ns, it = 256, 90, 256, 10
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((n, n, ns), generator=gen, device=dev)
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+    sysd = make_system(geom, dev)
+    b = fp_sl(to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev)), geom)
+    x0 = torch.zeros((n, n, ns), device=dev)
+
+    def sirt_ab6(v):  # sirt_sweep_sl's 'astra' loop with K10 for K2
+        for _ in range(it):
+            resid = (b - fp_sl(v, geom)) * sysd.inv_row[:, :, None]
+            v = bp_sirt_sl(resid, geom, v, sysd.inv_col, ab=6)
+        return v
+
+    _reset(kernels)
+    with plain_versions_forbidden():
+        pairs = {dt: (tv_fgp_fused(x, N_TV, LAM, dual_dtype=dt,
+                                   fuse_pairs=True),
+                      tv_fgp_fused(x, N_TV, LAM, dual_dtype=dt))
+                 for dt in (torch.float32, torch.bfloat16)}
+        two, _ = tv_fgp_two_pass(x, N_TV, LAM)
+        one = pairs[torch.float32][1]
+        (xa, ms_ab) = _events_ms(lambda: sirt_ab6(x0))
+        (xb, ms_k2) = _events_ms(lambda: sirt_sweep_sl(x0, b, sysd, it))
+    counts = _read(kernels, "variant entry points", VARIANT_KERNELS)
+    e32 = max_err(*pairs[torch.float32])
+    e16 = max_err(*pairs[torch.bfloat16])
+    e2p, esirt = max_err(two, one), max_err(xa, xb)
+    t32, t16 = 1e-6 * float(x.abs().max()), LAM * 3e-2
+    tsirt = 1e-5 * float(xb.abs().max())
+    require(e32 <= t32 and e16 <= t16 and e2p <= 2e-6 and esirt <= tsirt,
+            f"variants: pairs f32 {e32:.3e} (<= {t32:.3e}), bf16 {e16:.3e} "
+            f"(<= {t16:.3e}), two-pass {e2p:.3e} (<= 2e-6), SIRT ab=6 "
+            f"{esirt:.3e} (<= {tsirt:.3e})")
+    print(f"variants at {n}^3, lam {LAM}, {N_TV} FGP iterations: "
+          f"fuse_pairs vs K3 chain f32 duals {e32:.2e} <= {t32:.2e} (1e-6 "
+          f"max|x|), bf16 {e16:.2e} <= {t16:.1e} (lam 3e-2: one bf16 "
+          f"rounding of the duals per pair instead of per iteration); "
+          f"two-pass vs fused f32 {e2p:.2e} <= 2e-6; {it} ASTRA-SIRT "
+          f"iterations x {na} angles with K10 (ab=6) vs K2 {esirt:.2e} <= "
+          f"{tsirt:.2e} (1e-5 max|x|), {ms_ab / it:.3f} vs {ms_k2 / it:.3f} "
+          f"ms/iteration [{card}]")
+    return counts
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -956,6 +1451,59 @@ def phase_golden_asd(card: str) -> None:
             "ASD-POCS golden trace outside its bounds")
 
 
+def phase_golden_fusion(card: str) -> None:
+    """tests/golden/fusion_jax_cpu.json: the reference's ChemicalTomo host
+    loop on the CPU, replayed by the port on the card (its own system,
+    projections and kernels, float32 FGP duals) within the stored bounds.
+    The lambda_chem decay iterations are checked first: a mismatch there is
+    a flipped branch, not drift."""
+    from tomojax_torch import ChemicalTomo, config
+
+    golden = json.loads(
+        (ROOT / "tests/golden/fusion_jax_cpu.json").read_text())
+    c, bd = golden["config"], golden["bounds"]
+    require(c["gamma"] == 1.6 and c["sigma_method"] == 3
+            and c["method"] == "sirt", "golden config outside the replay")
+    gt, haadf, chem, ha, ca = _fusion_problem(
+        torch.device("cuda"), c["nel"], c["ns"], c["n"], c["na_haadf"],
+        c["na_chem"], tuple(c["elements"]), c["span_deg"])
+    saved = config.fgp_dual_dtype
+    config.fgp_dual_dtype = torch.float32
+    try:
+        tomo = ChemicalTomo(haadf, ha, chem, ca, gamma=c["gamma"],
+                            sigmaMethod=c["sigma_method"])
+        tomo.chemical_tomography(Niter=c["chem_iters"],
+                                 lambdaCHEM=c["lambda_chem"])
+        trace = {"costCHEM_chem": tomo.costCHEM.copy()}
+        tomo.data_fusion(Niter=c["fusion_iters"], lambdaCHEM=c["lambda_chem"],
+                         lambdaHAADF=c["lambda_haadf"],
+                         lambdaTV=c["lambda_tv"], iterSIRT=c["iter_sirt"],
+                         tvIter=c["tv_iter"], method=c["method"])
+    finally:
+        config.fgp_dual_dtype = saved
+    for name in ("costHAADF", "costCHEM", "costTV"):
+        trace[name] = getattr(tomo, name)
+    ch = trace["costHAADF"]
+    decays = [i for i in range(1, len(ch)) if ch[i] > ch[i - 1]]
+    require(decays == golden["decay_iterations"],
+            f"fusion golden: branch flip, lambda_chem decayed at iterations "
+            f"{decays}, the golden run at {golden['decay_iterations']}")
+    dev = {name: float(np.max(np.abs(np.asarray(v, np.float64)
+                                     - np.asarray(golden[name]))
+                              / np.abs(np.asarray(golden[name]))))
+           for name, v in trace.items()}
+    rmse = tomo.rmse_per_element(gt.cpu().numpy())
+    dev["rmse_final"] = float(np.max(np.abs(rmse - np.asarray(
+        golden["rmse_final"]))))
+    print(f"golden fusion {c['nel']}x{c['ns']}x{c['n']}^2, HAADF "
+          f"{c['na_haadf']} / chemistry {c['na_chem']} angles vs "
+          f"{c['device']}: lambda_chem decays at {decays} as recorded; max "
+          f"rel dev " + ", ".join(f"{k} {v:.3e} (<= {bd[k]})"
+                                  for k, v in dev.items()) + f" [{card}]")
+    require(all(v <= bd[k] for k, v in dev.items()),
+            "fusion golden trace outside its bounds")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -968,19 +1516,21 @@ def main() -> int:
         phase_build()
         kernels = _kernel_table()
         rows = phase_kernels(card)
-        counts = phase_main_path(card, kernels)
-        asd_counts = phase_asd_path(card, kernels)
-        sharded_counts = phase_sharded_path(card, kernels)
+        paths = [phase_main_path(card, kernels),
+                 phase_asd_path(card, kernels),
+                 phase_sharded_path(card, kernels),
+                 phase_fusion_path(card, kernels),
+                 phase_variants(card, kernels)]
         phase_golden(card)
         phase_golden_asd(card)
+        phase_golden_fusion(card)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: the kernel's count over the three main paths' runs
+    # launches: the kernel's count over the main paths' runs (phase 4)
     report = [{"name": name, "route": "cuda", "source": src,
                "replaces": rep,
-               "launches": counts[name] + asd_counts[name]
-               + sharded_counts[name], **rows[name]}
+               "launches": sum(c[name] for c in paths), **rows[name]}
               for name, (_, src, rep) in kernels.items()]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -41,8 +41,12 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _P],
     "tj_fp_resid_partials": [_I, _I, _I],
     "tj_bp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tj_bp_ab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tj_fgp_iter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _F, _F, _P],
+    "tj_fgp_iter2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _F, _F, _P],
+    "tj_fgp_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "tj_fgp_iter_halo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _F, _F, _P],
     "tj_fgp_obj": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

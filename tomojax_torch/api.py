@@ -1,10 +1,17 @@
-"""User-facing reconstructor (counterpart of ``tomojax.api.TomoTPU``).
+"""User-facing reconstructors (counterparts of ``tomojax.api.TomoTPU`` and
+``tomojax.api.ChemicalTomo``).
 
     from tomojax_torch import TomoTorch
     tomo = TomoTorch(tilt_angles_deg, tilt_series)   # device="cuda"
     tomo.fista(Niter=50, lambda_param=0.1)
     recon = tomo.get_recon()                         # (Nslice, Nray, Nray)
-    tomo.asd_pocs(Niter=20)                          # or tomo.sart(Niter=20)
+    tomo.asd_pocs(Niter=20)     # or .sart, .sirt, .kl_divergence
+
+    from tomojax_torch import ChemicalTomo
+    chem = ChemicalTomo(haadf, haadf_angles_deg, {"c": c_series, ...},
+                        chem_angles_deg)             # device="cuda"
+    chem.chemical_tomography(Niter=50).data_fusion(Niter=50)
+    recon = chem.get_recon()                  # (Nel, Nslice, Nray, Nray)
 
 The tilt series is (Nslice, Nray, Nangles), as in the reference. Every
 tensor lives on the device given at construction: there is no automatic
@@ -29,9 +36,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tomojax_torch import ops
 from tomojax_torch import tv as tvmod
 from tomojax_torch.dist import (
     SlabGroup, gather_slabs, pad_slices, shard_global, unpad_slices,
+)
+from tomojax_torch.fusion import (
+    data_fusion_run,
+    data_fusion_step,
+    make_fusion_system,
+    poisson_ml_step_4d,
+    rescale_projections,
+    rescale_tomograms,
+    weights_for_elements,
 )
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.solvers import (
@@ -44,9 +61,31 @@ from tomojax_torch.solvers import (
     from_sl,
     make_sart_weights,
     make_system,
+    poisson_ml_step_sl,
+    row_norms_sq,
     sart_sweep_sl,
+    sirt_sweep_sl,
     to_sl,
 )
+from tomojax_torch.tv import tv_fgp_4d
+
+
+def _device(device, owner: str) -> torch.device:
+    """torch.device(device), "cuda" when None; raises for CUDA where torch
+    finds none (no automatic move to the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}(device='cuda'): torch finds no CUDA device; pass "
+            f"device='cpu' to run the plain PyTorch versions")
+    return device
+
+
+def _to_sinogram(tilt_series: np.ndarray) -> np.ndarray:
+    """(Nslice, Nray, Nangles) -> the slice-last sinogram (Nangles, Nray,
+    Nslice), contiguous float32."""
+    return np.ascontiguousarray(
+        np.transpose(np.asarray(tilt_series, np.float32), (2, 1, 0)))
 
 
 class TomoTorch:
@@ -61,13 +100,8 @@ class TomoTorch:
             raise ValueError("pass a device or a group, not both: a group's "
                              "tensors live on group.device")
         self.group = group
-        if device is None:
-            device = "cuda" if group is None else group.device
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TomoTorch(device='cuda'): torch finds no CUDA device; "
-                "pass device='cpu' to run the plain PyTorch versions")
+        self.device = _device(device if group is None else group.device,
+                              "TomoTorch")
         self.tilt_angles = np.asarray(tilt_angles_deg, np.float64)
         self.recon = None
         self.cost = None
@@ -90,7 +124,7 @@ class TomoTorch:
         self.sys = make_system(self.geom, self.device)
         # slice-last sinogram (Nangles, Nray, Nslice), or this rank's slab
         # of it after padding to a multiple of the group size
-        b_sl = torch.from_numpy(np.ascontiguousarray(ts.transpose(2, 1, 0)))
+        b_sl = torch.from_numpy(_to_sinogram(ts))
         if self.group is None:
             self.b_sl = b_sl.to(self.device)
         else:
@@ -142,6 +176,49 @@ class TomoTorch:
         self.cost = (torch.stack(dds).cpu().numpy() if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
+        return self
+
+    def sirt(self, Niter: int = 150, show_convergence: bool = True,
+             variant: str = "astra"):
+        """SIRT from zero, one `sirt_sweep_sl` iteration at a time; variant
+        'astra' (K1 and K2's fused update), 'landweber' or 'cimmino'. With
+        show_convergence, ``self.cost`` holds ||A x - b|| after each
+        iteration, read from the device once at the end."""
+        self.restart_recon()
+        row_nsq = (row_norms_sq(self.geom, self.device)
+                   if variant == "cimmino" else None)
+        x = to_sl(self.x)
+        dds = []
+        for _ in range(Niter):
+            x = sirt_sweep_sl(x, self.b_sl, self.sys, 1, variant,
+                              row_nsq=row_nsq)
+            if show_convergence:
+                dds.append(data_distance_sl(x, self.b_sl, self.sys,
+                                            self.group))
+        self.cost = (torch.stack(dds).cpu().numpy() if dds
+                     else np.zeros(Niter, np.float32))
+        self.x = from_sl(x)
+        return self
+
+    def kl_divergence(self, Niter: int = 100, lambda_param: float = 0.1):
+        """Poisson-ML from zero on a copy of the data normalised to max 1;
+        the reconstruction is scaled back to data units afterwards and the
+        stored data are untouched (as ``TomoTPU.kl_divergence``).
+        ``self.cost`` holds the KL cost of each iteration, read once at
+        the end. Not ported for slab-sharded runs."""
+        if self.group is not None:
+            raise ValueError("kl_divergence with a group is not ported")
+        self.restart_recon()
+        bmax = float(torch.max(self.b_sl))
+        b_kl = self.b_sl / bmax if bmax > 0 else self.b_sl
+        x = to_sl(self.x)
+        costs = []
+        for _ in range(Niter):
+            x, c = poisson_ml_step_sl(x, b_kl, self.sys, lambda_param)
+            costs.append(c)
+        self.cost = (torch.stack(costs).cpu().numpy() if costs
+                     else np.zeros(Niter, np.float32))
+        self.x = from_sl(x * bmax if bmax > 0 else x)
         return self
 
     def asd_pocs(self, Niter: int = 100, eps: float = 0.025,
@@ -215,3 +292,132 @@ class TomoTorch:
         else:
             orders = torch.arange(na, dtype=torch.int32).expand(count, -1)
         return orders.to(self.device).contiguous()
+
+
+class ChemicalTomo:
+    """Fused multi-modal reconstructor on one device (counterpart of
+    ``tomojax.api.ChemicalTomo``, the reference's
+    chemistry/reconstructor.py).
+
+    haadf: the HAADF tilt series (Nslice, Nray, NaH); chem: element symbol
+    -> its tilt series (Nslice, Nray, NaC); angles in degrees. Both are
+    clamped to >= 0 and normalised to max 1 on the host, as the reference
+    does. The state lives slice-last on `device` (default "cuda", which
+    raises where torch finds no CUDA): x (Nel, Nray, Nray, Nslice), the
+    sinograms (NaH, Nray, Nslice) and (Nel, NaC, Nray, Nslice)."""
+
+    def __init__(self, haadf, haadfTiltAngles, chem: dict, chemTiltAngles,
+                 gamma: float = 1.6, sigmaMethod: int = 3, device=None):
+        self.device = _device(device, "ChemicalTomo")
+        haadf = np.asarray(haadf, np.float32)
+        if haadf.ndim != 3 or haadf.shape[2] != len(haadfTiltAngles):
+            raise ValueError(f"haadf {haadf.shape} must be (Nslice, Nray, "
+                             f"NaH) with NaH = {len(haadfTiltAngles)}")
+        self.nx, self.ny, _ = haadf.shape
+        self.elements = list(chem)
+        self.nel = len(self.elements)
+        self.gamma, self.sigmaMethod = gamma, sigmaMethod
+        self.reduceLambda = True
+        want = (self.nx, self.ny, len(chemTiltAngles))
+        stack = []
+        for el in self.elements:
+            c = np.maximum(np.asarray(chem[el], np.float32), 0)
+            if c.shape != want:
+                raise ValueError(f"chem[{el!r}] {c.shape}, expected {want}")
+            stack.append(_to_sinogram(c / max(c.max(), 1e-30)))
+        h = np.maximum(haadf, 0)
+        self.b_haadf = torch.from_numpy(
+            _to_sinogram(h / max(h.max(), 1e-30))).to(self.device)
+        self.b_chem = torch.from_numpy(np.stack(stack)).to(self.device)
+        self.fsys = make_fusion_system(
+            self.ny, np.deg2rad(np.asarray(haadfTiltAngles, np.float64)),
+            np.deg2rad(np.asarray(chemTiltAngles, np.float64)),
+            weights_for_elements(self.elements, gamma, sigmaMethod), gamma,
+            self.device)
+        self.x = torch.zeros((self.nel, self.ny, self.ny, self.nx),
+                             dtype=torch.float32, device=self.device)
+        self.reconTotal = None
+        self.chemistry_reconstructed = False
+
+    def restart_recon(self):
+        self.x = torch.zeros_like(self.x)
+        self.reconTotal = None
+
+    def chemical_tomography(self, Niter: int = 100,
+                            lambdaCHEM: float = 0.05,
+                            show_convergence: bool = True):
+        """Chemistry-only Poisson-ML from zero (reconstructor.py:157-180).
+        ``self.costCHEM`` holds each iteration's KL cost, read from the
+        device once at the end (no decision depends on it)."""
+        self.restart_recon()
+        costs = []
+        for _ in range(Niter):
+            self.x, c = poisson_ml_step_4d(self.x, self.b_chem, self.fsys,
+                                           lambdaCHEM)
+            costs.append(c)
+        self.costCHEM = (torch.stack(costs).cpu().numpy() if costs
+                         else np.zeros(Niter, np.float32))
+        self.chemistry_reconstructed = True
+        self.reconTotal = None
+        return self
+
+    def _rescale_data(self, scale: float = 10.0):
+        """reconstructor.py:227-236."""
+        self.x = rescale_tomograms(self.x, scale)
+        self.b_haadf = rescale_projections(self.x, self.b_haadf, self.fsys)
+
+    def data_fusion(self, Niter: int = 50, lambdaCHEM: float = 5e-2,
+                    lambdaHAADF: float = 10.0, lambdaTV: float = 1e-4,
+                    iterSIRT: int = 5, tvIter: int = 5,
+                    show_convergence: bool = True,
+                    normalize_haadf: bool = False, method: str = "sirt",
+                    fused: bool = False):
+        """The fused reconstruction loop (reconstructor.py:182-225): the
+        fusion step, the per-element FGP and lambdaCHEM *= 0.95 whenever
+        the HAADF cost rose. The default host loop reads the three costs
+        after every iteration and decides the decay in Python, as the
+        reference does; fused=True runs `data_fusion_run`, which carries
+        lambdaCHEM on the device and reads the costs once at the end.
+        Sets costHAADF, costCHEM and costTV. method 'sirt' or 'sart' picks
+        the inner HAADF solver (for 'sart' iterSIRT counts sweeps)."""
+        if not self.chemistry_reconstructed:
+            self.chemical_tomography(lambdaCHEM=lambdaCHEM,
+                                     show_convergence=show_convergence)
+        self._rescale_data()
+        sart_w = (make_sart_weights(self.fsys.haadf) if method == "sart"
+                  else None)
+        if fused:
+            self.x, metrics = data_fusion_run(
+                self.x, self.b_haadf, self.b_chem, self.fsys, lambdaHAADF,
+                lambdaCHEM, Niter, iterSIRT, tvIter, lambdaTV,
+                self.reduceLambda, normalize_haadf, method, sart_w)
+            m = metrics.cpu().numpy()
+        else:
+            m = np.zeros((Niter, 3), np.float32)
+            lam_chem = lambdaCHEM
+            for i in range(Niter):
+                self.x, ch, cc = data_fusion_step(
+                    self.x, self.b_haadf, self.b_chem, self.fsys,
+                    lambdaHAADF, lam_chem, iterSIRT, normalize_haadf, method,
+                    sart_w)
+                self.x, tv0 = tv_fgp_4d(self.x, tvIter, lambdaTV)
+                m[i] = torch.stack([ch, cc, tv0]).cpu().numpy()
+                if self.reduceLambda and i > 0 and m[i, 0] > m[i - 1, 0]:
+                    lam_chem *= 0.95
+        self.costHAADF, self.costCHEM, self.costTV = m[:, 0], m[:, 1], m[:, 2]
+        self.reconTotal = None
+        return self
+
+    def rmse_per_element(self, ground_truth) -> np.ndarray:
+        """Per-element RMSE against the (Nel, Nslice, Nray, Nray) ground
+        truth."""
+        gt = torch.as_tensor(np.asarray(ground_truth, np.float32),
+                             device=self.device)
+        return ops.rmse_per_element(from_sl(self.x), gt).cpu().numpy()
+
+    def get_recon(self) -> np.ndarray:
+        """(Nel, Nslice, Nray, Nray) float32 numpy
+        (reconstructor.py:238-249)."""
+        if self.reconTotal is None:
+            self.reconTotal = from_sl(self.x).cpu().numpy()
+        return self.reconTotal

@@ -1,4 +1,5 @@
-"""Carry system weights and FISTA state across from the reference package.
+"""Carry system weights, fusion systems and FISTA state across from the
+reference package.
 
 Takes numpy arrays only (``np.asarray`` of the JAX arrays), so it imports
 no JAX. The reference's slice-last FISTA state pads its sinogram fields
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from tomojax_torch.dist import SlabGroup, pad_slices, shard_global
+from tomojax_torch.fusion import FusionSystem
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.solvers.base import System
 from tomojax_torch.solvers.fista import FistaStateSL
@@ -34,6 +36,19 @@ def system_from_numpy(geom: Geometry, row_sum, col_sum, lipschitz,
     col = np.asarray(col_sum).reshape(geom.n, geom.n)
     return System(geom, _tensor(row, device), _tensor(col, device),
                   _tensor(np.asarray(lipschitz).reshape(()), device))
+
+
+def fusion_system_from_numpy(haadf_sys, chem_sys, weights, gamma: float,
+                             l_aps, l_asig, device) -> FusionSystem:
+    """A FusionSystem from the reference's arrays: haadf_sys and chem_sys
+    are each (Geometry, row_sum, col_sum, lipschitz) as `system_from_numpy`
+    takes them, weights (Nel,), l_aps and l_asig scalars."""
+    return FusionSystem(
+        system_from_numpy(*haadf_sys, device), system_from_numpy(*chem_sys,
+                                                                 device),
+        _tensor(np.asarray(weights).reshape(-1), device), float(gamma),
+        _tensor(np.asarray(l_aps).reshape(()), device),
+        _tensor(np.asarray(l_asig).reshape(()), device))
 
 
 def sart_weights_from_numpy(inv_col_a, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 // FGP TV prox for Hopper: K3 (one fused FGP iteration), K4 (the final
-// objective pass with the FISTA Nesterov step as an epilogue), and their
-// slab variants K9a/K9b, which take the neighbouring ranks' boundary planes
-// along axis 2 (the slab axis of a z-sharded slice-last volume).
+// objective pass with the FISTA Nesterov step as an epilogue), their slab
+// variants K9a/K9b, which take the neighbouring ranks' boundary planes
+// along axis 2 (the slab axis of a z-sharded slice-last volume), K11 (two
+// fused iterations per launch) and K12 (the dual pass of the two-pass FGP).
 //
 // Volume x (n0, n1, n2) f32, contiguous, n2 fastest; duals P1..P3 of the
 // same shape stored as T (float or bf16). FGP does not change under a
@@ -63,6 +64,26 @@ __device__ __forceinline__ float objective(const float* __restrict__ x,
   div += tj::load(p2, c) - (has1 ? tj::load(p2, c - s1) : 0.f);
   div += tj::load(p3, c) - below;
   return fmaxf(__fsub_rn(x[c], __fmul_rn(lam, div)), 0.f);
+}
+
+// The dual update at one voxel: Q_k = P_k + multip * g_k, then the
+// isotropic projection Q *= 1/sqrt(|Q|^2) where |Q|^2 > 1. Rounded as the
+// plain versions round (no FMA contraction, rsqrt as in the reference), so
+// that bf16 storage rounds the same values.
+struct Dual {
+  float q1, q2, q3;
+};
+
+__device__ __forceinline__ Dual dual_step(float p1, float p2, float p3,
+                                          float g1, float g2, float g3,
+                                          float multip) {
+  const float q1 = __fadd_rn(p1, __fmul_rn(multip, g1));
+  const float q2 = __fadd_rn(p2, __fmul_rn(multip, g2));
+  const float q3 = __fadd_rn(p3, __fmul_rn(multip, g3));
+  const float den = __fadd_rn(__fadd_rn(__fmul_rn(q1, q1), __fmul_rn(q2, q2)),
+                              __fmul_rn(q3, q3));
+  const float sc = den > 1.f ? rsqrtf(den) : 1.f;
+  return {q1 * sc, q2 * sc, q3 * sc};
 }
 
 // P3 one slice below voxel o (plane index row) of slice i2: 0 under slice 0
@@ -127,17 +148,173 @@ fgp_iter_kernel(const float* __restrict__ x, const T* __restrict__ p1,
                        hl ? 1 : static_cast<size_t>(v.n2), i0 > 0, i1 > 0,
                        tj::load(p3, o), lam);
   }
-  // Rounded as the plain version rounds (no FMA contraction, rsqrt as in
-  // the reference), so that bf16 storage rounds the same values.
-  const float q1 = __fadd_rn(tj::load(p1, o), __fmul_rn(multip, g1));
-  const float q2 = __fadd_rn(tj::load(p2, o), __fmul_rn(multip, g2));
-  const float q3 = __fadd_rn(tj::load(p3, o), __fmul_rn(multip, g3));
-  const float den = __fadd_rn(__fadd_rn(__fmul_rn(q1, q1), __fmul_rn(q2, q2)),
-                              __fmul_rn(q3, q3));
-  const float sc = den > 1.f ? rsqrtf(den) : 1.f;
-  o1[o] = tj::store<T>(q1 * sc);
-  o2[o] = tj::store<T>(q2 * sc);
-  o3[o] = tj::store<T>(q3 * sc);
+  const Dual q = dual_step(tj::load(p1, o), tj::load(p2, o), tj::load(p3, o),
+                           g1, g2, g3, multip);
+  o1[o] = tj::store<T>(q.q1);
+  o2[o] = tj::store<T>(q.q2);
+  o3[o] = tj::store<T>(q.q3);
+}
+
+// K11 -- replaces tomojax/tv/pallas_fgp.py:_fused2_kernel
+// (tv_fgp_pallas_fused with fuse_pairs=True): two FGP iterations per
+// launch, P -> P^1 -> P^2, with the intermediate duals P^1 kept in f32 and
+// never stored; P^2 is rounded to T once. The reference's boundary rules
+// hold at both iterations: P = 0 below index 0 in the divergence, a zero
+// forward difference at the last index, the clamp d >= 0, the isotropic
+// projection.
+//
+// A block owns an output tile of K11_T0 x K11_T1 x K11_T2 voxels (axes 0,
+// 1, 2) with origin o. Iteration 2 at voxel v reads d^2 at v and v + e_k,
+// d^2 at w reads P^1 at w and w - e_k, and P^1 at u couples its three
+// components through the projection, so the block builds, in shared
+// memory and in four phases separated by barriers:
+//   A. d^1 on the box [o-1, o+T+2) from x and P (global, through L1/L2);
+//   B. P^1 on the box [o-1, o+T+1), 0 outside the volume (so the
+//      divergence of iteration 2 reads P^1 = 0 below index 0);
+//   C. d^2 on the box [o, o+T+1), into d^1's buffer;
+//   D. P^2 on the tile, stored as T.
+// Neighbours across threads go through shared memory behind the barriers,
+// never through registers. The arithmetic is K3's (tj objective,
+// dual_step), so one K11 launch equals its plain version (two K3 plain
+// iterations with P^1 in f32) bit for bit.
+//
+// Bound on the H100: device memory, as K3: x, P in and P out once per two
+// iterations, 256 MiB at 256^3 with bf16 duals (K3 moves that per
+// iteration). The halos cost recomputation: phase A evaluates d^1 on 2.6x
+// the tile's voxels, its reads served by L1/L2.
+constexpr int K11_T0 = 4, K11_T1 = 8, K11_T2 = 32;
+constexpr int K11_NT = 256;
+constexpr int K11_D0 = K11_T0 + 3, K11_D1 = K11_T1 + 3, K11_D2 = K11_T2 + 3;
+constexpr int K11_R0 = K11_T0 + 2, K11_R1 = K11_T1 + 2, K11_R2 = K11_T2 + 2;
+constexpr int K11_E0 = K11_T0 + 1, K11_E1 = K11_T1 + 1, K11_E2 = K11_T2 + 1;
+constexpr int K11_RN = K11_R0 * K11_R1 * K11_R2;
+
+template <typename T>
+__global__ void __launch_bounds__(K11_NT)
+fgp_iter2_kernel(const float* __restrict__ x, const T* __restrict__ p1,
+                 const T* __restrict__ p2, const T* __restrict__ p3,
+                 T* __restrict__ o1, T* __restrict__ o2, T* __restrict__ o3,
+                 Vol v, float lam, float multip) {
+  __shared__ float dbuf[K11_D0 * K11_D1 * K11_D2];  // d^1, then d^2
+  __shared__ float q[3 * K11_RN];                   // P^1, component-major
+  const int b0 = blockIdx.z * K11_T0;
+  const int b1 = blockIdx.y * K11_T1;
+  const int b2 = blockIdx.x * K11_T2;
+  const size_t s0 = static_cast<size_t>(v.n1) * v.n2;
+  auto inside = [&](int i0, int i1, int i2) {
+    return i0 >= 0 && i0 < v.n0 && i1 >= 0 && i1 < v.n1 && i2 >= 0 &&
+           i2 < v.n2;
+  };
+
+  // A. d^1 at global (b - 1 + local)
+  for (int i = threadIdx.x; i < K11_D0 * K11_D1 * K11_D2; i += K11_NT) {
+    const int a = i / (K11_D1 * K11_D2);
+    const int bb = (i / K11_D2) % K11_D1;
+    const int c = i % K11_D2;
+    const int i0 = b0 + a - 1, i1 = b1 + bb - 1, i2 = b2 + c - 1;
+    float d = 0.f;
+    if (inside(i0, i1, i2)) {
+      const size_t o = v.at(i0, i1, i2);
+      d = objective(x, p1, p2, p3, o, s0, v.n2, i0 > 0, i1 > 0,
+                    i2 > 0 ? tj::load(p3, o - 1) : 0.f, lam);
+    }
+    dbuf[i] = d;
+  }
+  __syncthreads();
+
+  // B. P^1 at global (b - 1 + local); d^1 of the same voxel sits at the
+  // same local index of A's box
+  for (int i = threadIdx.x; i < K11_RN; i += K11_NT) {
+    const int a = i / (K11_R1 * K11_R2);
+    const int bb = (i / K11_R2) % K11_R1;
+    const int c = i % K11_R2;
+    const int i0 = b0 + a - 1, i1 = b1 + bb - 1, i2 = b2 + c - 1;
+    Dual r{0.f, 0.f, 0.f};
+    if (inside(i0, i1, i2)) {
+      const size_t o = v.at(i0, i1, i2);
+      const int di = (a * K11_D1 + bb) * K11_D2 + c;
+      const float d = dbuf[di];
+      r = dual_step(
+          tj::load(p1, o), tj::load(p2, o), tj::load(p3, o),
+          i0 < v.n0 - 1 ? d - dbuf[di + K11_D1 * K11_D2] : 0.f,
+          i1 < v.n1 - 1 ? d - dbuf[di + K11_D2] : 0.f,
+          i2 < v.n2 - 1 ? d - dbuf[di + 1] : 0.f, multip);
+    }
+    q[i] = r.q1;
+    q[K11_RN + i] = r.q2;
+    q[2 * K11_RN + i] = r.q3;
+  }
+  __syncthreads();
+
+  // C. d^2 at global (b + local), from P^1 at local + 1 of B's box and its
+  // predecessors (0 below index 0, as K3's objective reads P[-1] = 0)
+  for (int i = threadIdx.x; i < K11_E0 * K11_E1 * K11_E2; i += K11_NT) {
+    const int a = i / (K11_E1 * K11_E2);
+    const int bb = (i / K11_E2) % K11_E1;
+    const int c = i % K11_E2;
+    const int i0 = b0 + a, i1 = b1 + bb, i2 = b2 + c;
+    float d = 0.f;
+    if (inside(i0, i1, i2)) {
+      const int ri = ((a + 1) * K11_R1 + bb + 1) * K11_R2 + c + 1;
+      float div = q[ri] - q[ri - K11_R1 * K11_R2];
+      div += q[K11_RN + ri] - q[K11_RN + ri - K11_R2];
+      div += q[2 * K11_RN + ri] - q[2 * K11_RN + ri - 1];
+      d = fmaxf(__fsub_rn(x[v.at(i0, i1, i2)], __fmul_rn(lam, div)), 0.f);
+    }
+    dbuf[i] = d;  // d^1 is dead: phase B's barrier ended its last read
+  }
+  __syncthreads();
+
+  // D. P^2 on the tile
+  for (int i = threadIdx.x; i < K11_T0 * K11_T1 * K11_T2; i += K11_NT) {
+    const int a = i / (K11_T1 * K11_T2);
+    const int bb = (i / K11_T2) % K11_T1;
+    const int c = i % K11_T2;
+    const int i0 = b0 + a, i1 = b1 + bb, i2 = b2 + c;
+    if (!inside(i0, i1, i2)) continue;
+    const int ei = (a * K11_E1 + bb) * K11_E2 + c;
+    const int ri = ((a + 1) * K11_R1 + bb + 1) * K11_R2 + c + 1;
+    const float d = dbuf[ei];
+    const Dual r = dual_step(
+        q[ri], q[K11_RN + ri], q[2 * K11_RN + ri],
+        i0 < v.n0 - 1 ? d - dbuf[ei + K11_E1 * K11_E2] : 0.f,
+        i1 < v.n1 - 1 ? d - dbuf[ei + K11_E2] : 0.f,
+        i2 < v.n2 - 1 ? d - dbuf[ei + 1] : 0.f, multip);
+    const size_t o = v.at(i0, i1, i2);
+    o1[o] = tj::store<T>(r.q1);
+    o2[o] = tj::store<T>(r.q2);
+    o3[o] = tj::store<T>(r.q3);
+  }
+}
+
+// K12 -- replaces tomojax/tv/pallas_fgp.py:_grad_kernel, the dual pass of
+// the two-pass FGP (tv_fgp_pallas), whose objective pass is K4 with the
+// momentum off (_obj_kernel). P <- project(P + multip * grad d) from the
+// stored d, the forward difference 0 at the last index of each axis. f32
+// duals, as the reference keeps them in x's dtype. It reads P and d and
+// writes fresh dual tensors, so no thread reads an updated neighbour.
+//
+// Bound on the H100: device memory. One launch moves d and three duals in
+// and three duals out (448 MiB at 256^3); the d neighbours hit L1/L2.
+__global__ void __launch_bounds__(BX * BY)
+fgp_grad_kernel(const float* __restrict__ d, const float* __restrict__ p1,
+                const float* __restrict__ p2, const float* __restrict__ p3,
+                float* __restrict__ o1, float* __restrict__ o2,
+                float* __restrict__ o3, Vol v, float multip) {
+  const int i2 = blockIdx.x * BX + threadIdx.x;
+  const int i1 = blockIdx.y * BY + threadIdx.y;
+  const int i0 = blockIdx.z;
+  if (i2 >= v.n2 || i1 >= v.n1) return;
+  const size_t o = v.at(i0, i1, i2);
+  const float dv = d[o];
+  const Dual r = dual_step(
+      p1[o], p2[o], p3[o],
+      i0 < v.n0 - 1 ? dv - d[o + static_cast<size_t>(v.n1) * v.n2] : 0.f,
+      i1 < v.n1 - 1 ? dv - d[o + v.n2] : 0.f,
+      i2 < v.n2 - 1 ? dv - d[o + 1] : 0.f, multip);
+  o1[o] = r.q1;
+  o2[o] = r.q2;
+  o3[o] = r.q3;
 }
 
 // K4 -- replaces tomojax/tv/pallas_fgp.py:_obj_mom_kernel (MOM true) and
@@ -191,6 +368,18 @@ void launch_iter(const float* x, const void* p1, const void* p2,
       static_cast<T*>(o3), h, v, lam, multip);
 }
 
+template <typename T>
+void launch_iter2(const float* x, const void* p1, const void* p2,
+                  const void* p3, void* o1, void* o2, void* o3, Vol v,
+                  float lam, float multip, cudaStream_t st) {
+  const dim3 grid((v.n2 + K11_T2 - 1) / K11_T2, (v.n1 + K11_T1 - 1) / K11_T1,
+                  (v.n0 + K11_T0 - 1) / K11_T0);
+  fgp_iter2_kernel<T><<<grid, K11_NT, 0, st>>>(
+      x, static_cast<const T*>(p1), static_cast<const T*>(p2),
+      static_cast<const T*>(p3), static_cast<T*>(o1), static_cast<T*>(o2),
+      static_cast<T*>(o3), v, lam, multip);
+}
+
 template <typename T, bool HALO>
 void launch_obj(const float* x, const void* p1, const void* p2,
                 const void* p3, const Halo<T>& h, const float* x_old,
@@ -238,6 +427,39 @@ TJ_API int tj_fgp_iter(const float* x, const void* p1, const void* p2,
     launch_iter<float, false>(x, p1, p2, p3, o1, o2, o3, {}, v, lam, multip,
                               st);
   }
+  return tj::launch_error();
+}
+
+// K11: two FGP iterations; operands as tj_fgp_iter.
+TJ_API int tj_fgp_iter2(const float* x, const void* p1, const void* p2,
+                        const void* p3, void* o1, void* o2, void* o3, int n0,
+                        int n1, int n2, int bf16, float lam, float multip,
+                        void* stream) {
+  if (n0 <= 0 || n1 <= 0 || n2 <= 0 ||
+      (n0 + K11_T0 - 1) / K11_T0 > 65535 ||
+      (n1 + K11_T1 - 1) / K11_T1 > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const Vol v{n0, n1, n2};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    launch_iter2<__nv_bfloat16>(x, p1, p2, p3, o1, o2, o3, v, lam, multip,
+                                st);
+  } else {
+    launch_iter2<float>(x, p1, p2, p3, o1, o2, o3, v, lam, multip, st);
+  }
+  return tj::launch_error();
+}
+
+// K12: the dual pass of the two-pass FGP from the stored d; f32 duals.
+TJ_API int tj_fgp_grad(const float* d, const float* p1, const float* p2,
+                       const float* p3, float* o1, float* o2, float* o3,
+                       int n0, int n1, int n2, float multip, void* stream) {
+  if (!vol_ok(n0, n1, n2)) return cudaErrorInvalidValue;
+  const Vol v{n0, n1, n2};
+  fgp_grad_kernel<<<vol_grid(v), dim3(BX, BY), 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      d, p1, p2, p3, o1, o2, o3, v, multip);
   return tj::launch_error();
 }
 

@@ -60,24 +60,44 @@ __device__ __forceinline__ float fp_ray(const float* __restrict__ x,
   return acc;
 }
 
-// acc plus one angle's backprojection at pixel (x_c, y_r), as
-// tomojax/projector/joseph.py:_bp_impl computes it: J* = x_c cos + y_r sin
-// + (Nt-1)/2, then a 2-point read of ya (the angle's (Nt, Ns) plane, offset
-// to the caller's slice) at floor(J*) and floor(J*)+1 with weights
-// hat((j - J*)/D)/D. t = {cos, sin, 1/D, -}.
+// J* = x_c cos + y_r sin + (Nt-1)/2 of one angle at pixel (x_c, y_r), in
+// round-to-nearest steps (no FMA contraction). t = {cos, sin, 1/D, -}. The
+// computed J* is monotone in x_c (each step rounds a monotone function), so
+// the taps of a run of columns lie between those of its two ends.
+__device__ __forceinline__ float bp_jstar(float4 t, float xc, float yr,
+                                          float off) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(t.x, xc), __fmul_rn(t.y, yr)), off);
+}
+
+// The two taps of one angle at pixel (x_c, y_r), as
+// tomojax/projector/joseph.py:_bp_impl picks them: bins floor(J*) and
+// floor(J*)+1 with weights hat((j - J*)/D)/D.
+struct BpTaps {
+  int j0;
+  float w0, w1;
+};
+
+__device__ __forceinline__ BpTaps bp_taps(float4 t, float xc, float yr,
+                                          float off) {
+  const float jstar = bp_jstar(t, xc, yr, off);
+  const float f = floorf(jstar);
+  return {static_cast<int>(f),
+          fmaxf(0.f, 1.f - fabsf(f - jstar) * t.z) * t.z,
+          fmaxf(0.f, 1.f - fabsf((f + 1.f) - jstar) * t.z) * t.z};
+}
+
+// acc plus one angle's backprojection at pixel (x_c, y_r): a 2-point read
+// of ya (the angle's (Nt, Ns) plane, offset to the caller's slice) at the
+// taps of `bp_taps`; out-of-range bins read 0.
 __device__ __forceinline__ float bp_angle(const float* __restrict__ ya,
                                           float4 t, float xc, float yr,
                                           float off, int nt, int ns,
                                           float acc) {
-  const float jstar = __fadd_rn(__fadd_rn(__fmul_rn(t.x, xc),
-                                          __fmul_rn(t.y, yr)), off);
-  const float f = floorf(jstar);
-  const int j0 = static_cast<int>(f);
-  const float w0 = fmaxf(0.f, 1.f - fabsf(f - jstar) * t.z) * t.z;
-  const float w1 = fmaxf(0.f, 1.f - fabsf((f + 1.f) - jstar) * t.z) * t.z;
-  const float v0 = (j0 >= 0 && j0 < nt) ? ya[j0 * ns] : 0.f;
-  const float v1 = (j0 + 1 >= 0 && j0 + 1 < nt) ? ya[(j0 + 1) * ns] : 0.f;
-  return fmaf(v1, w1, fmaf(v0, w0, acc));
+  const BpTaps k = bp_taps(t, xc, yr, off);
+  const float v0 = (k.j0 >= 0 && k.j0 < nt) ? ya[k.j0 * ns] : 0.f;
+  const float v1 = (k.j0 + 1 >= 0 && k.j0 + 1 < nt) ? ya[(k.j0 + 1) * ns]
+                                                     : 0.f;
+  return fmaf(v1, k.w1, fmaf(v0, k.w0, acc));
 }
 
 }  // namespace tj

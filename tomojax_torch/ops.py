@@ -27,6 +27,12 @@ def rmse(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(d * d))
 
 
+def rmse_per_element(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Per-element RMSE (Nel,) of 4D (Nel, ...) stacks."""
+    d = x - ref
+    return torch.sqrt(torch.mean(d * d, dim=tuple(range(1, x.dim()))))
+
+
 def data_distance(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Unnormalised ||g - b||_F between model and measured projections."""
     d = g - b

@@ -10,6 +10,10 @@ slice-last and unpadded: volumes ``(N, N, Ns)``, sinograms
 * K2 ``bp_sirt_sl`` (``csrc/joseph.cu`` ``bp_kernel<true>``): the SIRT
   update ``max(y_vol + inv_col * A^T r, 0)``; ``bp_sl`` is the same kernel
   with the epilogue off (plain ``A^T y``).
+* K10 ``bp_sl`` / ``bp_sirt_sl`` with ``ab > 1`` (``csrc/joseph.cu``
+  ``bp_ab_kernel``, launched by ``bp_ab_sl``): K2 with the angles staged
+  ``ab`` at a time over the angle set padded to a multiple of ab, the
+  reference's ``bp_pallas_sl(..., ab=)``; it equals K2.
 
 The plain versions are the 2-point gathers of the reference's XLA
 ``gather`` mode (``tomojax/projector/joseph.py`` ``_fp_branch`` and
@@ -155,21 +159,27 @@ def bp_angle_ref(ya: torch.Tensor, t, n: int, acc=0.0) -> torch.Tensor:
             + ya[j1.clamp(0, nt - 1)] * w1[..., None])
 
 
-def bp_sl_ref(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
+def bp_sl_ref(y: torch.Tensor, geom: Geometry, ab: int = 1) -> torch.Tensor:
     """Plain ``A^T y``: (Na, Nt, Ns) -> (N, N, Ns), `bp_angle_ref` summed
-    over the angles."""
+    over the angles in order. With ab > 1 (K10's plain version) the angle
+    set is padded to a multiple of ab with zero sinogram rows and zero
+    table rows (1/D = 0), as ``bp_pallas_sl`` pads it; their taps add 0."""
+    na = geom.nproj
     tab = angle_tables(geom, torch.device("cpu")).bp.tolist()
+    tab += [[0.0] * 4] * (_round_up(na, ab) - na)
     acc = torch.zeros((geom.n, geom.n, y.shape[-1]), dtype=F32,
                       device=y.device)
-    for a in range(y.shape[0]):
-        acc = bp_angle_ref(y[a], tab[a], geom.n, acc)
+    zero_row = torch.zeros_like(y[0])
+    for a, t in enumerate(tab):
+        acc = bp_angle_ref(y[a] if a < na else zero_row, t, geom.n, acc)
     return acc
 
 
-def bp_sirt_sl_ref(resid, geom: Geometry, y_vol, inv_col):
-    """Plain K2: ``max(y_vol + inv_col * A^T resid, 0)``."""
-    return torch.clamp_min(y_vol + inv_col[:, :, None] * bp_sl_ref(resid, geom),
-                           0.0)
+def bp_sirt_sl_ref(resid, geom: Geometry, y_vol, inv_col, ab: int = 1):
+    """Plain K2 (K10 with ab > 1): ``max(y_vol + inv_col * A^T resid,
+    0)``."""
+    return torch.clamp_min(
+        y_vol + inv_col[:, :, None] * bp_sl_ref(resid, geom, ab), 0.0)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -225,6 +235,19 @@ def fp_resid_sl(x, geom: Geometry, b, ax_old, inv_row, beta):
     return ax, resid, ddsq
 
 
+AB_MAX = 32  # largest angle group K10 takes (csrc/joseph.cu AB_MAX)
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _check_ab(ab) -> None:
+    if (isinstance(ab, bool) or not isinstance(ab, int)
+            or not 1 <= ab <= AB_MAX):
+        raise ValueError(f"ab must be an int in [1, {AB_MAX}], got {ab!r}")
+
+
 def _bp_launch(y, geom: Geometry, y_vol, inv_col):
     ns = y.shape[-1]
     tab = angle_tables(geom, y.device).bp
@@ -235,29 +258,51 @@ def _bp_launch(y, geom: Geometry, y_vol, inv_col):
     return out
 
 
-def bp_sl(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
-    """``A^T y``: (Na, Nt, Ns) -> (N, N, Ns); K2 with the epilogue off."""
+def bp_ab_sl(y, geom: Geometry, ab: int, y_vol=None, inv_col=None):
+    """K10's launch on CUDA operands that `bp_sl` / `bp_sirt_sl` checked:
+    K2's operator (and, with y_vol and inv_col, its epilogue) with the
+    angles staged `ab` at a time. Counts in ``bp_ab_sl.launches``."""
+    ns = y.shape[-1]
+    tab = angle_tables(geom, y.device).bp
+    out = torch.empty((geom.n, geom.n, ns), dtype=F32, device=y.device)
+    _build.check(_build.lib().tj_bp_ab(
+        _p(y), _p(tab), _p(y_vol), _p(inv_col), _p(out), geom.n, geom.nray,
+        geom.nproj, ns, ab, _build.stream()), "tj_bp_ab")
+    bp_ab_sl.launches += 1
+    return out
+
+
+def bp_sl(y: torch.Tensor, geom: Geometry, ab: int = 1) -> torch.Tensor:
+    """``A^T y``: (Na, Nt, Ns) -> (N, N, Ns); K2 with the epilogue off, or
+    K10 with ab > 1 (the angles taken ab at a time, the same result)."""
+    _check_ab(ab)
     ns = y.shape[-1]
     _build.check_operand(y, "y", (geom.nproj, geom.nray, ns), F32)
     if _build.on_cpu(y):
-        return bp_sl_ref(y, geom)
+        return bp_sl_ref(y, geom, ab)
+    if ab > 1:
+        return bp_ab_sl(y, geom, ab)
     out = _bp_launch(y, geom, None, None)
     bp_sl.launches += 1
     return out
 
 
-def bp_sirt_sl(resid, geom: Geometry, y_vol, inv_col):
-    """K2: ``max(y_vol + inv_col * A^T resid, 0)``.
+def bp_sirt_sl(resid, geom: Geometry, y_vol, inv_col, ab: int = 1):
+    """K2: ``max(y_vol + inv_col * A^T resid, 0)``; K10 with ab > 1.
 
     resid (Na, Nt, Ns); y_vol (N, N, Ns); inv_col (N, N), the SIRT column
-    weights shared by every slice."""
+    weights shared by every slice (or any (N, N) scale, such as the
+    constant -lam/L of the Poisson-ML step)."""
+    _check_ab(ab)
     ns = resid.shape[-1]
     vol = (geom.n, geom.n, ns)
     _build.check_operand(resid, "resid", (geom.nproj, geom.nray, ns), F32)
     _build.check_operand(y_vol, "y_vol", vol, F32)
     _build.check_operand(inv_col, "inv_col", vol[:2], F32)
     if _build.on_cpu(resid, y_vol, inv_col):
-        return bp_sirt_sl_ref(resid, geom, y_vol, inv_col)
+        return bp_sirt_sl_ref(resid, geom, y_vol, inv_col, ab)
+    if ab > 1:
+        return bp_ab_sl(resid, geom, ab, y_vol, inv_col)
     out = _bp_launch(resid, geom, y_vol, inv_col)
     bp_sirt_sl.launches += 1
     return out
@@ -267,3 +312,4 @@ fp_sl.launches = 0
 fp_resid_sl.launches = 0
 bp_sl.launches = 0
 bp_sirt_sl.launches = 0
+bp_ab_sl.launches = 0

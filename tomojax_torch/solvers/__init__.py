@@ -1,6 +1,6 @@
 """Reconstruction solvers (counterpart of ``tomojax.solvers``); the port
-holds so far the system weights, slice-last FISTA-TV, the SART sweep and
-ASD-POCS."""
+holds so far the system weights, slice-last FISTA-TV, SIRT, the SART
+sweep, Poisson-ML, the least-squares step and ASD-POCS."""
 
 from tomojax_torch.solvers.asd_pocs import (
     AsdPocsParams,
@@ -9,7 +9,9 @@ from tomojax_torch.solvers.asd_pocs import (
     asd_pocs_run,
     data_distance_sl,
 )
-from tomojax_torch.solvers.base import System, bp_single_angle, make_system
+from tomojax_torch.solvers.base import (
+    System, bp_single_angle, make_system, row_norms_sq,
+)
 from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
 from tomojax_torch.solvers.fista import (
     FistaStateSL,
@@ -19,12 +21,22 @@ from tomojax_torch.solvers.fista import (
     from_sl,
     to_sl,
 )
-from tomojax_torch.solvers.iterative import make_sart_weights, sart_sweep
+from tomojax_torch.solvers.iterative import (
+    POISSON_EPS,
+    least_squares_step,
+    make_sart_weights,
+    poisson_ml_step,
+    poisson_ml_step_sl,
+    sart_sweep,
+    sirt_sweep,
+    sirt_sweep_sl,
+)
 
 __all__ = [
     "System",
     "make_system",
     "bp_single_angle",
+    "row_norms_sq",
     "FistaStateSL",
     "fista_init_sl",
     "fista_run_sl",
@@ -34,6 +46,12 @@ __all__ = [
     "make_sart_weights",
     "sart_sweep",
     "sart_sweep_sl",
+    "sirt_sweep",
+    "sirt_sweep_sl",
+    "POISSON_EPS",
+    "poisson_ml_step",
+    "poisson_ml_step_sl",
+    "least_squares_step",
     "AsdPocsParams",
     "asd_pocs_iteration",
     "asd_pocs_host_loop",

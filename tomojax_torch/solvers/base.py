@@ -6,7 +6,8 @@ over the sinogram plane, column sums A^T 1 over the image plane, and the
 Lipschitz estimate max(A^T A 1). The port keeps them without the
 reference's leading batch axis: ``row_sum`` is (Na, Nt) and ``col_sum``
 (N, N). ``bp_single_angle`` gives the per-angle column sums that SART
-weights its steps with (``solvers/iterative.make_sart_weights``).
+weights its steps with (``solvers/iterative.make_sart_weights``), and
+``row_norms_sq`` the Cimmino SIRT's row weights.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from functools import cached_property
 
+import numpy as np
 import torch
 
 from tomojax_torch.geometry import Geometry
@@ -58,6 +60,33 @@ def make_system(geom: Geometry, device) -> System:
     lip = torch.max(bp_sl(row, geom))
     return System(geom, row[:, :, 0].contiguous(), col[:, :, 0].contiguous(),
                   lip)
+
+
+def row_norms_sq(geom: Geometry, device) -> torch.Tensor:
+    """Per-ray squared row norms ||a_r||^2 of the Joseph operator, (Na, Nt)
+    float32 on `device`: the Cimmino weights M = diag(1/||a_r||^2)
+    (counterpart of ``tomojax/solvers/base.py:row_norms_sq``, the same
+    float64 arithmetic from the interpolation weights, no image data)."""
+    n, nt = geom.n, geom.nray
+    out = np.zeros((geom.nproj, nt), np.float32)
+    tj = np.arange(nt) - (nt - 1) / 2.0
+    ctr = (n - 1) / 2.0
+    steps = np.arange(n, dtype=np.float64)
+    for a in range(geom.nproj):
+        c, s = geom.cos[a], geom.sin[a]
+        if geom.row_driven[a]:
+            denom, shear, coord = c, -s / c, ctr - steps
+            pos = tj[:, None] / denom + coord[None, :] * shear + ctr
+        else:
+            denom, shear, coord = s, c / s, steps - ctr
+            pos = ctr - tj[:, None] / denom + coord[None, :] * shear
+        f = np.floor(pos)
+        frac = pos - f
+        i0 = f.astype(np.int64)
+        w0 = np.where((i0 >= 0) & (i0 < n), 1.0 - frac, 0.0)
+        w1 = np.where((i0 + 1 >= 0) & (i0 + 1 < n), frac, 0.0)
+        out[a] = ((w0**2 + w1**2).sum(1) / denom**2).astype(np.float32)
+    return torch.as_tensor(out, device=torch.device(device))
 
 
 def bp_single_angle(y: torch.Tensor, cosv, sinv, n: int) -> torch.Tensor:

@@ -53,13 +53,15 @@ class FistaStateSL:
 
 
 def to_sl(a: torch.Tensor) -> torch.Tensor:
-    """Public (Ns, ...) layout -> contiguous slice-last."""
-    return a.permute(1, 2, 0).contiguous()
+    """Public (..., Ns, A, B) layout -> contiguous slice-last (..., A, B,
+    Ns): (Ns, N, N) volumes and (Ns, Na, Nt) sinograms, and 4D stacks with
+    a leading element axis."""
+    return a.movedim(-3, -1).contiguous()
 
 
 def from_sl(a: torch.Tensor) -> torch.Tensor:
-    """Slice-last -> contiguous public (Ns, ...) layout."""
-    return a.permute(2, 0, 1).contiguous()
+    """Slice-last (..., A, B, Ns) -> contiguous public (..., Ns, A, B)."""
+    return a.movedim(-1, -3).contiguous()
 
 
 def fista_init_sl(x0: torch.Tensor, sys: System,

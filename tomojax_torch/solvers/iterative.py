@@ -1,18 +1,103 @@
-"""SART weights and sweep in the public layout (counterpart of the SART
-part of ``tomojax/solvers/iterative.py``).
+"""SIRT, SART, Poisson-ML and least-squares iterations (counterpart of
+``tomojax/solvers/iterative.py``).
 
-The sweep itself runs slice-last in ``solvers/cuda_sart.py`` (K8); this
-module converts at the boundary: x (Ns, N, N) and b (Ns, Na, Nt), as the
-reference takes them.
+The work runs slice-last, x (N, N, Ns) and b (Na, Nt, Ns), in the
+``*_sl`` functions; ``sirt_sweep``, ``sart_sweep``, ``poisson_ml_step`` and
+``least_squares_step`` take the reference's layout, x (Ns, N, N) and b
+(Ns, Na, Nt), and convert at the boundary.
+
+* SIRT, variant 'astra' with the nonnegativity clamp: per iteration K1
+  (epilogue off), the inv_row-weighted residual, then K2 with its fused
+  update max(x + C A^T r, 0), C = inv_col (the reference's TPU fast path,
+  ``_sirt_sweep_pallas_sl``); 'landweber' and 'cimmino' on ``fp_sl`` and
+  ``bp_sl``.
+* Poisson-ML: x <- max(x - (lam/L) A^T((Ax - b)/(Ax + eps)), 0), eps =
+  0.1, cost = sum(Ax - b log(Ax + eps)); the update is K2's epilogue with
+  y = x and the constant C = -lam/L, as the reference's fast path runs it.
+* SART: the ordered sweep K8 (``solvers/cuda_sart.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tomojax_torch.projector.cuda_joseph import bp_sirt_sl, bp_sl, fp_sl
 from tomojax_torch.solvers.base import System, _safe_inv, bp_single_angle
 from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
 from tomojax_torch.solvers.fista import from_sl, to_sl
+
+POISSON_EPS = 0.1  # the reference's tomoengine.cpp:295
+SIRT_VARIANTS = ("astra", "landweber", "cimmino")
+
+
+# ----------------------------------------------------------------- SIRT
+
+
+def sirt_sweep_sl(x: torch.Tensor, b: torch.Tensor, sys: System,
+                  n_iter: int = 1, variant: str = "astra", beta=None,
+                  row_nsq=None, nonneg: bool | None = None) -> torch.Tensor:
+    """`n_iter` SIRT iterations, slice-last.
+
+    variant:
+      'astra'     x += C A^T R (b - A x), R, C the inverse row and column
+                  sums; nonneg defaults True (ASTRA's min-constraint);
+      'landweber' x += beta A^T (b - A x), beta defaults to 1/L;
+      'cimmino'   x += (beta / Nrow) A^T M (b - A x), M = 1/||a_r||^2 from
+                  row_nsq (``solvers.base.row_norms_sq``), beta defaults 1.
+    nonneg clamps each iteration (default True for 'astra' only)."""
+    if variant not in SIRT_VARIANTS:
+        raise ValueError(f"unknown SIRT variant {variant!r}")
+    if nonneg is None:
+        nonneg = variant == "astra"
+    geom = sys.geom
+    if variant == "astra":
+        ir = sys.inv_row[:, :, None]
+        if nonneg:  # the update and clamp run in K2's epilogue
+            for _ in range(n_iter):
+                resid = (b - fp_sl(x, geom)) * ir
+                x = bp_sirt_sl(resid, geom, x, sys.inv_col)
+            return x
+
+        def update(xx):
+            resid = (b - fp_sl(xx, geom)) * ir
+            return xx + sys.inv_col[:, :, None] * bp_sl(resid, geom)
+    elif variant == "landweber":
+        lw_beta = 1.0 / sys.lipschitz if beta is None else beta
+
+        def update(xx):
+            return xx + lw_beta * bp_sl(b - fp_sl(xx, geom), geom)
+    else:
+        if row_nsq is None:
+            raise ValueError("variant 'cimmino' needs row_nsq = "
+                             "solvers.base.row_norms_sq(geom, device)")
+        nsq = torch.as_tensor(row_nsq, dtype=torch.float32,
+                              device=x.device).reshape(geom.nproj, geom.nray)
+        m = torch.where(nsq > 1e-12, 1.0 / torch.clamp_min(nsq, 1e-12),
+                        0.0)[:, :, None]
+        ci_beta = 1.0 if beta is None else beta
+        nrow = geom.nproj * geom.nray
+
+        def update(xx):
+            resid = m * (b - fp_sl(xx, geom))
+            return xx + (ci_beta / nrow) * bp_sl(resid, geom)
+
+    for _ in range(n_iter):
+        x = update(x)
+        if nonneg:
+            x = torch.clamp_min(x, 0.0)
+    return x
+
+
+def sirt_sweep(x: torch.Tensor, b: torch.Tensor, sys: System,
+               n_iter: int = 1, variant: str = "astra", beta=None,
+               row_nsq=None, nonneg: bool | None = None) -> torch.Tensor:
+    """`sirt_sweep_sl` in the reference's layout: x (Ns, N, N), b
+    (Ns, Na, Nt)."""
+    return from_sl(sirt_sweep_sl(to_sl(x.to(torch.float32)), to_sl(b), sys,
+                                 n_iter, variant, beta, row_nsq, nonneg))
+
+
+# ----------------------------------------------------------------- SART
 
 
 def make_sart_weights(sys: System) -> torch.Tensor:
@@ -42,3 +127,38 @@ def sart_sweep(x: torch.Tensor, b: torch.Tensor, sys: System,
     out = sart_sweep_sl(to_sl(x.to(torch.float32)), to_sl(b), sys.geom,
                         sys.inv_row, inv_col_a, beta, order)
     return from_sl(out)
+
+
+# ----------------------------------------------------------- Poisson-ML
+
+
+def poisson_ml_step_sl(x: torch.Tensor, b: torch.Tensor, sys: System, lam):
+    """One Poisson maximum-likelihood step and positivity, slice-last:
+    returns (x_new, kl_cost), the cost a 0-dim tensor. b must be
+    normalised to max <= 1 (the API does it). lam is a float or a 0-dim
+    tensor on x's device."""
+    geom = sys.geom
+    ax = fp_sl(x, geom)
+    ratio = (ax - b) / (ax + POISSON_EPS)
+    neg_scale = (-lam / sys.lipschitz).expand(geom.n, geom.n).contiguous()
+    x_new = bp_sirt_sl(ratio, geom, x, neg_scale)
+    return x_new, torch.sum(ax - b * torch.log(ax + POISSON_EPS))
+
+
+def poisson_ml_step(x: torch.Tensor, b: torch.Tensor, sys: System, lam):
+    """`poisson_ml_step_sl` in the reference's layout."""
+    x_new, cost = poisson_ml_step_sl(to_sl(x.to(torch.float32)), to_sl(b),
+                                     sys, lam)
+    return from_sl(x_new), cost
+
+
+# -------------------------------------------------------- least squares
+
+
+def least_squares_step(x: torch.Tensor, b: torch.Tensor,
+                       sys: System) -> torch.Tensor:
+    """Plain gradient step x -= (1/L) A^T (A x - b) in the reference's
+    layout (the reference's tomoengine.cpp:386-401)."""
+    xs = to_sl(x.to(torch.float32))
+    grad = bp_sl(fp_sl(xs, sys.geom) - to_sl(b), sys.geom)
+    return from_sl(xs - (1.0 / sys.lipschitz) * grad)
