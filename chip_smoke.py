@@ -55,6 +55,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       (K11) against the K3 chain with f32 and bf16 duals, tv_fgp_two_pass
       (K12) against tv_fgp_fused with f32 duals, 10 ASTRA-SIRT iterations
       at 256^3 x 90 with bp_sirt_sl(ab=6) (K10) against K2;
+   f. the experiments (tomojax_torch.experiments, the counterparts of
+      scripts/exp_*.py): every instantiation of E1 (the FP weight forms
+      FULL, HAT5, BF16, NOHAT, NODOT, W4; 16 and 32 angles per block; PAIR)
+      and E2 (the BP forms FULL, BF16, NOHAT, NODOT, W4; two angles per
+      step) held against its plain version at 256^3 x 90 (bound 1e-5
+      max|out|, torch.sparse.mm beside the forms that compute A x or
+      A^T y), and of E3 (the SART modes TAPS_F32, TAPS_BF16, TABLE_BF16,
+      NOHAT, NOFP, NOUPD, two launches per angle) and E4 (TAPS_F32,
+      TAPS_BF16, TABLE_BF16, one launch per sweep) over one sweep from zero
+      on nanocube projections (bound 1e-4 max|x|); cuobjdump -sass of the
+      ablations (NODOT keeps its adds and loads only the angle tables,
+      NOHAT keeps its data loads); then the six drivers
+      (hat_model, projector_variants, projector_variants2, pair_fp,
+      sart_pipeline, sart_ablate) at 256^3 x 90, each with the E launch
+      counts set to 0 before it and read after, their rows printed, the
+      SART variants' rmse after 10 sweeps held against K8's (rtol 1e-4 for
+      float32, 2e-2 for bf16) and the paired FP against the unpaired (rel
+      1e-5);
    every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
@@ -63,7 +81,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    trace of tests/golden/fusion_jax_cpu.json (float32 FGP duals; the
    lambda_chem decay iterations first, as a branch check) replayed within
    the bounds stored in them;
-6. result: a JSON line of the kernels, then the device line last.
+6. result: a JSON line of the kernels (K1-K12, then E1-E4 as one row per
+   TPU kernel of scripts/exp_*.py), then the device line last.
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
 printing any result.
@@ -796,6 +815,9 @@ def _check_slab_chains(x: torch.Tensor, x_old: torch.Tensor, beta) -> None:
 def plain_versions_forbidden():
     """Make every plain version raise while the main path runs: on CUDA
     tensors the wrappers must launch their kernels."""
+    from tomojax_torch.experiments import (
+        cuda_projector_variants, cuda_sart_variants,
+    )
     from tomojax_torch.projector import cuda_joseph
     from tomojax_torch.solvers import cuda_sart
     from tomojax_torch.tv import (
@@ -803,7 +825,9 @@ def plain_versions_forbidden():
         cuda_tvgd_sharded,
     )
 
-    names = {cuda_joseph: ["fp_sl_ref", "fp_resid_sl_ref", "bp_sl_ref",
+    names = {cuda_projector_variants: ["fp_variant_ref", "bp_variant_ref"],
+             cuda_sart_variants: ["sart_variant_ref"],
+             cuda_joseph: ["fp_sl_ref", "fp_resid_sl_ref", "bp_sl_ref",
                            "bp_sirt_sl_ref"],
              cuda_fgp: ["fgp_iter_ref", "fgp_iter2_ref", "fgp_grad_ref",
                         "fgp_obj_mom_ref"],
@@ -1373,6 +1397,227 @@ def phase_variants(card: str, kernels: dict) -> dict:
     return counts
 
 
+# The experiment kernels, one row per TPU kernel of scripts/exp_*.py: (row,
+# wrapper, the driver whose run counts its launches, the TPU kernel, the
+# instantiation whose check at 256^3 gives the row's numbers).
+EXP_SRC = {"E1": "tomojax_torch/csrc/exp_projector.cu",
+           "E2": "tomojax_torch/csrc/exp_projector.cu",
+           "E3": "tomojax_torch/csrc/exp_sart.cu",
+           "E4": "tomojax_torch/csrc/exp_sart.cu"}
+EXP_ROWS = (
+    ("E1_fp_hat", "fp_variant", "hat_model", "exp_hat_model.py:72",
+     "E1 FULL"),
+    ("E2_bp_hat", "bp_variant", "hat_model", "exp_hat_model.py:172",
+     "E2 FULL"),
+    ("E2_bp_hat_banded", "bp_variant", "hat_model", "exp_hat_model.py:259",
+     "E2 FULL"),
+    ("E1_fp_pair", "fp_variant", "pair_fp", "exp_pair_fp.py:81", "E1 PAIR"),
+    ("E1_fp_w4", "fp_variant", "projector_variants",
+     "exp_projector_variants.py:46", "E1 W4 ab16"),
+    ("E2_bp_w4", "bp_variant", "projector_variants",
+     "exp_projector_variants.py:101", "E2 W4"),
+    ("E2_bp_aps2", "bp_variant", "projector_variants2",
+     "exp_projector_variants2.py:38", "E2 APS2"),
+    ("E3_sart_dbuf", "sart_variant", "sart_pipeline",
+     "exp_sart_pipeline.py:85", "E3 TAPS_F32"),
+    ("E3_sart_wvmem", "sart_variant", "sart_pipeline",
+     "exp_sart_pipeline.py:169", "E3 TAPS_BF16"),
+    ("E3_sart_whbm", "sart_variant", "sart_pipeline",
+     "exp_sart_pipeline.py:248", "E3 TABLE_BF16"),
+    ("E4_sart_resident", "sart_resident", "sart_pipeline",
+     "exp_sart_pipeline.py:314", "E4 TAPS_BF16"),
+    ("E3_sart_ablate", "sart_variant", "sart_ablate",
+     "exp_sart_ablate.py:35", "E3 TAPS_F32"),
+    ("E3_sart_phase", "sart_variant", "sart_ablate",
+     "exp_sart_ablate.py:140", "E3 TAPS_F32"),
+)
+EXP_DRIVERS = ("hat_model", "projector_variants", "projector_variants2",
+               "pair_fp", "sart_pipeline", "sart_ablate")
+
+
+def _check_experiment_kernels(card: str) -> dict:
+    """Every instantiation of E1 (six forms, two more angles per block,
+    PAIR), E2 (five forms, APS 2), E3 (six modes) and E4 (three) against
+    its plain version at 256^3 x 90 with phase 3's bounds (projectors 1e-5
+    max|out|; one SART sweep from zero on nanocube projections 1e-4 max|x|;
+    0.0 expected: the plain versions repeat the kernels' arithmetic), each
+    launched; its time, the plain version's, its bound and, for the forms
+    that compute A x or A^T y, torch.sparse.mm's."""
+    from tomojax_torch.experiments import (
+        cuda_projector_variants as cpv, cuda_sart_variants as csv,
+    )
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import make_sart_weights, make_system, to_sl
+
+    dev = torch.device("cuda")
+    n, na, ns = 256, 90, 256
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand((n, n, ns), generator=gen, device=dev)
+    y = torch.rand((na, n, ns), generator=gen, device=dev)
+    V, S, P = n * n * ns, na * n * ns, n * n
+    A, At, nnz = joseph_csr(geom, dev)
+    spmv = 2 * nnz * ns
+    fp_lib = time_ms(lambda: torch.sparse.mm(A, x.reshape(P, ns)), 5)
+    bp_lib = time_ms(lambda: torch.sparse.mm(At, y.reshape(na * n, ns)), 5)
+    del A, At
+    rows = {}
+
+    def held(key, wrapper, fn, plain, rel_tol, work, library_ms=None):
+        got = _launched(wrapper, fn)
+        ref = plain()
+        err, tol = max_err(got, ref), rel_tol * float(ref.abs().max())
+        require(err <= tol, f"{key}: error {err:.3e} above {tol:.3e}")
+        ms, plain_ms = time_ms(fn, 5), time_ms(plain, 1)
+        bound_ms, bound_by = bound(*work)
+        rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms}
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        print(f"{key}: max|kernel - plain| {err:.3e} <= {tol:.3e}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+
+    # projectors: K1/K2's work; NODOT reads nothing and adds 7 operations
+    # (its weight and the sum) per nonzero and slice
+    for form in cpv.FORMS:
+        nodot = form == "NODOT"
+        held(f"E1 {form}", cpv.fp_variant,
+             lambda: cpv.fp_variant(x, geom, form),
+             lambda: cpv.fp_variant_ref(x, geom, form), 1e-5,
+             (4 * S, 7 * nnz * ns) if nodot else (4 * (V + S), spmv),
+             None if form in ("NOHAT", "NODOT") else fp_lib)
+    for form, ab in (("FULL", 16), ("FULL", 32), ("W4", 16)):
+        held(f"E1 {form} ab{ab}", cpv.fp_variant,
+             lambda: cpv.fp_variant(x, geom, form, ab=ab),
+             lambda: cpv.fp_variant_ref(x, geom, form), 1e-5,
+             (4 * (V + S), spmv), fp_lib)
+    held("E1 PAIR", cpv.fp_variant, lambda: cpv.fp_variant(x, geom, pair=True),
+         lambda: cpv.fp_variant_ref(x, geom, pair=True), 1e-5,
+         (4 * (V + S), spmv), fp_lib)
+    for form in cpv.BP_FORMS:
+        nodot = form == "NODOT"
+        held(f"E2 {form}", cpv.bp_variant,
+             lambda: cpv.bp_variant(y, geom, form),
+             lambda: cpv.bp_variant_ref(y, geom, form), 1e-5,
+             (4 * V, 7 * nnz * ns) if nodot else (4 * (S + V), spmv),
+             None if form in ("NOHAT", "NODOT") else bp_lib)
+    held("E2 APS2", cpv.bp_variant, lambda: cpv.bp_variant(y, geom, aps=2),
+         lambda: cpv.bp_variant_ref(y, geom), 1e-5, (4 * (S + V), spmv),
+         bp_lib)
+
+    # SART: K8's check (one sweep from zero on nanocube projections, real
+    # weights) and K8's work; the tables' bytes for TABLE_BF16; NOFP does
+    # no FP, NOUPD no update
+    sysd = make_system(geom, dev)
+    b = fp_sl(to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev)), geom)
+    args = (torch.zeros_like(x), b, geom, sysd.inv_row,
+            make_sart_weights(sysd), torch.tensor(1.0, device=dev),
+            torch.arange(na, dtype=torch.int32, device=dev))
+    tables = csv.sart_tables(geom, dev)
+    sart_bytes = 4 * (2 * V + na * n * (ns + 1) + na * n * n + na + 1)
+    sart_ops = {"NOFP": spmv + 4 * na * V, "NOUPD": spmv + 3 * S}
+    for kind, wrapper, modes in (("E3", csv.sart_variant, csv.MODES),
+                                 ("E4", csv.sart_resident,
+                                  csv.RESIDENT_MODES)):
+        for mode in modes:
+            held(f"{kind} {mode}", wrapper,
+                 lambda: wrapper(*args, mode, tables),
+                 lambda: csv.sart_variant_ref(*args, mode, tables), 1e-4,
+                 (sart_bytes + (tables.nbytes if mode == "TABLE_BF16"
+                                else 0),
+                  sart_ops.get(mode, 2 * spmv + 4 * na * V)))
+    return rows
+
+
+def _check_ablation_sass() -> None:
+    """The ablations must keep what they claim to keep (cuobjdump -sass of
+    the built library): E1's and E2's NODOT their weights' adds with no
+    load but the float4 angle tables (LDG.E.128), NOHAT its scalar loads of
+    the volume or sinogram."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from tomojax_torch import _build
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.build().path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs = {f.split("\n", 1)[0].strip(): f
+             for f in re.split(r"\n\s*Function : ", sass)[1:]}
+
+    def body(pattern: str) -> str:
+        found = [b for name, b in funcs.items() if pattern in name]
+        require(len(found) == 1, f"SASS: {len(found)} functions match "
+                                 f"{pattern}")
+        return found[0]
+
+    for kernel in ("fp_variant_kernel", "bp_variant_kernel"):
+        nodot, nohat = body(f"{kernel}ILi4E"), body(f"{kernel}ILi3E")
+        loads, adds = re.findall(r"LDG\S*", nodot), re.findall(r"\bFADD",
+                                                                nodot)
+        scalar = [op for op in re.findall(r"LDG\S*", nohat)
+                  if ".128" not in op]
+        require(len(adds) >= 4 and all(".128" in op for op in loads),
+                f"{kernel} NODOT: {len(adds)} FADD, loads "
+                f"{sorted(set(loads))}")
+        require(bool(scalar), f"{kernel} NOHAT lost its data loads")
+        print(f"SASS {kernel}: NODOT {len(adds)} FADD, loads "
+              f"{sorted(set(loads))}; NOHAT {len(scalar)} scalar loads")
+
+
+def phase_experiments(card: str) -> dict:
+    """Phase 4f: the E-kernel checks, then the six experiment drivers at
+    256^3 x 90 with every plain version made to raise, each with the E
+    launch counts set to 0 before it and read after; the kernels JSON rows
+    of the 13 TPU kernels of scripts/exp_*.py."""
+    import importlib
+
+    from tomojax_torch.experiments import (
+        cuda_projector_variants as cpv, cuda_sart_variants as csv,
+        sart_pipeline,
+    )
+
+    checks = _check_experiment_kernels(card)
+    _check_ablation_sass()
+    wrappers = {"fp_variant": cpv.fp_variant, "bp_variant": cpv.bp_variant,
+                "sart_variant": csv.sart_variant,
+                "sart_resident": csv.sart_resident}
+    dev = torch.device("cuda")
+    launches, out = {}, {}
+    for name in EXP_DRIVERS:
+        mod = importlib.import_module(f"tomojax_torch.experiments.{name}")
+        for w in wrappers.values():
+            w.launches = 0
+        with plain_versions_forbidden():
+            out[name] = mod.run(256, 256, dev, card)
+        torch.cuda.synchronize()
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        print(f"{name} launches: {json.dumps(launches[name])}")
+    sp = out["sart_pipeline"]["rows"]
+    for v, r in sp.items():  # the script's criterion: rmse after 10 sweeps
+        r0 = sp["base"]["rmse10"]
+        tol = 1e-4 if v == "base" or sart_pipeline.VARIANTS[v][1] == \
+            "TAPS_F32" else 2e-2
+        require(np.isfinite(r["ms"]) and abs(r["rmse10"] - r0) <= tol * r0,
+                f"sart_pipeline {v}: rmse@10 {r['rmse10']:.6f} vs K8 "
+                f"{r0:.6f} (rtol {tol})")
+    # the -theta rays add the same products in the reverse order of steps
+    pr = out["pair_fp"]["rel"]
+    require(max(pr.values()) <= 1e-5, f"pair_fp: rel|d| {pr}")
+    rows = {}
+    for row, wrapper, driver, tpu, inst in EXP_ROWS:
+        count = launches[driver][wrapper]
+        require(count > 0, f"{row}: {wrapper} was not launched by {driver}")
+        rows[row] = {"source": EXP_SRC[row[:2]],
+                     "replaces": f"scripts/{tpu}", "launches": count,
+                     **checks[inst]}
+    return rows
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -1521,17 +1766,21 @@ def main() -> int:
                  phase_sharded_path(card, kernels),
                  phase_fusion_path(card, kernels),
                  phase_variants(card, kernels)]
+        exp_rows = phase_experiments(card)
         phase_golden(card)
         phase_golden_asd(card)
         phase_golden_fusion(card)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: the kernel's count over the main paths' runs (phase 4)
+    # launches: the kernel's count over the main paths' runs (phase 4a-e),
+    # an experiment kernel's over its driver's run (phase 4f)
     report = [{"name": name, "route": "cuda", "source": src,
                "replaces": rep,
                "launches": sum(c[name] for c in paths), **rows[name]}
               for name, (_, src, rep) in kernels.items()]
+    report += [{"name": name, "route": "cuda", **row}
+               for name, row in exp_rows.items()]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,6 +60,12 @@ _SIGNATURES = {
     "tj_tv_grad_partials": [_I, _I, _I],
     "tj_sart_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _P],
+    "tj_exp_fp": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tj_exp_bp": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tj_exp_sart_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                          _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tj_exp_sart_resident": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -60,6 +60,16 @@ def sart_weights_from_numpy(inv_col_a, device) -> torch.Tensor:
     return _tensor(w, device)
 
 
+def exp_sart_weights(na: int, nt: int, n: int):
+    """The random SART weights of the reference's SART experiments
+    (scripts/exp_sart_pipeline.py:429-431, exp_sart_ablate.py:217-219):
+    ``default_rng(1)``, inv_row (Na, Nt) drawn first, then inv_col_a
+    (Na, N, N); float32 numpy arrays."""
+    rng = np.random.default_rng(1)
+    inv_row = rng.random((na, 1, nt)).astype(np.float32).reshape(na, nt)
+    return inv_row, rng.random((na, n, n)).astype(np.float32)
+
+
 def slab_from_numpy(a, group: SlabGroup, axis: int) -> torch.Tensor:
     """This rank's slab of the whole array `a` (float32 on the group's
     device), `axis` first padded with zero slices to a multiple of the
