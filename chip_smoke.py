@@ -18,6 +18,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    or A^T (built once, not timed); K10 at ab = 3, 6, 10 against K2 (0.0
    expected), K11 with f32 and bf16 duals and K12 with f32 duals (0.0),
    with device times beside K2, two K3 launches, and K12 + K4 against K3;
+   K1 and K2 (both epilogues) also at ragged shapes (N 33, Na 7, Ns 5 and
+   N 48, Na 13, Ns 37) against their plain versions, and at 128 x 512^2 x
+   90 against torch.sparse.mm with the CSR form (rel 1e-5), with their
+   staged bytes and the L2-to-shared and shared-memory read rates at both
+   full shapes;
    the SART sweep (K8) at three levels: one angle step, one sweep,
    convergence after 5 sweeps;
    the slab kernels K9a/K9b/K9c (and K5's right halo) on a 256^3 volume
@@ -31,11 +36,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    read just after, and with every plain version made to raise:
    a. FISTA-TV: TomoTorch on the 256 x 256^2 x 90 nanocube problem (one
       warm-up iteration, then 10), then the functional fista_init_sl +
-      fista_run_sl, timed with CUDA events;
+      fista_run_sl, timed with CUDA events, and a torch.profiler window of
+      2 iterations by kernel with the idle share;
    b. ASD-POCS: TomoTorch.asd_pocs on the same problem (one warm-up
       iteration, then 5) and TomoTorch.sart (2 sweeps), then the
       functional asd_pocs_run and one sart_sweep_sl, timed with CUDA
-      events;
+      events, and a profiler window of 2 asd_pocs_run iterations;
    c. the slab-sharded path: an NCCL group of world size 1 (file store
       under build/), TomoTorch(..., group=g).fista (10 iterations) and
       .asd_pocs (5) on the same problem, and the functional runs with the
@@ -83,6 +89,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the bounds stored in them;
 6. result: a JSON line of the kernels (K1-K12, then E1-E4 as one row per
    TPU kernel of scripts/exp_*.py), then the device line last.
+
+    python3 chip_smoke.py --projector-times
+
+times only K1 and K2 at 256^3 x 90 and 128 x 512^2 x 90, with the
+tomojax_torch package beside the file (a copy of it beside another tree
+times that tree's kernels).
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
 printing any result.
@@ -399,6 +411,15 @@ def phase_kernels(card: str) -> dict:
            f" (<Ax,y> vs <x,A^T y> rel {adj:.2e} <= 1e-5)",
            work=(4 * (S + V), spmv), library_ms=bp_lib)
     del A, At
+    # their own generator, so that the checks below draw what they drew
+    # before these were added
+    gen2 = torch.Generator(device=dev).manual_seed(1)
+
+    def uni2(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen2, device=dev) * (hi - lo) + lo
+
+    projector_times(geom, ns, uni2, card, "K1/K2")
+    _check_projector_tiles(uni2, card)
 
     # K3 + K4: 10 chained FGP iterations, f32 and bf16 duals
     x_old = uni(n, n, ns)
@@ -501,6 +522,136 @@ def _check_bp_ab(args, report, *, work, library_ms) -> None:
            f" (ab=6, fused; vs K2 at ab 3/6/10 fused and unfused {worst:.1e} "
            f"<= 1e-6 max|out|; device ms {', '.join(out)} vs K2 "
            f"{k2_dev:.4f})", work=work, library_ms=library_ms)
+
+
+RAGGED_SHAPES = ((33, 7, 5), (48, 13, 37))  # (N, Na, Ns)
+
+
+def projector_traffic(geom, ns: int):
+    """{row: (staged bytes, shared-memory read bytes)} of K1 and K2 at this
+    geometry: the bytes the windows copy from L2 into shared memory (rows
+    inside the operand only; cuda_joseph.fp_plan, bp_window_lo), and the
+    shared-memory reads of the gather, two 16-byte reads per tap pair and 4
+    slices of every ray step (K1) or pixel and angle (K2) a block computes,
+    padding included."""
+    from tomojax_torch.projector import cuda_joseph as cj
+
+    n, nt, na = geom.n, geom.nray, geom.nproj
+    quads = -(-ns // 32) * 8
+    w = cj.fp_plan(geom, torch.device("cpu")).windows.astype(np.int64)
+    inside = np.clip(w[..., 0] + w[..., 1], 0, n) - np.clip(w[..., 0], 0, n)
+    steps = np.minimum(cj.FP_STEPS, n - np.arange(0, n, cj.FP_STEPS))
+    fp = (int((inside * steps).sum()) * ns * 4,
+          na * -(-nt // cj.FP_BINS) * cj.FP_BINS * n * quads * 32)
+    lo = cj.bp_window_lo(geom)
+    inside = np.clip(lo + cj.BP_WINDOW, 0, nt) - np.clip(lo, 0, nt)
+    bp = (int(inside.sum()) * ns * 4,
+          na * lo.shape[1] * lo.shape[2] * cj.BP_TILE ** 2 * quads * 32)
+    return {"K1_fp_resid": fp, "K1_fp": fp, "K2_bp_sirt": bp, "K2_bp": bp}
+
+
+def _projector_calls(geom, ns: int, uni) -> dict:
+    """{row: call} of the four K1/K2 wrappers on random operands."""
+    from tomojax_torch.projector import cuda_joseph as cj
+
+    n, na, nt = geom.n, geom.nproj, geom.nray
+    x, b, ax_old = uni(n, n, ns), uni(na, nt, ns), uni(na, nt, ns)
+    inv_row = uni(na, nt, lo=0.1)
+    beta = torch.tensor(0.3, device=x.device)
+    y_vol, inv_col = uni(n, n, ns), uni(n, n, hi=0.05)
+    return {
+        "K1_fp_resid": lambda: cj.fp_resid_sl(x, geom, b, ax_old, inv_row,
+                                              beta),
+        "K1_fp": lambda: cj.fp_sl(x, geom),
+        "K2_bp_sirt": lambda: cj.bp_sirt_sl(b, geom, y_vol, inv_col),
+        "K2_bp": lambda: cj.bp_sl(b, geom),
+    }
+
+
+def projector_times(geom, ns: int, uni, card: str, tag: str) -> dict:
+    """One-call event times (median of 5) and device times (mean of 5) of
+    K1 and K2 at this shape, printed; with the staged bytes and the rates
+    they reach where this tree has the tile plan."""
+    from tomojax_torch.projector import cuda_joseph as cj
+
+    calls = _projector_calls(geom, ns, uni)
+    traffic = (projector_traffic(geom, ns) if hasattr(cj, "fp_plan")
+               else None)
+    out = {}
+    for name, fn in calls.items():
+        ms, dev_ms = time_ms(fn, 5), device_ms(fn, 5)
+        out[name] = (ms, dev_ms)
+        extra = ""
+        if traffic is not None:
+            staged, smem = traffic[name]
+            extra = (f"; staged {staged / 1e9:.3f} GB at "
+                     f"{staged / dev_ms / 1e9:.3f} TB/s L2 to shared, "
+                     f"shared reads {smem / 1e9:.2f} GB at "
+                     f"{smem / dev_ms / 1e9:.2f} TB/s")
+        print(f"{tag} {name} at {ns} x {geom.n}^2 x {geom.nproj}: "
+              f"{ms:.4f} ms event, {dev_ms:.4f} ms device{extra} [{card}]")
+    return out
+
+
+def _check_projector_tiles(uni, card: str) -> None:
+    """K1 (both epilogues) and K2 (both) against their plain versions at
+    ragged shapes (N not a multiple of the tiles, Ns % 4 != 0: the scalar
+    copies and stores), with phase 3's bounds; then the four rows at
+    128 x 512^2 x 90, held against torch.sparse.mm with the CSR form of A
+    and A^T (rel 1e-5) and timed beside it."""
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector import cuda_joseph as cj
+
+    for n, na, ns in RAGGED_SHAPES:
+        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+        x, b, ax_old = uni(n, n, ns), uni(na, n, ns), uni(na, n, ns)
+        inv_row, beta = uni(na, n, lo=0.1), torch.tensor(0.3, device=x.device)
+        got = cj.fp_resid_sl(x, geom, b, ax_old, inv_row, beta)
+        ref = cj.fp_resid_sl_ref(x, geom, b, ax_old, inv_row, beta)
+        errs = {"K1 resid": max(
+            max_err(got[0], ref[0]) / float(ref[0].abs().max()),
+            max_err(got[1], ref[1]) / float(ref[1].abs().max()))}
+        dd = abs(float(got[2]) - float(ref[2])) / float(ref[2])
+        ax = cj.fp_sl(x, geom)
+        errs["K1"] = max_err(ax, ref[0]) / float(ref[0].abs().max())
+        y_vol, inv_col = uni(n, n, ns), uni(n, n, hi=0.05)
+        ref = cj.bp_sirt_sl_ref(b, geom, y_vol, inv_col)
+        errs["K2 fused"] = max_err(cj.bp_sirt_sl(b, geom, y_vol, inv_col),
+                                   ref) / float(ref.abs().max())
+        ref = cj.bp_sl_ref(b, geom)
+        got = cj.bp_sl(b, geom)
+        errs["K2"] = max_err(got, ref) / float(ref.abs().max())
+        lhs = float(torch.sum(ax.double() * b.double()))
+        rhs = float(torch.sum(x.double() * got.double()))
+        adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+        torch.cuda.synchronize()
+        require(all(e <= 1e-5 for e in errs.values()) and dd <= 2e-5
+                and adj <= 1e-5,
+                f"K1/K2 at ragged shape {(n, na, ns)}: {errs}, ddsq rel "
+                f"{dd:.3e}, adjointness {adj:.3e}")
+        print(f"K1/K2 at N {n}, Na {na}, Ns {ns}: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()) + " <= 1e-5 max|out|; "
+            f"ddsq rel {dd:.2e} <= 2e-5; adjointness {adj:.2e} <= 1e-5")
+
+    n, na, ns = 512, 90, 128
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+    A, At, nnz = joseph_csr(geom, torch.device("cuda"))
+    x, y = uni(n, n, ns), uni(na, n, ns, lo=-1.0)
+    fp_rel = max_err(cj.fp_sl(x, geom).reshape(na * n, ns),
+                     torch.sparse.mm(A, x.reshape(n * n, ns)))
+    bp_rel = max_err(cj.bp_sl(y, geom).reshape(n * n, ns),
+                     torch.sparse.mm(At, y.reshape(na * n, ns)))
+    fp_rel /= float(torch.sparse.mm(A, x.reshape(n * n, ns)).abs().max())
+    bp_rel /= float(torch.sparse.mm(At, y.reshape(na * n, ns)).abs().max())
+    require(fp_rel <= 1e-5 and bp_rel <= 1e-5,
+            f"K1/K2 at 512^2 vs CSR: {fp_rel:.3e}, {bp_rel:.3e}")
+    fp_lib = time_ms(lambda: torch.sparse.mm(A, x.reshape(n * n, ns)), 5)
+    bp_lib = time_ms(lambda: torch.sparse.mm(At, y.reshape(na * n, ns)), 5)
+    print(f"K1/K2 at {ns} x {n}^2 x {na} vs CSR ({nnz} nonzeros): A x rel "
+          f"{fp_rel:.1e}, A^T y rel {bp_rel:.1e} <= 1e-5; torch.sparse.mm "
+          f"A x {fp_lib:.4f} ms, A^T y {bp_lib:.4f} ms [{card}]")
+    del A, At
+    projector_times(geom, ns, uni, card, "K1/K2")
 
 
 def _check_fgp_variants(x, p, report) -> None:
@@ -909,6 +1060,8 @@ def phase_main_path(card: str, kernels: dict) -> dict:
         end.synchronize()
         run_ms = start.elapsed_time(end)
         rmse = float(ops.rmse(from_sl(st.x), vol))
+        prof = _profiled(lambda: fista_run_sl(st, tomo.b_sl, tomo.sys, LAM, 2,
+                                              N_TV))
     counts = _read(kernels, "FISTA-TV path", FISTA_KERNELS)
     cost = tomo.cost
     m = metrics.cpu().numpy()
@@ -926,6 +1079,7 @@ def phase_main_path(card: str, kernels: dict) -> dict:
           f"{rate / 1e6:.1f}M voxel-iters/s [{card}]")
     print(f"  dd {m[0, 1]:.1f} -> {m[-1, 1]:.1f}, cost {cost[0]:.4g} -> "
           f"{cost[-1]:.4g}, rmse vs phantom {rmse:.6f}")
+    print("  profile (2 iterations): " + _profile_summary(prof, 2))
     return counts
 
 
@@ -967,6 +1121,8 @@ def phase_asd_path(card: str, kernels: dict) -> dict:
         end.record()
         end.synchronize()
         run_ms = start.elapsed_time(end)
+        prof = _profiled(lambda: asd_pocs_run(x0, tomo.b_sl, tomo.sys, w,
+                                              AsdPocsParams(niter=2)))
         beta = torch.tensor(1.0, device=dev)
         seq = torch.arange(na, dtype=torch.int32, device=dev)
         sweep_ms = time_ms(lambda: sart_sweep_sl(
@@ -993,6 +1149,8 @@ def phase_asd_path(card: str, kernels: dict) -> dict:
     print(f"  dd {dd_vec[0]:.1f} -> {dd_vec[-1]:.1f}, tv {tv_vec[0]:.1f} -> "
           f"{tv_vec[-1]:.1f}, rmse vs phantom {rmse:.6f}; sart dd "
           f"{sart_cost[0]:.1f} -> {sart_cost[-1]:.1f}")
+    print("  profile (2 iterations of asd_pocs_run): "
+          + _profile_summary(prof, 2))
     return counts
 
 
@@ -1273,8 +1431,6 @@ def _time_fusion_outer(card: str, nel=3, ns=128, n=256, na=90, nac=45,
     ones, gamma 1.6, lam_HAADF 10, lam_chem 0.05, iterSIRT 5, tvIter 5,
     lam_TV 1e-4; ms per outer iteration over `iters` iterations (CUDA
     events), then a torch.profiler window of 2 iterations by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     from tomojax_torch.fusion import data_fusion_step, make_fusion_system
     from tomojax_torch.solvers import to_sl
     from tomojax_torch.tv import tv_fgp_4d
@@ -1300,11 +1456,7 @@ def _time_fusion_outer(card: str, nel=3, ns=128, n=256, na=90, nac=45,
         v, run_ms = _events_ms(lambda: _chain(outer, v, iters))
         require(bool(torch.isfinite(v).all()), "fusion outer iteration "
                                                "is not finite")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _chain(outer, v, 2)
-            torch.cuda.synchronize()
+        prof = _profiled(lambda: _chain(outer, v, 2))
     ms = run_ms / iters
     print(f"fusion outer iteration {nel}x{ns}x{n}^2, HAADF {na} / chemistry "
           f"{nac} angles, iterSIRT 5, tvIter 5: {ms:.3f} ms/iteration = "
@@ -1317,6 +1469,18 @@ def _chain(fn, v, k):
     for _ in range(k):
         v = fn(v)
     return v
+
+
+def _profiled(fn):
+    """A torch.profiler trace (host and device) of one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
 
 
 def _profile_summary(prof, iters: int) -> str:
@@ -1752,10 +1916,34 @@ def phase_golden_fusion(card: str) -> None:
 # ------------------------------------------------------------------- main
 
 
+def projector_times_main() -> int:
+    """`--projector-times`: only K1's and K2's times at 256^3 x 90 and
+    128 x 512^2 x 90 (`projector_times`), with the tomojax_torch package
+    beside this file; a copy of this file beside another tree times that
+    tree's kernels."""
+    from tomojax_torch.geometry import Geometry
+
+    card = phase_device()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def uni(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    times = {}
+    for n, ns in ((256, 256), (512, 128)):
+        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, 90)))
+        times[f"{ns}x{n}^2x90"] = projector_times(geom, ns, uni, card,
+                                                  str(ROOT.name))
+    print(json.dumps({"projector_ms": times, "tree": str(ROOT)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--projector-times"]:
+        return projector_times_main()
     try:
         card = phase_device()
         phase_build()

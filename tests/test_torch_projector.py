@@ -149,24 +149,27 @@ def test_wrappers_reject_bad_operands(bad):
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card():
+@pytest.mark.parametrize("n,na,ns", [(48, 13, 40), (33, 7, 5)])
+def test_kernels_match_plain_on_card(n, na, ns):
+    """K1 and K2 against their plain versions; (33, 7, 5) has N off K1's
+    and K2's tiles and Ns % 4 != 0 (their 4-byte copies and stores)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    geom, _ = _geoms(48, 13)
+    geom, _ = _geoms(n, na)
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
-    x = _t(rng.normal(size=(48, 48, 40))).to(dev)
-    b = _t(rng.normal(size=(13, 48, 40))).to(dev)
-    ax_old = _t(rng.normal(size=(13, 48, 40))).to(dev)
-    inv_row = _t(rng.uniform(0.1, 1, size=(13, 48))).to(dev)
+    x = _t(rng.normal(size=(n, n, ns))).to(dev)
+    b = _t(rng.normal(size=(na, n, ns))).to(dev)
+    ax_old = _t(rng.normal(size=(na, n, ns))).to(dev)
+    inv_row = _t(rng.uniform(0.1, 1, size=(na, n))).to(dev)
     beta = torch.tensor(0.3, device=dev)
     got = fp_resid_sl(x, geom, b, ax_old, inv_row, beta)
     ref = cuda_joseph.fp_resid_sl_ref(x, geom, b, ax_old, inv_row, beta)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=2e-5, atol=1e-5 * float(r.abs().max()))
-    y_vol = _t(rng.normal(size=(48, 48, 40))).to(dev)
-    inv_col = _t(rng.uniform(0, 0.5, size=(48, 48))).to(dev)
+    y_vol = _t(rng.normal(size=(n, n, ns))).to(dev)
+    inv_col = _t(rng.uniform(0, 0.5, size=(n, n))).to(dev)
     z = bp_sirt_sl(b, geom, y_vol, inv_col)
     z_ref = cuda_joseph.bp_sirt_sl_ref(b, geom, y_vol, inv_col)
     np.testing.assert_allclose(z.cpu().numpy(), z_ref.cpu().numpy(),

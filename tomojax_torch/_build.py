@@ -36,8 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry (pointers and the stream as c_void_p, so that
 # ctypes does not truncate them to 32-bit ints)
 _SIGNATURES = {
-    "tj_fp": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "tj_fp_resid": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "tj_fp": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P],
+    "tj_fp_resid": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _P],
     "tj_fp_resid_partials": [_I, _I, _I],
     "tj_bp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

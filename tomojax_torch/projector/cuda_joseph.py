@@ -6,7 +6,8 @@ slice-last and unpadded: volumes ``(N, N, Ns)``, sinograms
 
 * K1 ``fp_resid_sl`` (``csrc/joseph.cu`` ``fp_kernel<true>``): ``ax = A x``
   with the FISTA residual epilogue; ``fp_sl`` is the same kernel with the
-  epilogue off (plain ``A x``).
+  epilogue off (plain ``A x``). Both pass the geometry's `fp_plan`, the
+  angle groups and staging windows of K1's blocks.
 * K2 ``bp_sirt_sl`` (``csrc/joseph.cu`` ``bp_kernel<true>``): the SIRT
   update ``max(y_vol + inv_col * A^T r, 0)``; ``bp_sl`` is the same kernel
   with the epilogue off (plain ``A^T y``).
@@ -69,6 +70,151 @@ def angle_tables(geom: Geometry, device: torch.device) -> AngleTables:
         torch.as_tensor(fp.astype(np.float32), device=device),
         torch.as_tensor(bp.astype(np.float32), device=device),
     )
+
+
+# K1's tiling (csrc/joseph.cu FP_G, FP_B, FP_K, FP_W): a block owns up to
+# FP_GROUP angles of one driving type x FP_BINS bins x 32 slices and walks
+# the driving axis FP_STEPS steps at a time, staging at most FP_WINDOW tap
+# positions per step.
+FP_GROUP, FP_BINS, FP_STEPS, FP_WINDOW = 8, 32, 2, 96
+
+
+def fp_positions(tab: np.ndarray, n: int, nt: int, j, k) -> np.ndarray:
+    """Tap positions of rays (bin j) at driving steps k for every angle of
+    `tab` (float32 rows of ``angle_tables(...).fp``), rounded as
+    ``tj::fp_ray`` (csrc/joseph.cuh) and K1 round them: each float32
+    operation alone, in the same order. The result has a leading angle
+    axis before the broadcast shape of j and k."""
+    f32 = np.float32
+    tab = np.asarray(tab, dtype=f32)
+    lead = (len(tab),) + (1,) * max(np.ndim(j), np.ndim(k))
+    inv_d, shear, row = (tab[:, i].reshape(lead) for i in (0, 1, 3))
+    ctr = f32(0.5) * f32(n - 1)
+    base = (np.asarray(j, dtype=f32) - f32(0.5) * f32(nt - 1)) * inv_d
+    k = np.asarray(k, dtype=f32)
+    with np.errstate(over="ignore"):
+        row_pos = (base + (ctr - k) * shear) + ctr
+        col_pos = (ctr - base) + (k - ctr) * shear
+    return np.where(row != 0, row_pos, col_pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class FpPlan:
+    """K1's blocks for one geometry (`fp_plan`).
+
+    groups: (ng, 2 + FP_GROUP) int32 rows {row_driven, count, angles...}:
+        consecutive angles of one driving type whose rays of one bin tile
+        fit one staging window of FP_WINDOW positions per chunk;
+    windows: (ng, bin tiles, chunks, 2) int32 {lo, width}: the positions
+        [lo, lo + width) that a block stages per step of a chunk, clamped to
+        the volume plus two zero positions on each side. A tap at i0 is read
+        at min(max(i0, lo), lo + width - 2), which moves only taps whose
+        two positions both lie outside the volume onto zero positions.
+    table: both flattened into one int32 tensor on the device, as tj_fp and
+        tj_fp_resid take them.
+    """
+
+    groups: np.ndarray
+    windows: np.ndarray
+    table: torch.Tensor
+
+    @property
+    def ng(self) -> int:
+        return len(self.groups)
+
+    @property
+    def width(self) -> int:
+        """The widest window: the row stride of K1's staging ring."""
+        return int(self.windows[..., 1].max())
+
+
+def _fp_corner_windows(geom: Geometry, tab: np.ndarray):
+    """(lo, hi) per (angle, bin tile, chunk): the least tap position
+    floor(pos) and the largest floor(pos) + 1 over the tile's rays and the
+    chunk's steps. pos is monotone in j and in k (each rounded operation
+    is), so the extremes lie at the four corners."""
+    n, nt = geom.n, geom.nray
+    j0 = np.arange(0, nt, FP_BINS)
+    k0 = np.arange(0, n, FP_STEPS)
+    js = np.stack([j0, np.minimum(j0 + FP_BINS, nt) - 1])  # (2, tiles)
+    ks = np.stack([k0, np.minimum(k0 + FP_STEPS, n) - 1])  # (2, chunks)
+    pos = fp_positions(tab, n, nt, js[:, None, :, None],
+                       ks[None, :, None, :])  # (Na, 2, 2, tiles, chunks)
+    f = np.floor(pos.reshape(len(tab), 4, len(j0), len(k0)))
+    return f.min(axis=1).astype(np.int64), f.max(axis=1).astype(np.int64) + 1
+
+
+def _clamp_window(lo, hi, n: int):
+    lo_eff = np.clip(lo, -2, n)
+    return lo_eff, np.clip(hi, -1, n + 1) - lo_eff + 1
+
+
+@functools.lru_cache(maxsize=32)
+def fp_plan(geom: Geometry, device: torch.device) -> FpPlan:
+    """K1's plan: angles grouped in table order, a new group at a change of
+    driving type, at FP_GROUP angles, or where the next angle would widen
+    some window past FP_WINDOW; then each group's windows."""
+    tab = angle_tables(geom, torch.device("cpu")).fp.numpy()
+    lo, hi = _fp_corner_windows(geom, tab)
+    n = geom.n
+    groups, windows = [], []
+    members, cur_lo, cur_hi = [], None, None
+    for a in range(geom.nproj):
+        if members:
+            nlo, nhi = np.minimum(cur_lo, lo[a]), np.maximum(cur_hi, hi[a])
+            if (len(members) < FP_GROUP and tab[a, 3] == tab[members[0], 3]
+                    and _clamp_window(nlo, nhi, n)[1].max() <= FP_WINDOW):
+                members.append(a)
+                cur_lo, cur_hi = nlo, nhi
+                continue
+            groups.append(members)
+            windows.append(_clamp_window(cur_lo, cur_hi, n))
+        members, cur_lo, cur_hi = [a], lo[a], hi[a]
+    groups.append(members)
+    windows.append(_clamp_window(cur_lo, cur_hi, n))
+    g = np.zeros((len(groups), 2 + FP_GROUP), np.int32)
+    for i, m in enumerate(groups):
+        g[i, 0], g[i, 1] = int(tab[m[0], 3] != 0), len(m)
+        g[i, 2:2 + len(m)] = m
+    w = np.stack([np.stack(pair, axis=-1) for pair in windows]).astype(
+        np.int32)
+    flat = np.concatenate([g.ravel(), w.ravel()])
+    return FpPlan(g, w, torch.as_tensor(flat, device=device))
+
+
+# K2's tiling (csrc/joseph.cu BP_T, BP_W): a block owns a BP_TILE^2 tile of
+# pixels x 32 slices and stages BP_WINDOW bins per angle.
+BP_TILE, BP_WINDOW = 16, 24
+
+
+def bp_jstar(tab: np.ndarray, nt: int, xc, yr) -> np.ndarray:
+    """J* = x_c cos + y_r sin + (Nt-1)/2 for every angle of `tab` (float32
+    rows of ``angle_tables(...).bp``) at pixel centres (xc, yr), rounded as
+    ``tj::bp_jstar`` (csrc/joseph.cuh): each float32 operation alone. The
+    result has a leading angle axis before the broadcast shape of xc, yr."""
+    f32 = np.float32
+    tab = np.asarray(tab, dtype=f32)
+    lead = (len(tab),) + (1,) * max(np.ndim(xc), np.ndim(yr))
+    c, s = (tab[:, i].reshape(lead) for i in (0, 1))
+    off = f32(0.5) * f32(nt - 1)
+    return (c * np.asarray(xc, f32) + s * np.asarray(yr, f32)) + off
+
+
+def bp_window_lo(geom: Geometry) -> np.ndarray:
+    """(Na, tiles, tiles) first staged bin of each (angle, tile row, tile
+    column), as K2 computes it at the start of a block (csrc/joseph.cu
+    bp_kernel): floor of the least J* over the four corners of the whole
+    tile, pixels past N included. J* is monotone in x_c and y_r, so every
+    tap of the tile lies in [lo, lo + BP_WINDOW)."""
+    n = geom.n
+    tab = angle_tables(geom, torch.device("cpu")).bp.numpy()
+    ctr = np.float32(0.5) * np.float32(n - 1)
+    t0 = np.arange(0, n, BP_TILE, dtype=np.float32)
+    xs = np.stack([t0 - ctr, (t0 + (BP_TILE - 1)) - ctr])  # (2, tiles)
+    ys = np.stack([ctr - t0, ctr - (t0 + (BP_TILE - 1))])
+    j = bp_jstar(tab, geom.nray, xs[None, None, :, :], ys[:, :, None, None])
+    # j: (Na, 2 y corners, row tiles, 2 x corners, column tiles)
+    return np.floor(j.min(axis=(1, 3))).astype(np.int64)
 
 
 def _hat_taps(pos: torch.Tensor, n: int):
@@ -197,10 +343,11 @@ def fp_sl(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
     if _build.on_cpu(x):
         return fp_sl_ref(x, geom)
     tab = angle_tables(geom, x.device).fp
+    plan = fp_plan(geom, x.device)
     ax = torch.empty(sino, dtype=F32, device=x.device)
     _build.check(_build.lib().tj_fp(
-        _p(x), _p(tab), _p(ax), geom.n, geom.nray, geom.nproj, ns,
-        _build.stream()), "tj_fp")
+        _p(x), _p(tab), _p(plan.table), plan.ng, plan.width, _p(ax), geom.n,
+        geom.nray, geom.nproj, ns, _build.stream()), "tj_fp")
     fp_sl.launches += 1
     return ax
 
@@ -222,15 +369,17 @@ def fp_resid_sl(x, geom: Geometry, b, ax_old, inv_row, beta):
         return fp_resid_sl_ref(x, geom, b, ax_old, inv_row, beta)
     lib = _build.lib()
     tab = angle_tables(geom, x.device).fp
+    plan = fp_plan(geom, x.device)
     ax = torch.empty(sino, dtype=F32, device=x.device)
     resid = torch.empty(sino, dtype=F32, device=x.device)
     partials = torch.empty(lib.tj_fp_resid_partials(geom.nray, geom.nproj, ns),
                            dtype=F32, device=x.device)
     ddsq = torch.empty((), dtype=F32, device=x.device)
     _build.check(lib.tj_fp_resid(
-        _p(x), _p(tab), _p(b), _p(ax_old), _p(inv_row), _p(beta), _p(ax),
-        _p(resid), _p(partials), _p(ddsq), geom.n, geom.nray, geom.nproj, ns,
-        _build.stream()), "tj_fp_resid")
+        _p(x), _p(tab), _p(plan.table), plan.ng, plan.width, _p(b),
+        _p(ax_old), _p(inv_row), _p(beta), _p(ax), _p(resid), _p(partials),
+        _p(ddsq), geom.n, geom.nray, geom.nproj, ns, _build.stream()),
+        "tj_fp_resid")
     fp_resid_sl.launches += 1
     return ax, resid, ddsq
 
