@@ -15,14 +15,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the error, the tolerance, both median times, the least time the card
    could take (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32) and,
    for the projectors, the time of torch.sparse.mm with the CSR form of A
-   or A^T (built once, not timed); K10 at ab = 3, 6, 10 against K2 (0.0
-   expected), K11 with f32 and bf16 duals and K12 with f32 duals (0.0),
-   with device times beside K2, two K3 launches, and K12 + K4 against K3;
+   or A^T (built once, not timed); K10 at ab = 2, 3, 6, 8, 10, 16, 32,
+   fused and unfused, against K2 (0.0 expected) with device times beside
+   K2's, and at the ragged shapes against its plain version; K11 with f32
+   and bf16 duals and K12 with f32 duals (0.0), with device times beside
+   two K3 launches, and K12 + K4 against K3;
    K1 and K2 (both epilogues) also at ragged shapes (N 33, Na 7, Ns 5 and
    N 48, Na 13, Ns 37) against their plain versions, and at 128 x 512^2 x
-   90 against torch.sparse.mm with the CSR form (rel 1e-5), with their
-   staged bytes and the L2-to-shared and shared-memory read rates at both
-   full shapes;
+   90 against torch.sparse.mm with the CSR form (rel 1e-5); K1, K2, K10
+   (ab 6) and E1 FULL with their staged bytes and the L2-to-shared and
+   shared-memory read rates at both full shapes;
    the SART sweep (K8) at three levels: one angle step, one sweep,
    convergence after 5 sweeps;
    the slab kernels K9a/K9b/K9c (and K5's right halo) on a 256^3 volume
@@ -63,16 +65,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       at 256^3 x 90 with bp_sirt_sl(ab=6) (K10) against K2;
    f. the experiments (tomojax_torch.experiments, the counterparts of
       scripts/exp_*.py): every instantiation of E1 (the FP weight forms
-      FULL, HAT5, BF16, NOHAT, NODOT, W4; 16 and 32 angles per block; PAIR)
-      and E2 (the BP forms FULL, BF16, NOHAT, NODOT, W4; two angles per
-      step) held against its plain version at 256^3 x 90 (bound 1e-5
-      max|out|, torch.sparse.mm beside the forms that compute A x or
-      A^T y), and of E3 (the SART modes TAPS_F32, TAPS_BF16, TABLE_BF16,
-      NOHAT, NOFP, NOUPD, two launches per angle) and E4 (TAPS_F32,
-      TAPS_BF16, TABLE_BF16, one launch per sweep) over one sweep from zero
-      on nanocube projections (bound 1e-4 max|x|); cuobjdump -sass of the
-      ablations (NODOT keeps its adds and loads only the angle tables,
-      NOHAT keeps its data loads); then the six drivers
+      FULL, HAT5, BF16, NOHAT, NODOT, W4 and PAIR, each at 1, 2, 4, 8, 16
+      and 32 angles a block, with device times beside K1's; also at N 33,
+      Na 7, Ns 5 and N 48, Na 14, Ns 37) and E2 (the BP forms FULL, BF16,
+      NOHAT, NODOT, W4; two angles per step) held against its plain
+      version at 256^3 x 90 (bound 1e-5 max|out|, torch.sparse.mm beside
+      the forms that compute A x or A^T y), and of E3 (the SART modes
+      TAPS_F32, TAPS_BF16, TABLE_BF16, NOHAT, NOFP, NOUPD, two launches per
+      angle) and E4 (TAPS_F32, TAPS_BF16, TABLE_BF16, one launch per sweep)
+      over one sweep from zero on nanocube projections (bound 1e-4 max|x|);
+      cuobjdump -sass of the ablations (E1's NODOT keeps its adds with no
+      ring copy or shared load, its NOHAT the ring copies and shared
+      loads; E2's NODOT loads only the angle tables, its NOHAT keeps its
+      data loads); then the six drivers
       (hat_model, projector_variants, projector_variants2, pair_fp,
       sart_pipeline, sart_ablate) at 256^3 x 90, each with the E launch
       counts set to 0 before it and read after, their rows printed, the
@@ -92,9 +97,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
     python3 chip_smoke.py --projector-times
 
-times only K1 and K2 at 256^3 x 90 and 128 x 512^2 x 90, with the
-tomojax_torch package beside the file (a copy of it beside another tree
-times that tree's kernels).
+times only K1, K2, K10 (ab 6) and E1 FULL at 256^3 x 90 and 128 x 512^2
+x 90, with the tomojax_torch package beside the file (a copy of it beside
+another tree times that tree's kernels).
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
 printing any result.
@@ -418,7 +423,7 @@ def phase_kernels(card: str) -> dict:
     def uni2(*shape, lo=0.0, hi=1.0):
         return torch.rand(shape, generator=gen2, device=dev) * (hi - lo) + lo
 
-    projector_times(geom, ns, uni2, card, "K1/K2")
+    projector_times(geom, ns, uni2, card, "projectors")
     _check_projector_tiles(uni2, card)
 
     # K3 + K4: 10 chained FGP iterations, f32 and bf16 duals
@@ -493,47 +498,77 @@ def phase_kernels(card: str) -> dict:
     return rows
 
 
+AB_SWEEP = (2, 3, 6, 8, 10, 16, 32)  # K10's stages held and timed
+
+
 def _check_bp_ab(args, report, *, work, library_ms) -> None:
-    """K10 at ab = 3, 6, 10, fused and unfused, against K2's output (bound
-    1e-6 max|out|; 0.0 expected: the same taps added in K2's order) and,
-    at ab = 6 fused (the row's time), against its plain version on the
-    zero-padded angle set (K2's bound, 1e-5 max|out|); device times beside
-    K2's."""
+    """K10 at every ab of AB_SWEEP, fused and unfused, against K2's output
+    (bound 1e-6 max|out|; 0.0 expected: the same taps added in K2's order,
+    padded angles adding fmaf(0, 0, acc)), with each one's device time
+    beside K2's; at ab = 6 fused (the row's time) against its plain version
+    on the zero-padded angle set (K2's bound, 1e-5 max|out|); then at the
+    ragged shapes, every ab against the plain version and K2."""
+    from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector import cuda_joseph as cj
 
     resid, geom, y_vol, inv_col = args
     k2, k2u = cj.bp_sirt_sl(*args), cj.bp_sl(resid, geom)
+    tol = 1e-6 * float(k2.abs().max())
     worst, out = 0.0, []
-    for ab in (3, 6, 10):
+    for ab in AB_SWEEP:
         got = _launched(cj.bp_ab_sl, lambda: cj.bp_sirt_sl(*args, ab=ab))
         gu = cj.bp_sl(resid, geom, ab=ab)
         e = max(max_err(got, k2), max_err(gu, k2u))
-        tol = 1e-6 * float(k2.abs().max())
         require(e <= tol, f"K10 ab={ab} vs K2: {e:.3e} above {tol:.3e}")
         worst = max(worst, e)
-        ms = device_ms(lambda: cj.bp_sirt_sl(*args, ab=ab), 5)
-        out.append(f"ab={ab} {ms:.4f}")
+        fused = device_ms(lambda: cj.bp_sirt_sl(*args, ab=ab), 5)
+        plain = device_ms(lambda: cj.bp_sl(resid, geom, ab=ab), 5)
+        out.append(f"ab={ab} {fused:.4f}/{plain:.4f}")
+    k2_dev = device_ms(lambda: cj.bp_sirt_sl(*args), 5)
+    k2u_dev = device_ms(lambda: cj.bp_sl(resid, geom), 5)
+    gen = torch.Generator(device=resid.device).manual_seed(3)
+    ragged = 0.0
+    for n, na, ns in RAGGED_SHAPES:
+        g = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+        y, yv, ic = (torch.rand(shape, generator=gen, device=resid.device)
+                     for shape in ((na, n, ns), (n, n, ns), (n, n)))
+        ref2, ref2u = cj.bp_sirt_sl(y, g, yv, ic), cj.bp_sl(y, g)
+        for ab in AB_SWEEP:
+            got = cj.bp_sirt_sl(y, g, yv, ic, ab=ab)
+            gu = cj.bp_sl(y, g, ab=ab)
+            ref = cj.bp_sirt_sl_ref(y, g, yv, ic, ab)
+            refu = cj.bp_sl_ref(y, g, ab)
+            e_plain = max(max_err(got, ref) / float(ref.abs().max()),
+                          max_err(gu, refu) / float(refu.abs().max()))
+            e_k2 = max(max_err(got, ref2) / float(ref2.abs().max()),
+                       max_err(gu, ref2u) / float(ref2u.abs().max()))
+            require(e_plain <= 1e-5 and e_k2 <= 1e-6,
+                    f"K10 ab={ab} at {(n, na, ns)}: vs plain {e_plain:.3e} "
+                    f"(<= 1e-5), vs K2 {e_k2:.3e} (<= 1e-6)")
+            ragged = max(ragged, e_plain)
     ref = cj.bp_sirt_sl_ref(*args, ab=6)
     got = cj.bp_sirt_sl(*args, ab=6)
-    k2_dev = device_ms(lambda: cj.bp_sirt_sl(*args), 5)
     report("K10_bp_ab", max_err(got, ref), 1e-5 * float(ref.abs().max()),
            time_ms(lambda: cj.bp_sirt_sl(*args, ab=6), 5),
            time_ms(lambda: cj.bp_sirt_sl_ref(*args, ab=6), 3),
-           f" (ab=6, fused; vs K2 at ab 3/6/10 fused and unfused {worst:.1e} "
-           f"<= 1e-6 max|out|; device ms {', '.join(out)} vs K2 "
-           f"{k2_dev:.4f})", work=work, library_ms=library_ms)
+           f" (ab=6, fused; vs K2 at ab {'/'.join(map(str, AB_SWEEP))} "
+           f"fused and unfused {worst:.1e} <= 1e-6 max|out|; at the ragged "
+           f"shapes vs plain {ragged:.1e} <= 1e-5 max|out|; device ms "
+           f"fused/unfused {', '.join(out)} vs K2 {k2_dev:.4f}/"
+           f"{k2u_dev:.4f})", work=work, library_ms=library_ms)
 
 
 RAGGED_SHAPES = ((33, 7, 5), (48, 13, 37))  # (N, Na, Ns)
 
 
 def projector_traffic(geom, ns: int):
-    """{row: (staged bytes, shared-memory read bytes)} of K1 and K2 at this
-    geometry: the bytes the windows copy from L2 into shared memory (rows
-    inside the operand only; cuda_joseph.fp_plan, bp_window_lo), and the
-    shared-memory reads of the gather, two 16-byte reads per tap pair and 4
-    slices of every ray step (K1) or pixel and angle (K2) a block computes,
-    padding included."""
+    """{row: (staged bytes, shared-memory read bytes)} of K1, K2, K10 (ab
+    6) and E1 (FULL on K1's plan) at this geometry: the bytes the windows
+    copy from L2 into shared memory (rows inside the operand only;
+    cuda_joseph.fp_plan, bp_window_lo), and the shared-memory reads of the
+    gather, two 16-byte reads per tap pair and 4 slices of every ray step
+    (K1, E1) or pixel and angle (K2, K10) a block computes, padding
+    included."""
     from tomojax_torch.projector import cuda_joseph as cj
 
     n, nt, na = geom.n, geom.nray, geom.nproj
@@ -547,11 +582,14 @@ def projector_traffic(geom, ns: int):
     inside = np.clip(lo + cj.BP_WINDOW, 0, nt) - np.clip(lo, 0, nt)
     bp = (int(inside.sum()) * ns * 4,
           na * lo.shape[1] * lo.shape[2] * cj.BP_TILE ** 2 * quads * 32)
-    return {"K1_fp_resid": fp, "K1_fp": fp, "K2_bp_sirt": bp, "K2_bp": bp}
+    return {"K1_fp_resid": fp, "K1_fp": fp, "K2_bp_sirt": bp, "K2_bp": bp,
+            "K10_bp_ab6": bp, "E1_FULL": fp}
 
 
 def _projector_calls(geom, ns: int, uni) -> dict:
-    """{row: call} of the four K1/K2 wrappers on random operands."""
+    """{row: call} of the four K1/K2 wrappers, K10 at ab = 6 (fused) and E1
+    FULL on K1's groups (8 angles at most) on random operands."""
+    from tomojax_torch.experiments import cuda_projector_variants as cpv
     from tomojax_torch.projector import cuda_joseph as cj
 
     n, na, nt = geom.n, geom.nproj, geom.nray
@@ -565,13 +603,15 @@ def _projector_calls(geom, ns: int, uni) -> dict:
         "K1_fp": lambda: cj.fp_sl(x, geom),
         "K2_bp_sirt": lambda: cj.bp_sirt_sl(b, geom, y_vol, inv_col),
         "K2_bp": lambda: cj.bp_sl(b, geom),
+        "K10_bp_ab6": lambda: cj.bp_sirt_sl(b, geom, y_vol, inv_col, ab=6),
+        "E1_FULL": lambda: cpv.fp_variant(x, geom, "FULL", ab=8),
     }
 
 
 def projector_times(geom, ns: int, uni, card: str, tag: str) -> dict:
     """One-call event times (median of 5) and device times (mean of 5) of
-    K1 and K2 at this shape, printed; with the staged bytes and the rates
-    they reach where this tree has the tile plan."""
+    K1, K2, K10 (ab 6) and E1 FULL at this shape, printed; with the staged
+    bytes and the rates they reach where this tree has the tile plan."""
     from tomojax_torch.projector import cuda_joseph as cj
 
     calls = _projector_calls(geom, ns, uni)
@@ -651,7 +691,7 @@ def _check_projector_tiles(uni, card: str) -> None:
           f"{fp_rel:.1e}, A^T y rel {bp_rel:.1e} <= 1e-5; torch.sparse.mm "
           f"A x {fp_lib:.4f} ms, A^T y {bp_lib:.4f} ms [{card}]")
     del A, At
-    projector_times(geom, ns, uni, card, "K1/K2")
+    projector_times(geom, ns, uni, card, "projectors")
 
 
 def _check_fgp_variants(x, p, report) -> None:
@@ -1570,12 +1610,13 @@ EXP_SRC = {"E1": "tomojax_torch/csrc/exp_projector.cu",
            "E4": "tomojax_torch/csrc/exp_sart.cu"}
 EXP_ROWS = (
     ("E1_fp_hat", "fp_variant", "hat_model", "exp_hat_model.py:72",
-     "E1 FULL"),
+     "E1 FULL ab8"),
     ("E2_bp_hat", "bp_variant", "hat_model", "exp_hat_model.py:172",
      "E2 FULL"),
     ("E2_bp_hat_banded", "bp_variant", "hat_model", "exp_hat_model.py:259",
      "E2 FULL"),
-    ("E1_fp_pair", "fp_variant", "pair_fp", "exp_pair_fp.py:81", "E1 PAIR"),
+    ("E1_fp_pair", "fp_variant", "pair_fp", "exp_pair_fp.py:81",
+     "E1 PAIR ab8"),
     ("E1_fp_w4", "fp_variant", "projector_variants",
      "exp_projector_variants.py:46", "E1 W4 ab16"),
     ("E2_bp_w4", "bp_variant", "projector_variants",
@@ -1600,11 +1641,12 @@ EXP_DRIVERS = ("hat_model", "projector_variants", "projector_variants2",
 
 
 def _check_experiment_kernels(card: str) -> dict:
-    """Every instantiation of E1 (six forms, two more angles per block,
-    PAIR), E2 (five forms, APS 2), E3 (six modes) and E4 (three) against
-    its plain version at 256^3 x 90 with phase 3's bounds (projectors 1e-5
-    max|out|; one SART sweep from zero on nanocube projections 1e-4 max|x|;
-    0.0 expected: the plain versions repeat the kernels' arithmetic), each
+    """Every instantiation of E1 (six forms and PAIR, each at every angle
+    cap 1-32; device times beside K1's; also at the ragged shapes), E2
+    (five forms, APS 2), E3 (six modes) and E4 (three) against its plain
+    version at 256^3 x 90 with phase 3's bounds (projectors 1e-5 max|out|;
+    one SART sweep from zero on nanocube projections 1e-4 max|x|; 0.0
+    expected: the plain versions repeat the kernels' arithmetic), each
     launched; its time, the plain version's, its bound and, for the forms
     that compute A x or A^T y, torch.sparse.mm's."""
     from tomojax_torch.experiments import (
@@ -1627,14 +1669,19 @@ def _check_experiment_kernels(card: str) -> dict:
     fp_lib = time_ms(lambda: torch.sparse.mm(A, x.reshape(P, ns)), 5)
     bp_lib = time_ms(lambda: torch.sparse.mm(At, y.reshape(na * n, ns)), 5)
     del A, At
-    rows = {}
+    rows, e1_dev = {}, {}
 
-    def held(key, wrapper, fn, plain, rel_tol, work, library_ms=None):
+    def held(key, wrapper, fn, plain, rel_tol, work, library_ms=None,
+             plain_ms=None):
         got = _launched(wrapper, fn)
         ref = plain()
         err, tol = max_err(got, ref), rel_tol * float(ref.abs().max())
         require(err <= tol, f"{key}: error {err:.3e} above {tol:.3e}")
-        ms, plain_ms = time_ms(fn, 5), time_ms(plain, 1)
+        ms = time_ms(fn, 5)
+        plain_ms = time_ms(plain, 1) if plain_ms is None else plain_ms
+        if key.startswith("E1"):
+            form, ab = key.split()[1], int(key.split()[2][2:])
+            e1_dev[(form, ab)] = device_ms(fn, 5)
         bound_ms, bound_by = bound(*work)
         rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1645,22 +1692,27 @@ def _check_experiment_kernels(card: str) -> dict:
               f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
 
     # projectors: K1/K2's work; NODOT reads nothing and adds 7 operations
-    # (its weight and the sum) per nonzero and slice
-    for form in cpv.FORMS:
+    # (its weight and the sum) per nonzero and slice. E1: every form at
+    # every angle cap, PAIR at every cap; the plain version once per form
+    for form in (*cpv.FORMS, "PAIR"):
+        pair = form == "PAIR"
+        fm = "FULL" if pair else form
         nodot = form == "NODOT"
-        held(f"E1 {form}", cpv.fp_variant,
-             lambda: cpv.fp_variant(x, geom, form),
-             lambda: cpv.fp_variant_ref(x, geom, form), 1e-5,
-             (4 * S, 7 * nnz * ns) if nodot else (4 * (V + S), spmv),
-             None if form in ("NOHAT", "NODOT") else fp_lib)
-    for form, ab in (("FULL", 16), ("FULL", 32), ("W4", 16)):
-        held(f"E1 {form} ab{ab}", cpv.fp_variant,
-             lambda: cpv.fp_variant(x, geom, form, ab=ab),
-             lambda: cpv.fp_variant_ref(x, geom, form), 1e-5,
-             (4 * (V + S), spmv), fp_lib)
-    held("E1 PAIR", cpv.fp_variant, lambda: cpv.fp_variant(x, geom, pair=True),
-         lambda: cpv.fp_variant_ref(x, geom, pair=True), 1e-5,
-         (4 * (V + S), spmv), fp_lib)
+        ref = cpv.fp_variant_ref(x, geom, fm, pair)
+        plain_ms = time_ms(lambda: cpv.fp_variant_ref(x, geom, fm, pair), 1)
+        for ab in cpv.ANGLES_PER_BLOCK:
+            held(f"E1 {form} ab{ab}", cpv.fp_variant,
+                 lambda: cpv.fp_variant(x, geom, fm, ab=ab, pair=pair),
+                 lambda: ref, 1e-5,
+                 (4 * S, 7 * nnz * ns) if nodot else (4 * (V + S), spmv),
+                 None if form in ("NOHAT", "NODOT") else fp_lib, plain_ms)
+    caps = cpv.ANGLES_PER_BLOCK
+    by_cap = "; ".join(
+        f"{form} " + "/".join(f"{e1_dev[form, ab]:.4f}" for ab in caps)
+        for form in (*cpv.FORMS, "PAIR"))
+    print(f"E1 device ms at angle caps {'/'.join(map(str, caps))}: {by_cap}; "
+          f"K1 {device_ms(lambda: fp_sl(x, geom), 5):.4f} [{card}]")
+    _check_e1_ragged(gen)
     for form in cpv.BP_FORMS:
         nodot = form == "NODOT"
         held(f"E2 {form}", cpv.bp_variant,
@@ -1696,11 +1748,41 @@ def _check_experiment_kernels(card: str) -> dict:
     return rows
 
 
+def _check_e1_ragged(gen) -> None:
+    """E1 at the ragged shapes (N 33, Na 7, Ns 5 and N 48, Na 14, Ns 37):
+    every form at every angle cap, and PAIR on a symmetric series of even
+    Na (8 and 14 angles), against the plain version (1e-5 max|out|, 0.0
+    expected)."""
+    from tomojax_torch.experiments import cuda_projector_variants as cpv
+    from tomojax_torch.geometry import Geometry
+
+    worst = 0.0
+    for n, na, ns in ((33, 7, 5), (48, 14, 37)):
+        x = torch.rand((n, n, ns), generator=gen, device="cuda")
+        for form in (*cpv.FORMS, "PAIR"):
+            pair = form == "PAIR"
+            m = na + na % 2 if pair else na
+            geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, m)))
+            fm = "FULL" if pair else form
+            ref = cpv.fp_variant_ref(x, geom, fm, pair)
+            for ab in cpv.ANGLES_PER_BLOCK:
+                e = max_err(cpv.fp_variant(x, geom, fm, ab=ab, pair=pair),
+                            ref) / float(ref.abs().max())
+                require(e <= 1e-5, f"E1 {form} ab{ab} at {(n, m, ns)}: "
+                                   f"{e:.3e} above 1e-5 max|out|")
+                worst = max(worst, e)
+    print(f"E1 at N 33, Na 7 (PAIR 8), Ns 5 and N 48, Na 14, Ns 37: every "
+          f"form and PAIR at angle caps {cpv.ANGLES_PER_BLOCK} vs plain "
+          f"{worst:.1e} <= 1e-5 max|out|")
+
+
 def _check_ablation_sass() -> None:
     """The ablations must keep what they claim to keep (cuobjdump -sass of
-    the built library): E1's and E2's NODOT their weights' adds with no
-    load but the float4 angle tables (LDG.E.128), NOHAT its scalar loads of
-    the volume or sinogram."""
+    the built library). E1 (each block size): NODOT its weights' adds with
+    no ring copy (LDGSTS) and no shared load (LDS), NOHAT its ring copies
+    and 16-byte shared loads. E2: NODOT its adds with no load but the
+    float4 angle tables (LDG.E.128), NOHAT its scalar loads of the
+    sinogram."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -1719,18 +1801,54 @@ def _check_ablation_sass() -> None:
                                  f"{pattern}")
         return found[0]
 
-    for kernel in ("fp_variant_kernel", "bp_variant_kernel"):
-        nodot, nohat = body(f"{kernel}ILi4E"), body(f"{kernel}ILi3E")
-        loads, adds = re.findall(r"LDG\S*", nodot), re.findall(r"\bFADD",
-                                                                nodot)
-        scalar = [op for op in re.findall(r"LDG\S*", nohat)
-                  if ".128" not in op]
-        require(len(adds) >= 4 and all(".128" in op for op in loads),
-                f"{kernel} NODOT: {len(adds)} FADD, loads "
-                f"{sorted(set(loads))}")
-        require(bool(scalar), f"{kernel} NOHAT lost its data loads")
-        print(f"SASS {kernel}: NODOT {len(adds)} FADD, loads "
-              f"{sorted(set(loads))}; NOHAT {len(scalar)} scalar loads")
+    for maxt in (256, 512, 1024):
+        nodot = body(f"fp_variant_kernelILi4ELb0ELi{maxt}E")
+        nohat = body(f"fp_variant_kernelILi3ELb0ELi{maxt}E")
+        adds = re.findall(r"\bFADD", nodot)
+        ring = re.findall(r"\bLDGSTS\S*|\bLDS\S*", nodot)
+        copies = re.findall(r"\bLDGSTS\S*", nohat)
+        reads = re.findall(r"\bLDS\.128", nohat)
+        require(len(adds) >= 4 and not ring,
+                f"E1 NODOT ({maxt} threads): {len(adds)} FADD, ring "
+                f"traffic {sorted(set(ring))}")
+        require(bool(copies) and bool(reads),
+                f"E1 NOHAT ({maxt} threads) lost its ring: {len(copies)} "
+                f"LDGSTS, {len(reads)} LDS.128")
+        print(f"SASS fp_variant_kernel ({maxt} threads): NODOT {len(adds)} "
+              f"FADD, no LDGSTS or LDS; NOHAT {len(copies)} LDGSTS "
+              f"{sorted(set(copies))}, {len(reads)} LDS.128")
+    nodot = body("bp_variant_kernelILi4E")
+    nohat = body("bp_variant_kernelILi3E")
+    loads, adds = re.findall(r"LDG\S*", nodot), re.findall(r"\bFADD", nodot)
+    scalar = [op for op in re.findall(r"LDG\S*", nohat) if ".128" not in op]
+    require(len(adds) >= 4 and all(".128" in op for op in loads),
+            f"bp_variant_kernel NODOT: {len(adds)} FADD, loads "
+            f"{sorted(set(loads))}")
+    require(bool(scalar), "bp_variant_kernel NOHAT lost its data loads")
+    print(f"SASS bp_variant_kernel: NODOT {len(adds)} FADD, loads "
+          f"{sorted(set(loads))}; NOHAT {len(scalar)} scalar loads")
+
+    # registers and stack (spills) per thread of E1's instantiations and of
+    # K2/K10's bp_kernel, from cuobjdump -res-usage
+    usage = subprocess.run([str(tool), "-res-usage", str(_build.build().path)],
+                           capture_output=True, text=True, timeout=300).stdout
+    found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", usage)
+    if not found:
+        print("registers/stack bytes: not read (cuobjdump -res-usage)")
+    forms = ("FULL", "HAT5", "BF16", "NOHAT", "NODOT", "W4")
+    e1 = {}
+    for name, reg, stack in found:
+        m = re.search(r"fp_variant_kernelILi(\d)ELb(\d)ELi(\d+)E", name)
+        if m:
+            form = "PAIR" if m[2] == "1" else forms[int(m[1])]
+            e1.setdefault(int(m[3]), []).append(f"{form} {reg}/{stack}")
+        m = re.search(r"bp_kernelILb(\d)E", name)
+        if m and "variant" not in name:
+            print(f"registers/stack bytes bp_kernel<{m[1] == '1'}> (K2, "
+                  f"K10): {reg}/{stack}")
+    for maxt in sorted(e1):
+        print(f"registers/stack bytes fp_variant_kernel ({maxt} threads): "
+              f"{', '.join(sorted(e1[maxt]))}")
 
 
 def phase_experiments(card: str) -> dict:
@@ -1917,10 +2035,10 @@ def phase_golden_fusion(card: str) -> None:
 
 
 def projector_times_main() -> int:
-    """`--projector-times`: only K1's and K2's times at 256^3 x 90 and
-    128 x 512^2 x 90 (`projector_times`), with the tomojax_torch package
-    beside this file; a copy of this file beside another tree times that
-    tree's kernels."""
+    """`--projector-times`: only the times of K1, K2, K10 (ab 6) and E1
+    FULL at 256^3 x 90 and 128 x 512^2 x 90 (`projector_times`), with the
+    tomojax_torch package beside this file; a copy of this file beside
+    another tree times that tree's kernels."""
     from tomojax_torch.geometry import Geometry
 
     card = phase_device()

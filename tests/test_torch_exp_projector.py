@@ -277,20 +277,29 @@ def test_projector_drivers_run_on_cpu(name, capsys):
 @pytest.mark.cuda
 def test_e1_e2_kernels_match_plain_on_card():
     """Every instantiation of E1 (six forms, PAIR, angles per block 1 to
-    32) and E2 (five forms, APS 2) equals its plain version bit for bit."""
+    32) and E2 (five forms, APS 2) equals its plain version bit for bit;
+    E1 also at ragged shapes (N 33, Ns 5 and N 48, Ns 37: scalar copies,
+    bin tiles and slabs cut short), PAIR on symmetric series."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     g = _geoms()[1]
     x, y = (torch.from_numpy(a) for a in _data(seed=8))
     x, y = x.to(dev), y.to(dev)
-    for form in cpv.FORMS:
-        ref = cpv.fp_variant_ref(x, g, form)
+    for n, na, ns in ((N, NA, NS), (33, 7, 5), (48, 14, 37)):
+        geom = _geoms(n, na)[1]
+        xs = x if n == N else torch.from_numpy(
+            _data(n, ns, na, seed=n)[0]).to(dev)
+        for form in cpv.FORMS:
+            ref = cpv.fp_variant_ref(xs, geom, form)
+            for ab in cpv.ANGLES_PER_BLOCK:
+                assert torch.equal(cpv.fp_variant(xs, geom, form, ab=ab),
+                                   ref), (n, form, ab)
+        pg = _geoms(n, na + na % 2)[1]
+        ref = cpv.fp_variant_ref(xs, pg, pair=True)
         for ab in cpv.ANGLES_PER_BLOCK:
-            assert torch.equal(cpv.fp_variant(x, g, form, ab=ab), ref), \
-                (form, ab)
-    ref = cpv.fp_variant_ref(x, g, pair=True)
-    assert torch.equal(cpv.fp_variant(x, g, pair=True), ref)
+            assert torch.equal(cpv.fp_variant(xs, pg, pair=True, ab=ab),
+                               ref), (n, "PAIR", ab)
     for form in cpv.BP_FORMS:
         ref = cpv.bp_variant_ref(y, g, form)
         assert torch.equal(cpv.bp_variant(y, g, form), ref), form

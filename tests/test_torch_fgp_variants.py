@@ -200,19 +200,28 @@ def test_variant_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
-    n, na, ns = 40, 13, 36
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
     rng = np.random.default_rng(12)
-    y = _t(rng.normal(size=(na, n, ns))).to(dev)
-    y_vol = _t(rng.normal(size=(n, n, ns))).to(dev)
-    inv_col = _t(rng.uniform(0, 0.5, size=(n, n))).to(dev)
-    for ab in (3, 6, 10):
-        assert torch.equal(bp_sl(y, geom, ab=ab), bp_sl(y, geom))
-        got = bp_sirt_sl(y, geom, y_vol, inv_col, ab=ab)
-        assert torch.equal(got, bp_sirt_sl(y, geom, y_vol, inv_col))
-        ref = cuda_joseph.bp_sirt_sl_ref(y, geom, y_vol, inv_col, ab)
-        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                                   atol=1e-5 * float(ref.abs().max()))
+    # K10 at every ab, on a regular and two ragged shapes (N off the
+    # 16-pixel tiles, Ns % 4 != 0: scalar copies and stores)
+    for n, na, ns in ((40, 13, 36), (33, 7, 5), (48, 13, 37)):
+        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+        y = _t(rng.normal(size=(na, n, ns))).to(dev)
+        y_vol = _t(rng.normal(size=(n, n, ns))).to(dev)
+        inv_col = _t(rng.uniform(0, 0.5, size=(n, n))).to(dev)
+        k2 = bp_sl(y, geom)
+        k2f = bp_sirt_sl(y, geom, y_vol, inv_col)
+        for ab in range(2, cuda_joseph.AB_MAX + 1):
+            assert torch.equal(bp_sl(y, geom, ab=ab), k2), (n, ab)
+            got = bp_sirt_sl(y, geom, y_vol, inv_col, ab=ab)
+            assert torch.equal(got, k2f), (n, ab)
+            ref = cuda_joseph.bp_sirt_sl_ref(y, geom, y_vol, inv_col, ab)
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                       atol=1e-5 * float(ref.abs().max()))
+    # a ring and tables beyond the card's shared memory per block
+    many = Geometry.make(8, np.linspace(0, np.pi, 2000, endpoint=False))
+    assert cuda_joseph.bp_smem_bytes(2000, 32) > 227 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        bp_sl(torch.zeros((2000, 8, 4), device=dev), many, ab=32)
     x = torch.from_numpy(_vol((21, 30, 37), 13)).to(dev)
     for dt in (torch.float32, torch.bfloat16):
         p = tuple((torch.rand(x.shape, device=dev) - 0.5).to(dt)

@@ -16,6 +16,8 @@ Then a numpy emulation of each kernel's staged gather (the windows, the
 zero fill, K1's clamp) is held against tomojax's 'gather' projector.
 """
 
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,11 +78,47 @@ def _fp_plan_taps(geom, plan):
 @pytest.mark.parametrize("n,extra,name", CASES)
 def test_fp_plan_covers_every_tap(n, extra, name):
     geom = _geom(n, extra, name)
-    plan = cj.fp_plan(geom, CPU)
+    _check_plan_covers(geom, cj.fp_plan(geom, CPU), cj.FP_GROUP)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 16, 32])
+@pytest.mark.parametrize("n,extra,name", CASES)
+def test_fp_plan_group_caps_cover_every_tap(n, extra, name, group):
+    """E1's plans: K1's rule with at most `group` angles a group (E1's ab;
+    FP_GROUP = 8 is K1's own, above)."""
+    geom = _geom(n, extra, name)
+    plan = cj.fp_plan(geom, CPU, group=group)
+    assert plan.groups.shape[1] == 2 + group
+    _check_plan_covers(geom, plan, group)
+
+
+@pytest.mark.parametrize("n,extra,name", CASES)
+def test_fp_plan_default_group_is_k1s(n, extra, name):
+    geom = _geom(n, extra, name)
+    a, b = cj.fp_plan(geom, CPU), cj.fp_plan(geom, CPU, group=cj.FP_GROUP)
+    assert a.table.numpy().tobytes() == b.table.numpy().tobytes()
+    assert a.groups.shape[1] == 2 + cj.FP_GROUP
+
+
+# sha256 of K1's plan tables over CASES in order, recorded before fp_plan
+# took a group cap: K1's blocks must not move when E1's caps are added
+K1_PLANS_SHA256 = (
+    "f6ec55a0e19461c7b52a0b4b3d6fb45f937c7f3e388d3db90a2dc954a9fdb97b")
+
+
+def test_k1_plans_as_recorded():
+    h = hashlib.sha256()
+    for case in CASES:
+        h.update(cj.fp_plan(_geom(*case), CPU).table.numpy().tobytes())
+    assert h.hexdigest() == K1_PLANS_SHA256
+
+
+def _check_plan_covers(geom, plan, group):
+    n = geom.n
     tab = cj.angle_tables(geom, CPU).fp.numpy()
     seen = np.concatenate([r[2:2 + r[1]] for r in plan.groups])
     np.testing.assert_array_equal(seen, np.arange(geom.nproj))
-    assert plan.groups[:, 1].max() <= cj.FP_GROUP
+    assert plan.groups[:, 1].max() <= group
     assert plan.width <= cj.FP_WINDOW
     assert plan.table.dtype == torch.int32
     assert plan.table.numel() == plan.groups.size + plan.windows.size
@@ -171,3 +209,75 @@ def test_staged_gathers_match_gather_mode(n, extra, name):
                                atol=1e-4)
     np.testing.assert_allclose(_emulate_bp(y, geom), ref_bp, rtol=1e-4,
                                atol=1e-4)
+
+
+def _emulate_bp_ab(y, geom, ab):
+    """K10's ring in numpy: the angle set padded to a multiple of ab with
+    zero sinogram rows and zero table entries, staged ab angles a stage,
+    per tile and angle BP_WINDOW bins from the window start of the tile's
+    corners (zeros outside [0, Nt)), the taps of tj::bp_taps read from
+    there and added angle by angle in bp_sl_ref's order."""
+    n, nt, na, ns = geom.n, geom.nray, geom.nproj, y.shape[-1]
+    na_pad = -(-na // ab) * ab
+    tab = np.zeros((na_pad, 4), np.float32)
+    tab[:na] = cj.angle_tables(geom, CPU).bp.numpy()
+    yp = np.zeros((na_pad, nt, ns), np.float32)
+    yp[:na] = y
+    f32 = np.float32
+    ctr = f32(0.5) * f32(n - 1)
+    t0 = np.arange(0, n, cj.BP_TILE, dtype=f32)
+    xs = np.stack([t0 - ctr, (t0 + (cj.BP_TILE - 1)) - ctr])
+    ys = np.stack([ctr - t0, ctr - (t0 + (cj.BP_TILE - 1))])
+    lo = np.floor(cj.bp_jstar(tab, nt, xs[None, None, :, :],
+                              ys[:, :, None, None]).min(axis=(1, 3)))
+    lo = lo.astype(np.int64)  # (na_pad, row tiles, column tiles)
+    np.testing.assert_array_equal(lo[:na], cj.bp_window_lo(geom))
+    side = lo.shape[1] * cj.BP_TILE
+    px = np.arange(side, dtype=f32)
+    jstar = cj.bp_jstar(tab, nt, (px - ctr)[None, :], (ctr - px)[:, None])
+    f = np.floor(jstar)
+    invd = tab[:, 2, None, None]
+    w0 = np.maximum(f32(0), f32(1) - np.abs(f - jstar) * invd) * invd
+    w1 = np.maximum(f32(0), f32(1) - np.abs((f + f32(1)) - jstar) * invd) \
+        * invd
+    out = np.zeros((side, side, ns), np.float32)
+    bins = np.arange(cj.BP_WINDOW)
+    for g in range(0, na_pad, ab):
+        ring = {}
+        for a in range(g, g + ab):  # the stage: every angle's windows
+            for tr in range(lo.shape[1]):
+                for tc in range(lo.shape[2]):
+                    j = lo[a, tr, tc] + bins
+                    ring[a, tr, tc] = np.where(
+                        ((j >= 0) & (j < nt))[:, None],
+                        yp[a, np.clip(j, 0, nt - 1)], 0)
+        for a in range(g, g + ab):  # the gather, in angle order
+            for tr in range(lo.shape[1]):
+                for tc in range(lo.shape[2]):
+                    rs = slice(tr * cj.BP_TILE, (tr + 1) * cj.BP_TILE)
+                    cs = slice(tc * cj.BP_TILE, (tc + 1) * cj.BP_TILE)
+                    r = f[a, rs, cs].astype(np.int64) - lo[a, tr, tc]
+                    win = ring[a, tr, tc]
+                    out[rs, cs] = out[rs, cs] + win[r] * w0[a, rs, cs, None]
+                    out[rs, cs] = out[rs, cs] + win[r + 1] * w1[a, rs, cs,
+                                                               None]
+    return out[:n, :n]
+
+
+@pytest.mark.parametrize("ab", [3, 6, 32])
+@pytest.mark.parametrize("n,extra,name", [(33, 0, "tilt90"),
+                                          (24, 7, "exact")])
+def test_k10_ring_matches_plain_and_gather_mode(n, extra, name, ab):
+    ang = np.deg2rad(ANGLE_SETS[name])
+    if name == "tilt90":
+        ang = ang[::6]  # 15 angles: a ragged last stage at ab 6 and 32
+    geom = Geometry.make(n, ang, nray=n + extra)
+    jgeom = JGeometry.make(n, ang, nray=n + extra)
+    y = np.random.default_rng(11).normal(
+        size=(len(ang), n + extra, 3)).astype(np.float32)
+    got = _emulate_bp_ab(y, geom, ab)
+    np.testing.assert_array_equal(
+        got, cj.bp_sl_ref(torch.from_numpy(y), geom, ab).numpy())
+    ref = np.asarray(j_bp(jnp.asarray(y.transpose(2, 0, 1)), jgeom,
+                          mode="gather")).transpose(1, 2, 0)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "tj_fp_resid_partials": [_I, _I, _I],
     "tj_bp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tj_bp_ab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tj_smem_limit": [],
     "tj_fgp_iter": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _F, _F, _P],
     "tj_fgp_iter2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -60,7 +61,8 @@ _SIGNATURES = {
     "tj_tv_grad_partials": [_I, _I, _I],
     "tj_sart_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _P],
-    "tj_exp_fp": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tj_exp_fp": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
+                  _I, _P],
     "tj_exp_bp": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "tj_exp_sart_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -97,14 +97,12 @@ __device__ __forceinline__ float tap_jstar(float4 bt, float ctr, float off,
 }
 
 // x at tap i of step k, 0 outside the image; xs is x offset to the
-// caller's slice, plane = N Ns. flip reads row N-1-r for row r.
+// caller's slice, plane = N Ns.
 template <bool ROW>
 __device__ __forceinline__ float tap_load(const float* xs, int n, int ns,
-                                          size_t plane, int k, int i,
-                                          bool flip) {
+                                          size_t plane, int k, int i) {
   if (i < 0 || i >= n) return 0.f;
-  return ROW ? xs[(flip ? n - 1 - k : k) * plane + i * ns]
-             : xs[(flip ? n - 1 - i : i) * plane + k * ns];
+  return ROW ? xs[k * plane + i * ns] : xs[i * plane + k * ns];
 }
 
 // SART FP sum of bin j at one angle: sum over the driving steps of
@@ -150,8 +148,8 @@ __device__ __forceinline__ float sart_fp_walk(const float* xs, float4 ft,
         }
       }
     }
-    float v0 = tap_load<ROW>(xs, n, ns, plane, k, i0, false);
-    float v1 = tap_load<ROW>(xs, n, ns, plane, k, i0 + 1, false);
+    float v0 = tap_load<ROW>(xs, n, ns, plane, k, i0);
+    float v1 = tap_load<ROW>(xs, n, ns, plane, k, i0 + 1);
     if (MODE == TAPS_BF16 || MODE == TABLE_BF16) {
       v0 = bf16_round(v0);
       v1 = bf16_round(v1);

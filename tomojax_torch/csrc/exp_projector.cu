@@ -1,104 +1,268 @@
 // Experiment projectors E1 (forward) and E2 (back), the counterparts of
 // the TPU kernels of scripts/exp_hat_model.py, exp_projector_variants.py,
-// exp_projector_variants2.py and exp_pair_fp.py. Each is K1's or K2's
-// one-thread-per-output gather with the weight forms of exp_hat.cuh, so a
-// script's variant is a template instantiation of one kernel and not a TPU
-// tiling: band windows, MXU tiles and VMEM blocks do not carry over.
+// exp_projector_variants2.py and exp_pair_fp.py. E1 is K1's slab-resident
+// design (joseph.cu fp_kernel, on K1's host plan) and E2 a
+// one-thread-per-voxel gather of K2's taps, each with the weight forms of
+// exp_hat.cuh, so a script's variant is a template instantiation of one
+// kernel and not a TPU tiling: band windows, MXU tiles and VMEM blocks do
+// not carry over.
 //
-// Bound on the H100: gather issue, as K1/K2 (3.0e9 tap loads per launch at
-// 256^3 x 90). The forms change only the arithmetic per tap, so E1/E2 FULL
-// against NOHAT (same loads, no hat) and NODOT (hat, no loads) splits a
-// projector's time into tap arithmetic and loads.
+// Bound on the H100: at 256^3 x 90 a launch reads 3.0e9 taps. The forms
+// change only the arithmetic per tap, so FULL against NOHAT (the same loads
+// and shared reads, no hat) and NODOT (the hat, nothing staged or read)
+// splits a projector's time into tap arithmetic and loads.
+#include <climits>
+
 #include "exp_hat.cuh"
+#include "staging.cuh"
 
 namespace {
 
 using namespace tj::xp;
+using tj::FP_B;
+using tj::FP_K;
+using tj::FP_W;
+using tj::SLAB;
 
-constexpr int BS = 32;            // slices per block (threadIdx.x)
-constexpr int FP_THREADS = 256;   // E1 block, BS x bins x angles, for ab < 8
+constexpr int BS = 32;            // E2 slices per block (threadIdx.x)
 constexpr int BP_BC = 8;          // E2 columns per block (threadIdx.y)
 constexpr int BP_MAX_ANGLES = 3072;
 
 // E1 -- replaces scripts/exp_hat_model.py:_fp_banded_kernel (FULL, HAT5,
 // BF16, NOHAT, NODOT), exp_projector_variants.py:_fp_kernel (FULL, W4; its
-// a_blk is the angles per block here) and exp_pair_fp.py's paired
+// a_blk caps the angles a block takes) and exp_pair_fp.py's paired
 // production _fp_banded_kernel (PAIR).
 //
-// One thread per (angle, bin j, slice s) walks the driving axis: at step k
-// the two taps i0 = floor(pos), i0 + 1 of K1's position, each weighted by
-// weight<FORM>(j, J*(tap)). A block holds blockDim.z angles (the TPU's
-// a_blk, a launch parameter) of blockDim.y bins of 32 slices; a warp is one
-// (angle, bin) and 32 contiguous slices.
+// K1's blocks: a group of up to `cap` angles of one driving type from the
+// host plan (cuda_joseph.fp_plan(geom, group=cap), the TPU's a_blk) x FP_B
+// bins x 32 slices, one warp per angle, a thread 8 rays x 4 slices. It
+// walks the driving axis FP_K steps a chunk and stages, per step, the
+// chunk's window {lo, width} x 32 slices in a double-buffered ring with
+// cp.async (zeros outside the volume). Per tap pair a thread computes the
+// position, J* of both taps (tap_jstar) and their weights once for its 4
+// slices and reads two float4 from shared memory. The weights come from the
+// true tap f = floor(pos); only the shared-memory index is clamped to
+// [lo, lo + width - 2], which moves pairs that lie wholly outside the
+// volume onto staged zeros. Every product and sum is rounded on its own and
+// added in step order, so E1 equals fp_variant_ref bit for bit.
+//
+// NODOT stages nothing and reads neither shared nor global memory beyond
+// the plan and the angle tables: its walk is the hat arithmetic alone.
+// NOHAT keeps every staged copy and shared read.
 //
 // PAIR: for a series with theta[na-1-i] = -theta[i], J*(-theta, row r) =
 // J*(theta, row N-1-r), so the ray of -theta is the ray of +theta through
-// the row-flipped volume with the same taps and weights. Thread index z
-// runs over the na/2 pairs; each walks the taps of angle na/2 + z and
-// writes that angle's ray and the ray of angle na/2 - 1 - z, reading the
-// flipped row in place.
+// the row-flipped volume with the same taps and weights. The plan covers
+// the angles Na/2 .. Na-1 (a0 = Na/2); per step the block also stages the
+// mirrored window (row-driven: row N-1-k of the same columns; column-driven:
+// rows N-1-i of column k, so that index i0 - lo addresses row N-1-i0), and
+// one weight computation feeds both rays; it writes angle a and angle
+// Na-1-a.
+constexpr int E1_RAYS = FP_B / 4;  // rays per thread: bins j_first + 4i
+
+__device__ __forceinline__ float4 add_pair(float4 acc, float w0, float4 v0,
+                                           float w1, float4 v1) {
+  acc.x = __fadd_rn(__fadd_rn(acc.x, __fmul_rn(w0, v0.x)),
+                    __fmul_rn(w1, v1.x));
+  acc.y = __fadd_rn(__fadd_rn(acc.y, __fmul_rn(w0, v0.y)),
+                    __fmul_rn(w1, v1.y));
+  acc.z = __fadd_rn(__fadd_rn(acc.z, __fmul_rn(w0, v0.z)),
+                    __fmul_rn(w1, v1.z));
+  acc.w = __fadd_rn(__fadd_rn(acc.w, __fmul_rn(w0, v0.w)),
+                    __fmul_rn(w1, v1.w));
+  return acc;
+}
+
+// What a block walks: x, its windows (two ints {lo, width} per chunk), the
+// ring and the shape.
+struct E1Block {
+  const float* x;
+  const int* win;
+  float* ring;
+  int wstride, n, nt, ns, s0;
+  bool vec;
+};
+
+// The walk of one block over the driving axis, ROW the group's driving
+// type; acc (and accm, PAIR) per ray and slice, or for NODOT the scalar sum
+// per ray in acc[i].x.
 template <int FORM, bool PAIR, bool ROW>
-__device__ __forceinline__ void fp_walk(const float* __restrict__ xs,
-                                        float4 ft, float4 bt, int n, int nt,
-                                        int ns, int j, float& acc,
-                                        float& acc_m) {
+__device__ __forceinline__ void e1_walk(const E1Block& b, float4 ft,
+                                        float4 bt, bool active, int j_first,
+                                        float4 (&acc)[E1_RAYS],
+                                        float4 (&accm)[E1_RAYS]) {
+  const int n = b.n;
   const float ctr = 0.5f * static_cast<float>(n - 1);
-  const float off = 0.5f * static_cast<float>(nt - 1);
-  const float jf = static_cast<float>(j);
-  const float base = __fmul_rn(jf - off, ft.x);
+  const float off = 0.5f * static_cast<float>(b.nt - 1);
   const float invd = bt.z, inv2 = __fmul_rn(bt.z, bt.z);
-  const size_t plane = static_cast<size_t>(n) * ns;
-#pragma unroll 4  // the loads of 4 steps issue before their serial sums
-  for (int k = 0; k < n; ++k) {
-    const float fk = static_cast<float>(k);
-    const float f = floorf(fp_pos<ROW>(ft, base, ctr, fk));
-    const int i0 = static_cast<int>(f);
-    const float w0 = weight<FORM>(
+  // the ray's constant part, as fp_pos orders the sums: base = (j -
+  // (Nt-1)/2) ft.x (row-driven) or ctr - base (column-driven)
+  float u[E1_RAYS];
+#pragma unroll
+  for (int i = 0; i < E1_RAYS; ++i) {
+    const float base = __fmul_rn(
+        static_cast<float>(j_first + 4 * i) - off, ft.x);
+    u[i] = ROW ? base : __fsub_rn(ctr, base);
+  }
+  // the taps (first tap f, weights w0, w1) of ray i at step k
+  auto taps = [&](int i, float fk, float cs, float& f, float& w0,
+                  float& w1) {
+    float pos = __fadd_rn(u[i], cs);
+    if (ROW) pos = __fadd_rn(pos, ctr);
+    f = floorf(pos);
+    const float jf = static_cast<float>(j_first + 4 * i);
+    w0 = weight<FORM>(
         jf, FORM == NOHAT ? 0.f : tap_jstar<ROW>(bt, ctr, off, fk, f), invd,
         inv2);
-    const float w1 = weight<FORM>(
-        jf,
-        FORM == NOHAT ? 0.f
-                      : tap_jstar<ROW>(bt, ctr, off, fk, __fadd_rn(f, 1.f)),
-        invd, inv2);
-    if (FORM == NODOT) {
-      acc = __fadd_rn(acc, w0);
-      acc = __fadd_rn(acc, w1);
-      continue;
+    w1 = weight<FORM>(jf,
+                      FORM == NOHAT ? 0.f
+                                    : tap_jstar<ROW>(bt, ctr, off, fk,
+                                                     __fadd_rn(f, 1.f)),
+                      invd, inv2);
+  };
+
+  if (FORM == NODOT) {
+    if (!active) return;
+    for (int k = 0; k < n; ++k) {
+      const float fk = static_cast<float>(k);
+      const float cs = __fmul_rn(ROW ? ctr - fk : fk - ctr, ft.y);
+#pragma unroll
+      for (int i = 0; i < E1_RAYS; ++i) {
+        float f, w0, w1;
+        taps(i, fk, cs, f, w0, w1);
+        acc[i].x = __fadd_rn(__fadd_rn(acc[i].x, w0), w1);
+      }
     }
-    const float v0 = tap_load<ROW>(xs, n, ns, plane, k, i0, false);
-    const float v1 = tap_load<ROW>(xs, n, ns, plane, k, i0 + 1, false);
-    acc = __fadd_rn(acc, __fmul_rn(w0, v0));
-    acc = __fadd_rn(acc, __fmul_rn(w1, v1));
-    if (PAIR) {
-      const float u0 = tap_load<ROW>(xs, n, ns, plane, k, i0, true);
-      const float u1 = tap_load<ROW>(xs, n, ns, plane, k, i0 + 1, true);
-      acc_m = __fadd_rn(acc_m, __fmul_rn(w0, u0));
-      acc_m = __fadd_rn(acc_m, __fmul_rn(w1, u1));
+    return;
+  }
+
+  constexpr int COPIES = PAIR ? 2 : 1;  // the window, then its mirror
+  const int row_floats = b.wstride * SLAB;
+  const int stage_floats = FP_K * COPIES * row_floats;
+  const int nch = (n + FP_K - 1) / FP_K;
+  const size_t plane = static_cast<size_t>(n) * b.ns;
+  // x offsets of (step, position): row-driven x[step][pos], column-driven
+  // x[pos][step]
+  const size_t step_stride = ROW ? plane : static_cast<size_t>(b.ns);
+  const size_t pos_stride = ROW ? static_cast<size_t>(b.ns) : plane;
+  const int shift = b.vec ? 3 : 5;  // 8 copies of 16 B or 32 of 4 B per row
+  const int tid = threadIdx.x;
+  auto stage = [&](int c, float* buf) {
+    const int lo = b.win[2 * c], items = b.win[2 * c + 1] << shift;
+    const int steps = min(FP_K, n - c * FP_K);
+    for (int kk = 0; kk < steps; ++kk) {
+      const int k = c * FP_K + kk;
+      for (int i = tid; i < items; i += blockDim.x) {
+        const int p = lo + (i >> shift);
+        const bool in = p >= 0 && p < n;
+        const int pc = in ? p : 0;
+        float* dst = buf + kk * COPIES * row_floats + (i >> shift) * SLAB;
+        const int part = i & ((1 << shift) - 1);
+        tj::copy_slices(dst, b.x + k * step_stride + pc * pos_stride, b.x,
+                        in, b.s0, b.ns, part, b.vec);
+        if (PAIR) {
+          const size_t m = ROW ? (n - 1 - k) * step_stride + pc * pos_stride
+                               : k * step_stride + (n - 1 - pc) * pos_stride;
+          tj::copy_slices(dst + row_floats, b.x + m, b.x, in, b.s0, b.ns,
+                          part, b.vec);
+        }
+      }
+    }
+    tj::copy_commit();
+  };
+
+  const int q = threadIdx.x & 7;  // slices s0 + 4q .. s0 + 4q + 3
+  stage(0, b.ring);
+  for (int c = 0; c < nch; ++c) {
+    tj::copy_wait();
+    __syncthreads();  // chunk c landed; every warp is done with chunk c - 1
+    if (c + 1 < nch) stage(c + 1, b.ring + ((c + 1) & 1) * stage_floats);
+    if (!active) continue;
+    const float* buf = b.ring + (c & 1) * stage_floats + 4 * q;
+    const int lo = b.win[2 * c], last = b.win[2 * c + 1] - 2;
+    const int steps = min(FP_K, n - c * FP_K);
+    for (int kk = 0; kk < steps; ++kk) {
+      const float fk = static_cast<float>(c * FP_K + kk);
+      const float cs = __fmul_rn(ROW ? ctr - fk : fk - ctr, ft.y);
+      const float* sb = buf + kk * COPIES * row_floats;
+#pragma unroll
+      for (int i = 0; i < E1_RAYS; ++i) {
+        float f, w0, w1;
+        taps(i, fk, cs, f, w0, w1);
+        const int i0 = min(max(static_cast<int>(f) - lo, 0), last);
+        const float* v = sb + i0 * SLAB;
+        acc[i] = add_pair(acc[i], w0, *reinterpret_cast<const float4*>(v),
+                          w1, *reinterpret_cast<const float4*>(v + SLAB));
+        if (PAIR) {
+          const float* m = v + row_floats;
+          accm[i] = add_pair(accm[i], w0,
+                             *reinterpret_cast<const float4*>(m), w1,
+                             *reinterpret_cast<const float4*>(m + SLAB));
+        }
+      }
     }
   }
 }
 
-template <int FORM, bool PAIR>
-__global__ void __launch_bounds__(1024)
-fp_variant_kernel(const float* __restrict__ x, const float4* __restrict__ ftab,
-                  const float4* __restrict__ btab, float* __restrict__ out,
-                  int n, int nt, int na, int ns) {
-  const int s = blockIdx.x * BS + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int z = blockIdx.z * blockDim.z + threadIdx.z;
-  if (s >= ns || j >= nt || z >= (PAIR ? na / 2 : na)) return;
-  const int a = PAIR ? na / 2 + z : z;
+// plan: cuda_joseph.fp_plan's table (ng rows of cap + 2 ints, then the
+// windows); a0: the first angle of the plan's angle set (Na/2 for PAIR).
+// blockDim.x = 32 x the plan's largest group, at most MAXT.
+template <int FORM, bool PAIR, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+fp_variant_kernel(const float* __restrict__ x,
+                  const float4* __restrict__ ftab,
+                  const float4* __restrict__ btab,
+                  const int* __restrict__ plan, int ng, int wstride, int cap,
+                  int a0, float* __restrict__ out, int n, int nt, int na,
+                  int ns, bool vec) {
+  extern __shared__ float4 e1_ring4[];
+  const int nbt = (nt + FP_B - 1) / FP_B;
+  const int nch = (n + FP_K - 1) / FP_K;
+  const int g = blockIdx.x / nbt;
+  const int tile = blockIdx.x - g * nbt;
+  const int* grp = plan + g * (cap + 2);  // {row_driven, count, angles...}
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool active = warp < grp[1];
+  const int a = a0 + grp[2 + (active ? warp : 0)];
   const float4 ft = ftab[a], bt = btab[a];
-  float acc = 0.f, acc_m = 0.f;
-  if (ft.w != 0.f) {
-    fp_walk<FORM, PAIR, true>(x + s, ft, bt, n, nt, ns, j, acc, acc_m);
-  } else {
-    fp_walk<FORM, PAIR, false>(x + s, ft, bt, n, nt, ns, j, acc, acc_m);
+  const int j_first = tile * FP_B + (lane >> 3);
+  const E1Block blk{
+      x,
+      plan + ng * (cap + 2) + 2 * (static_cast<size_t>(g) * nbt + tile) * nch,
+      reinterpret_cast<float*>(e1_ring4), wstride, n, nt, ns,
+      static_cast<int>(blockIdx.y) * SLAB, vec};
+  float4 acc[E1_RAYS], accm[E1_RAYS];
+#pragma unroll
+  for (int i = 0; i < E1_RAYS; ++i) {
+    acc[i] = accm[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (FORM == HAT5 || FORM == BF16) acc = __fmul_rn(acc, bt.z);
-  out[(static_cast<size_t>(a) * nt + j) * ns + s] = acc;
-  if (PAIR) out[(static_cast<size_t>(na - 1 - a) * nt + j) * ns + s] = acc_m;
+  if (grp[0] != 0) {
+    e1_walk<FORM, PAIR, true>(blk, ft, bt, active, j_first, acc, accm);
+  } else {
+    e1_walk<FORM, PAIR, false>(blk, ft, bt, active, j_first, acc, accm);
+  }
+  if (!active) return;
+
+  const int s = blk.s0 + 4 * (lane & 7);
+  const int valid = ns - s;
+#pragma unroll
+  for (int i = 0; i < E1_RAYS; ++i) {
+    const int j = j_first + 4 * i;
+    if (j >= nt) continue;
+    float4 v = acc[i];
+    if (FORM == NODOT) v = make_float4(v.x, v.x, v.x, v.x);
+    if (FORM == HAT5 || FORM == BF16) {
+      v = make_float4(__fmul_rn(v.x, bt.z), __fmul_rn(v.y, bt.z),
+                      __fmul_rn(v.z, bt.z), __fmul_rn(v.w, bt.z));
+    }
+    tj::store4(out + (static_cast<size_t>(a) * nt + j) * ns + s, v, valid,
+               vec);
+    if (PAIR) {
+      tj::store4(out + (static_cast<size_t>(na - 1 - a) * nt + j) * ns + s,
+                 accm[i], valid, vec);
+    }
+  }
 }
 
 // E2 -- replaces scripts/exp_hat_model.py:_bp_kernel (FULL, BF16, NOHAT,
@@ -188,27 +352,56 @@ bp_variant_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
   out[(static_cast<size_t>(r) * n + c) * ns + s] = acc;
 }
 
-struct Launch {
-  const float* in;  // x (E1) or y (E2)
+// E1's launch: x, the tables, the plan (fp_plan's table, ng groups of at
+// most cap angles, windows at most width wide), warps = the largest group.
+struct FpLaunch {
+  const float* x;
   const float4* ft;
   const float4* bt;
+  const int* plan;
   float* out;
-  int n, nt, na, ns, ab;
+  int ng, width, cap, warps, a0, n, nt, na, ns;
   cudaStream_t st;
 };
 
-template <int FORM, bool PAIR>
-int launch_fp(const Launch& g) {
-  const int bj = g.ab >= FP_THREADS / BS ? 1 : FP_THREADS / BS / g.ab;
-  const int nz = PAIR ? g.na / 2 : g.na;
-  const dim3 block(BS, bj, g.ab);
-  const dim3 grid((g.ns + BS - 1) / BS, (g.nt + bj - 1) / bj,
-                  (nz + g.ab - 1) / g.ab);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  fp_variant_kernel<FORM, PAIR><<<grid, block, 0, g.st>>>(
-      g.in, g.ft, g.bt, g.out, g.n, g.nt, g.na, g.ns);
+template <int FORM, bool PAIR, int MAXT>
+int launch_fp_as(const FpLaunch& g) {
+  const int limit = tj::smem_limit();
+  static bool opted = false;  // once per instantiation, to the card's limit
+  const int err = tj::allow_smem(fp_variant_kernel<FORM, PAIR, MAXT>, limit,
+                                 &opted);
+  if (err != 0) return err;
+  const size_t smem = FORM == NODOT ? 0
+                                    : (PAIR ? 2 : 1) * 2 * FP_K *
+                                          static_cast<size_t>(g.width) *
+                                          SLAB * sizeof(float);
+  if (limit < 0 || smem > static_cast<size_t>(limit)) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vec = g.ns % 4 == 0 && tj::aligned16(g.x) &&
+                   tj::aligned16(g.out);
+  const dim3 grid(g.ng * ((g.nt + FP_B - 1) / FP_B), (g.ns + SLAB - 1) / SLAB);
+  fp_variant_kernel<FORM, PAIR, MAXT><<<grid, 32 * g.warps, smem, g.st>>>(
+      g.x, g.ft, g.bt, g.plan, g.ng, g.width, g.cap, g.a0, g.out, g.n, g.nt,
+      g.na, g.ns, vec);
   return tj::launch_error();
 }
+
+// one instantiation per block size: 8, 16 or 32 warps at most
+template <int FORM, bool PAIR>
+int launch_fp(const FpLaunch& g) {
+  if (g.warps <= 8) return launch_fp_as<FORM, PAIR, 256>(g);
+  if (g.warps <= 16) return launch_fp_as<FORM, PAIR, 512>(g);
+  return launch_fp_as<FORM, PAIR, 1024>(g);
+}
+
+struct Launch {
+  const float* in;  // y
+  const float4* bt;
+  float* out;
+  int n, nt, na, ns;
+  cudaStream_t st;
+};
 
 template <int FORM, int APS>
 int launch_bp(const Launch& g) {
@@ -222,19 +415,26 @@ int launch_bp(const Launch& g) {
 }  // namespace
 
 // E1: out (Na, Nt, Ns) from x (N, N, Ns); form a Form, pair 0/1 (PAIR with
-// FULL only; Na even, the caller checks the symmetry), ab the angles per
-// block (1, 2, 4, 8, 16 or 32).
+// FULL only; Na even, the caller checks the symmetry). plan: fp_plan's
+// table on the device for the whole angle set (pair 0) or for the angles
+// Na/2 .. Na-1 (pair 1, member indices from 0), ng groups of at most cap
+// angles (1 <= cap <= 32), windows at most width wide; warps: its largest
+// group.
 TJ_API int tj_exp_fp(int form, int pair, const float* x, const float* fp_tab,
-                     const float* bp_tab, float* out, int n, int nt, int na,
-                     int ns, int ab, void* stream) {
-  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || n > 65535 ||
-      (ab & (ab - 1)) != 0 || ab < 1 || ab > 32 ||
+                     const float* bp_tab, const int* plan, int ng, int width,
+                     int cap, int warps, float* out, int n, int nt, int na,
+                     int ns, void* stream) {
+  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || ng <= 0 || cap < 1 ||
+      cap > 32 || warps < 1 || warps > cap || width < 2 || width > FP_W ||
+      (ns + SLAB - 1) / SLAB > 65535 ||
+      static_cast<long long>(ng) * ((nt + FP_B - 1) / FP_B) > INT_MAX ||
       (pair && (form != FULL || na % 2 != 0))) {
     return cudaErrorInvalidValue;
   }
-  const Launch g{x, reinterpret_cast<const float4*>(fp_tab),
-                 reinterpret_cast<const float4*>(bp_tab), out, n, nt, na, ns,
-                 ab, static_cast<cudaStream_t>(stream)};
+  const FpLaunch g{x, reinterpret_cast<const float4*>(fp_tab),
+                   reinterpret_cast<const float4*>(bp_tab), plan, out, ng,
+                   width, cap, warps, pair ? na / 2 : 0, n, nt, na, ns,
+                   static_cast<cudaStream_t>(stream)};
   if (pair) return launch_fp<FULL, true>(g);
   switch (form) {
     case FULL: return launch_fp<FULL, false>(g);
@@ -256,8 +456,8 @@ TJ_API int tj_exp_bp(int form, int aps, const float* y, const float* bp_tab,
       n > 65535 || (aps != 1 && aps != 2) || (aps == 2 && form != FULL)) {
     return cudaErrorInvalidValue;
   }
-  const Launch g{y, nullptr, reinterpret_cast<const float4*>(bp_tab), out, n,
-                 nt, na, ns, 1, static_cast<cudaStream_t>(stream)};
+  const Launch g{y, reinterpret_cast<const float4*>(bp_tab), out, n, nt, na,
+                 ns, static_cast<cudaStream_t>(stream)};
   if (aps == 2) return launch_bp<FULL, 2>(g);
   switch (form) {
     case FULL: return launch_bp<FULL, 1>(g);

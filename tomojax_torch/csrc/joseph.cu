@@ -1,6 +1,6 @@
 // Joseph projector pair for Hopper: K1 (forward projection with the FISTA
 // residual epilogue), K2 (matched backprojection with the SIRT-update
-// epilogue) and K10 (K2's operator with the angles staged in groups).
+// epilogue) and K10 (K2's kernel with `ab` angles a stage).
 // Slice-last layouts: volume x[r][c][s] (N, N, Ns), sinogram
 // y[a][j][s] (Na, Nt, Ns).
 //
@@ -13,89 +13,30 @@
 // K1 and K2 are slab-resident: a block owns 32 slices of a tile of outputs,
 // copies the part of its input that the tile's taps reach into a
 // double-buffered ring in shared memory (cp.async, with zeros for bins,
-// positions or slices outside the operand), and gathers every tap from
-// there as two 16-byte reads (4 slices) per tap pair. The tap positions and
-// weights are computed once per 4 slices with the arithmetic of joseph.cuh,
-// so both kernels pick the same taps and add them in the same order as
-// their plain versions, K8 and the kernels they replace. The slab is the
-// slowest grid axis, so the blocks in flight share one slab of their input
-// in L2.
+// positions or slices outside the operand; staging.cuh), and gathers every
+// tap from there as two 16-byte reads (4 slices) per tap pair. The tap
+// positions and weights are computed once per 4 slices with the arithmetic
+// of joseph.cuh, so both kernels pick the same taps and add them in the
+// same order as their plain versions, K8 and the kernels they replace. The
+// slab is the slowest grid axis, so the blocks in flight share one slab of
+// their input in L2.
 #include <climits>
 
 #include "joseph.cuh"
+#include "staging.cuh"
 
 namespace {
 
-// ------------------------------------------------------------- cp.async
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from src into shared dst, or zeros when !ok (src is then
-// not read; `safe` is any valid address).
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       const float* safe, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(ok ? src : safe), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void copy4(float* dst, const float* src,
-                                      const float* safe, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(ok ? src : safe), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// 32 slices [s0, s0 + 32) of the row at `src` (its slice 0) into shared
-// dst[0, 32), zeros beyond ns or when !ok: part p of 8 (vec, 16 bytes; ns %
-// 4 == 0 and 16-byte aligned rows) or of 32 (4 bytes, any ns).
-__device__ __forceinline__ void copy_slices(float* dst, const float* src,
-                                            const float* safe, bool ok,
-                                            int s0, int ns, int p, bool vec) {
-  if (vec) {
-    const int s = s0 + 4 * p;
-    copy16(dst + 4 * p, src + s, safe, ok && s < ns);
-  } else {
-    const int s = s0 + p;
-    copy4(dst + p, src + s, safe, ok && s < ns);
-  }
-}
-
-// 4 slices starting at p, of which `valid` (<= 0: none) lie below ns.
-__device__ __forceinline__ float4 load4(const float* p, int valid, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (vec) {
-    if (valid > 0) v = *reinterpret_cast<const float4*>(p);
-  } else {
-    if (valid > 0) v.x = p[0];
-    if (valid > 1) v.y = p[1];
-    if (valid > 2) v.z = p[2];
-    if (valid > 3) v.w = p[3];
-  }
-  return v;
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v, int valid,
-                                       bool vec) {
-  if (vec) {
-    if (valid > 0) *reinterpret_cast<float4*>(p) = v;
-  } else {
-    if (valid > 0) p[0] = v.x;
-    if (valid > 1) p[1] = v.y;
-    if (valid > 2) p[2] = v.z;
-    if (valid > 3) p[3] = v.w;
-  }
-}
+using tj::FP_B;
+using tj::FP_G;
+using tj::FP_K;
+using tj::FP_W;
+using tj::SLAB;
+using tj::copy_commit;
+using tj::copy_slices;
+using tj::copy_wait;
+using tj::load4;
+using tj::store4;
 
 // acc + v0 w0 + v1 w1 per slice, in the order of tj::bp_angle and
 // tj::fp_ray: fmaf(v1, w1, fmaf(v0, w0, acc)).
@@ -107,8 +48,6 @@ __device__ __forceinline__ float4 tap_pair(float4 acc, float4 v0, float w0,
   acc.w = fmaf(v1.w, w1, fmaf(v0.w, w0, acc.w));
   return acc;
 }
-
-constexpr int SLAB = 32;  // slices per block of K1 and K2
 
 // K1 -- replaces tomojax/projector/pallas_joseph.py:_fp_resid_banded_kernel
 // and _fp_resid_kernel (epilogue _fp_resid_epilogue), and with EPI false
@@ -150,10 +89,6 @@ constexpr int SLAB = 32;  // slices per block of K1 and K2
 // tj::sum_partials then adds the partials in a fixed order (no float
 // atomics: deterministic metrics). beta is read from device memory, so the
 // host never waits for it.
-constexpr int FP_G = 8;   // angles per block, one warp each
-constexpr int FP_B = 32;  // bins per block; a thread owns 8 of them
-constexpr int FP_K = 2;   // driving steps per staged chunk
-constexpr int FP_W = 96;  // widest staged window (cuda_joseph.FP_WINDOW)
 constexpr int FP_NT = FP_G * 32;
 constexpr int FP_RAYS = FP_B / 4;
 constexpr int FP_PLAN_ROW = FP_G + 2;  // {row_driven, count, angles...}
@@ -299,19 +234,20 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
 
 // K2 -- replaces tomojax/projector/pallas_joseph.py:_bp_kernel (fused and
 // unfused); it also covers _bp_banded_kernel, which computes the same
-// operator with another TPU tiling. The angle-blocked _bp_kernel_ab is K10
-// below.
+// operator with another TPU tiling. K10 -- replaces _bp_kernel_ab
+// (bp_pallas_sl with ab > 1): the same kernel with `ab` angles a stage over
+// the angle set padded to a multiple of ab (pallas_joseph.py:727-730).
 //
 // Each voxel (r, c, s) adds over the angles, in angle order, the 2-point
 // gather of tj::bp_taps: acc = fmaf(v1, w1, fmaf(v0, w0, acc)), the chain of
-// tj::bp_angle (so K10 and K8's update, which share it, agree with K2). With
+// tj::bp_angle (so K8's update, which shares it, agrees with K2). With
 // EPI (the FISTA/SIRT update) the result is
 // z = max(y_vol + inv_col[r, c] * acc, 0); without, plain A^T y.
 //
 // Bound on the H100: at 256^3 x 90 one launch reads 3.0e9 taps (12 GB). A
 // block owns a 16 x 16 tile of pixels x 32 slices; a thread 8 pixels of one
 // column x 4 slices (32 accumulators). The block streams the angles
-// BP_G at a time through a double-buffered ring: per angle it stages the
+// `stage` at a time through a double-buffered ring: per angle it stages the
 // BP_W bins from lo = floor(min J*) over the tile's four corners (J* is
 // monotone in x_c and y_r, so every tap of the tile lies in
 // [lo, lo + (TR-1)|sin| + (TC-1)|cos| + 3) and BP_W = 24 covers it) x 32
@@ -319,25 +255,40 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
 // tests. Each thread computes a pixel's taps once per angle and reads two
 // float4 from shared memory. At 256^3 x 90: ~0.57 GB staged from L2 against
 // 12 GB of shared-memory reads. Tiling, chosen on an H100 at 256^3 x 90 and
-// 128 x 512^2 x 90: BP_G = 8 angles a stage beat 4 and 16 by 1-3 %; forcing
-// 4 blocks an SM (64 registers) spilled and lost 9 %.
+// 128 x 512^2 x 90: K2's BP_G = 8 angles a stage beat 4 and 16 by 1-3 %;
+// forcing 4 blocks an SM (64 registers) spilled and lost 9 %.
+//
+// K10 walks na_pad = Na rounded up to ab: a padded angle a >= Na stages zero
+// rows and has the table entry {0, 0, 0, 0} (1/D = 0, as the reference's
+// padded tables), so its taps add fmaf(0, 0, acc) = acc and K10 equals K2
+// bit for bit at every ab. Its ring is 2 ab BP_W 32 floats: 37 KB at
+// ab = 6, 192 KB at ab = 32 (one block an SM), beside 20 bytes an angle of
+// tables and window starts.
 constexpr int BP_T = 16;                    // tile side, rows and columns
 constexpr int BP_NT = 256;                  // threads per block
 constexpr int BP_PX = BP_T * BP_T / 32;     // pixels per thread (8)
-constexpr int BP_G = 8;                     // angles per stage
+constexpr int BP_G = 8;                     // K2's angles per stage
 constexpr int BP_W = 24;                    // staged bins per angle
-constexpr int BP_RING = 2 * BP_G * BP_W * SLAB;  // floats
-constexpr int BP_MAX_ANGLES = 3072;
+constexpr int AB_MAX = 32;                  // K10's largest stage
+
+// the dynamic shared memory of one block: the ring, then the tables and
+// window starts of the na_pad angles it walks
+size_t bp_smem(int stage, int na_pad) {
+  return 2 * static_cast<size_t>(stage) * BP_W * SLAB * sizeof(float) +
+         static_cast<size_t>(na_pad) * (sizeof(float4) + sizeof(int));
+}
 
 template <bool EPI>
 __global__ void __launch_bounds__(BP_NT)
 bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
           const float* __restrict__ y_vol, const float* __restrict__ inv_col,
-          float* __restrict__ out, int n, int nt, int na, int ns, bool vec) {
+          float* __restrict__ out, int n, int nt, int na, int na_pad,
+          int stage, int ns, bool vec) {
   extern __shared__ float4 bp_smem4[];
-  float* ring = reinterpret_cast<float*>(bp_smem4);  // [2][BP_G][BP_W][32]
-  float4* stab = bp_smem4 + BP_RING / 4;             // na table entries
-  int* slo = reinterpret_cast<int*>(stab + na);      // na window starts
+  float* ring = reinterpret_cast<float*>(bp_smem4);  // [2][stage][BP_W][32]
+  const int half = stage * BP_W * SLAB;             // floats per buffer
+  float4* stab = bp_smem4 + half / 2;               // na_pad table entries
+  int* slo = reinterpret_cast<int*>(stab + na_pad);  // na_pad window starts
   const int tiles_c = (n + BP_T - 1) / BP_T;
   const int r0 = blockIdx.x / tiles_c * BP_T;
   const int c0 = (blockIdx.x % tiles_c) * BP_T;
@@ -351,8 +302,8 @@ bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
     const float xb = static_cast<float>(c0 + BP_T - 1) - ctr;
     const float ya = ctr - static_cast<float>(r0);
     const float yb = ctr - static_cast<float>(r0 + BP_T - 1);
-    for (int a = tid; a < na; a += BP_NT) {
-      const float4 t = tab[a];
+    for (int a = tid; a < na_pad; a += BP_NT) {
+      const float4 t = a < na ? tab[a] : make_float4(0.f, 0.f, 0.f, 0.f);
       stab[a] = t;
       const float lo = fminf(
           fminf(tj::bp_jstar(t, xa, ya, off), tj::bp_jstar(t, xb, ya, off)),
@@ -363,11 +314,11 @@ bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
   __syncthreads();
 
   const int shift = vec ? 3 : 5;  // 8 copies of 16 B or 32 of 4 B per row
-  auto stage = [&](int g, float* buf) {
-    for (int i = tid; i < (BP_G * BP_W) << shift; i += BP_NT) {
+  auto stage_rows = [&](int g, float* buf) {
+    for (int i = tid; i < (stage * BP_W) << shift; i += BP_NT) {
       const int row = i >> shift;  // k * BP_W + bin offset
       const int k = row / BP_W;
-      const int a = g * BP_G + k;
+      const int a = g * stage + k;
       const int j = (a < na ? slo[a] : 0) + row - k * BP_W;
       const bool in = a < na && j >= 0 && j < nt;
       copy_slices(buf + row * SLAB,
@@ -387,16 +338,16 @@ bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
 #pragma unroll
   for (int i = 0; i < BP_PX; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const int ngroups = (na + BP_G - 1) / BP_G;
-  stage(0, ring);
+  const int ngroups = (na_pad + stage - 1) / stage;
+  stage_rows(0, ring);
   for (int g = 0; g < ngroups; ++g) {
     copy_wait();
     __syncthreads();  // group g landed; every thread is done with g - 1
-    if (g + 1 < ngroups) stage(g + 1, ring + ((g + 1) & 1) * (BP_RING / 2));
-    const float* buf = ring + (g & 1) * (BP_RING / 2) + 4 * q;
-    const int kn = min(BP_G, na - g * BP_G);
+    if (g + 1 < ngroups) stage_rows(g + 1, ring + ((g + 1) & 1) * half);
+    const float* buf = ring + (g & 1) * half + 4 * q;
+    const int kn = min(stage, na_pad - g * stage);
     for (int k = 0; k < kn; ++k) {
-      const int a = g * BP_G + k;
+      const int a = g * stage + k;
       const float4 t = stab[a];
       const float* win = buf + k * BP_W * SLAB;
       const int lo = slo[a];
@@ -432,125 +383,11 @@ bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
   }
 }
 
-// K10's block: 32 slices x 8 columns of one row
-constexpr int BP_BS = 32;
-constexpr int BP_BC = 8;
-
-// K10 -- replaces tomojax/projector/pallas_joseph.py:_bp_kernel_ab
-// (bp_pallas_sl with ab > 1): K2's operator and epilogue with the angles
-// taken `ab` at a time, over the angle set padded to a multiple of ab
-// (pallas_joseph.py:727-730). A padded angle has a zero sinogram row and a
-// zero table entry {0, 0, 0, 0} (1/D = 0, as the reference's padded tables),
-// so its taps add exactly 0.
-//
-// On the TPU `ab` was the number of angles per sequential grid step. Here
-// it is the number of angles whose sinogram rows a block stages in shared
-// memory before it gathers from them: the block's 8 columns of one row fall
-// within BP_BC + 2 bins of each other at any angle (J* is monotone in the
-// column with slope |cos| <= 1), so per angle it loads that window of bins
-// for its 32 slices (coalesced, out-of-range bins as 0) and every thread
-// then reads its two taps from shared memory. Each thread adds the angles
-// in K2's order with K2's tap arithmetic (tj::bp_taps), so K10 equals K2 bit
-// for bit.
-//
-// Bound on the H100: as K2, the tap gathers (3.0e9 at 256^3 x 90); staging
-// turns the block's L1 sinogram reads into shared-memory reads, at the cost
-// of two barriers per angle group.
-constexpr int AB_W = BP_BC + 2;  // staged bins per angle
-constexpr int AB_MAX = 32;       // largest ab
-
-template <bool EPI>
-__global__ void __launch_bounds__(BP_BS * BP_BC)
-bp_ab_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
-             const float* __restrict__ y_vol,
-             const float* __restrict__ inv_col, float* __restrict__ out,
-             int n, int nt, int na, int na_pad, int ab, int ns) {
-  extern __shared__ float4 stab[];  // na_pad table entries, then the rows
-  float* rows = reinterpret_cast<float*>(stab + na_pad);  // [ab][AB_W][BS]
-  __shared__ int lo[AB_MAX];  // first staged bin of each angle of the group
-  constexpr int NT = BP_BS * BP_BC;
-  const int tid = threadIdx.y * BP_BS + threadIdx.x;
-  for (int i = tid; i < na_pad; i += NT) {
-    stab[i] = i < na ? tab[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const int s0 = blockIdx.x * BP_BS;
-  const int c0 = blockIdx.y * BP_BC;
-  const int r = blockIdx.z;
-  const int s = s0 + threadIdx.x;
-  const int c = c0 + threadIdx.y;
-  const bool valid = s < ns && c < n;
-  const float ctr = 0.5f * static_cast<float>(n - 1);
-  const float yr = ctr - static_cast<float>(r);
-  const float off = 0.5f * static_cast<float>(nt - 1);
-  const float xc = static_cast<float>(c) - ctr;
-  const float xc_first = static_cast<float>(c0) - ctr;
-  const float xc_last = static_cast<float>(min(c0 + BP_BC - 1, n - 1)) - ctr;
-  const int per_angle = AB_W * BP_BS;
-  __syncthreads();
-
-  float acc = 0.f;
-  for (int g = 0; g < na_pad; g += ab) {
-    if (tid < ab) {
-      const float4 t = stab[g + tid];
-      lo[tid] = min(tj::bp_taps(t, xc_first, yr, off).j0,
-                    tj::bp_taps(t, xc_last, yr, off).j0);
-    }
-    __syncthreads();
-    for (int i = tid; i < ab * per_angle; i += NT) {
-      const int k = i / per_angle;
-      const int jj = (i - k * per_angle) / BP_BS;
-      const int sl = i - k * per_angle - jj * BP_BS;
-      const int a = g + k;
-      const int j = lo[k] + jj;
-      rows[i] = (a < na && j >= 0 && j < nt && s0 + sl < ns)
-                    ? y[(static_cast<size_t>(a) * nt + j) * ns + s0 + sl]
-                    : 0.f;
-    }
-    __syncthreads();
-    if (valid) {
-      for (int k = 0; k < ab; ++k) {
-        const tj::BpTaps tp = tj::bp_taps(stab[g + k], xc, yr, off);
-        const float* win =
-            rows + k * per_angle + (tp.j0 - lo[k]) * BP_BS + threadIdx.x;
-        acc = fmaf(win[BP_BS], tp.w1, fmaf(win[0], tp.w0, acc));
-      }
-    }
-    __syncthreads();  // the next group overwrites lo and rows
-  }
-  if (!valid) return;
-  const size_t o = (static_cast<size_t>(r) * n + c) * ns + s;
-  if (EPI) {
-    out[o] = fmaxf(y_vol[o] + inv_col[static_cast<size_t>(r) * n + c] * acc,
-                   0.f);
-  } else {
-    out[o] = acc;
-  }
-}
-
 bool fp_shape_ok(int n, int nt, int na, int ns, int ng, int width) {
   return n > 0 && nt > 0 && na > 0 && ns > 0 && ng > 0 && ng <= na &&
          width >= 2 && width <= FP_W && (ns + SLAB - 1) / SLAB <= 65535 &&
          static_cast<long long>(ng) * ((nt + FP_B - 1) / FP_B) <= INT_MAX;
 }
-
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<size_t>(p) % 16 == 0;
-}
-
-// The dynamic shared memory a launch may ask for above 48 KB, allowed once
-// per kernel instantiation; returns the launch error of the attribute call.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  *done = err == cudaSuccess;
-  return static_cast<int>(err);
-}
-
-constexpr size_t BP_SMEM_MAX =
-    BP_RING * sizeof(float) + BP_MAX_ANGLES * (sizeof(float4) + sizeof(int));
 
 template <bool EPI>
 int fp_launch(const float* x, const float* tab, const int* plan, int ng,
@@ -558,8 +395,9 @@ int fp_launch(const float* x, const float* tab, const int* plan, int ng,
               const float* inv_row, const float* beta, float* ax,
               float* resid, float* partials, int n, int nt, int ns,
               cudaStream_t st) {
-  const bool vec = ns % 4 == 0 && aligned16(x) && aligned16(ax) &&
-                   aligned16(b) && aligned16(ax_old) && aligned16(resid);
+  const bool vec = ns % 4 == 0 && tj::aligned16(x) && tj::aligned16(ax) &&
+                   tj::aligned16(b) && tj::aligned16(ax_old) &&
+                   tj::aligned16(resid);
   const dim3 grid(ng * ((nt + FP_B - 1) / FP_B), (ns + SLAB - 1) / SLAB);
   const size_t smem = 2 * FP_K * static_cast<size_t>(width) * SLAB *
                       sizeof(float);
@@ -567,6 +405,45 @@ int fp_launch(const float* x, const float* tab, const int* plan, int ng,
       x, reinterpret_cast<const float4*>(tab), plan, ng, width, b, ax_old,
       inv_row, beta, ax, resid, partials, n, nt, ns, vec);
   return tj::launch_error();
+}
+
+template <bool EPI>
+int bp_launch_as(const float* y, const float4* tab, const float* y_vol,
+                 const float* inv_col, float* out, int n, int nt, int na,
+                 int ns, int stage, int na_pad, int limit, cudaStream_t st) {
+  static bool opted = false;  // once per instantiation, to the card's limit
+  const int err = tj::allow_smem(bp_kernel<EPI>, limit, &opted);
+  if (err != 0) return err;
+  const int tiles = (n + BP_T - 1) / BP_T;
+  const dim3 grid(tiles * tiles, (ns + SLAB - 1) / SLAB);
+  const bool vec = ns % 4 == 0 && tj::aligned16(y) && tj::aligned16(y_vol) &&
+                   tj::aligned16(out);
+  bp_kernel<EPI><<<grid, BP_NT, bp_smem(stage, na_pad), st>>>(
+      y, tab, y_vol, inv_col, out, n, nt, na, na_pad, stage, ns, vec);
+  return tj::launch_error();
+}
+
+// K2 (stage BP_G, na_pad = na) and K10 (stage ab, na_pad = na rounded up
+// to ab).
+int bp_launch(const float* y, const float* tab, const float* y_vol,
+              const float* inv_col, float* out, int n, int nt, int na,
+              int ns, int stage, int na_pad, cudaStream_t st) {
+  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || na_pad < na ||
+      n > 65535 || (ns + SLAB - 1) / SLAB > 65535 ||
+      (y_vol == nullptr) != (inv_col == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const int limit = tj::smem_limit();
+  if (limit < 0 || bp_smem(stage, na_pad) > static_cast<size_t>(limit)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto* t4 = reinterpret_cast<const float4*>(tab);
+  if (y_vol != nullptr) {
+    return bp_launch_as<true>(y, t4, y_vol, inv_col, out, n, nt, na, ns,
+                              stage, na_pad, limit, st);
+  }
+  return bp_launch_as<false>(y, t4, nullptr, nullptr, out, n, nt, na, ns,
+                             stage, na_pad, limit, st);
 }
 
 }  // namespace
@@ -612,57 +489,22 @@ TJ_API int tj_fp_resid(const float* x, const float* tab, const int* plan,
 TJ_API int tj_bp(const float* y, const float* tab, const float* y_vol,
                  const float* inv_col, float* out, int n, int nt, int na,
                  int ns, void* stream) {
-  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || na > BP_MAX_ANGLES ||
-      n > 65535 || (ns + SLAB - 1) / SLAB > 65535 ||
-      (y_vol == nullptr) != (inv_col == nullptr)) {
-    return cudaErrorInvalidValue;
-  }
-  const int tiles = (n + BP_T - 1) / BP_T;
-  const dim3 grid(tiles * tiles, (ns + SLAB - 1) / SLAB);
-  const size_t smem = BP_RING * sizeof(float) +
-                      static_cast<size_t>(na) * (sizeof(float4) + sizeof(int));
-  const bool vec = ns % 4 == 0 && aligned16(y) && aligned16(y_vol) &&
-                   aligned16(out);
-  const auto* t4 = reinterpret_cast<const float4*>(tab);
-  auto st = static_cast<cudaStream_t>(stream);
-  static bool smem_ok[2] = {false, false};
-  if (y_vol != nullptr) {
-    const int err = allow_smem(bp_kernel<true>, BP_SMEM_MAX, &smem_ok[1]);
-    if (err != 0) return err;
-    bp_kernel<true><<<grid, BP_NT, smem, st>>>(y, t4, y_vol, inv_col, out, n,
-                                               nt, na, ns, vec);
-  } else {
-    const int err = allow_smem(bp_kernel<false>, BP_SMEM_MAX, &smem_ok[0]);
-    if (err != 0) return err;
-    bp_kernel<false><<<grid, BP_NT, smem, st>>>(y, t4, nullptr, nullptr, out,
-                                                n, nt, na, ns, vec);
-  }
-  return tj::launch_error();
+  return bp_launch(y, tab, y_vol, inv_col, out, n, nt, na, ns, BP_G, na,
+                   static_cast<cudaStream_t>(stream));
 }
 
-// K10: tj_bp with the angles taken ab at a time (1 <= ab <= 32) over the
-// angle set padded to a multiple of ab; tab holds the na real angles.
+// K10: K2's kernel with ab angles a stage (1 <= ab <= AB_MAX) over the angle
+// set padded to a multiple of ab; tab holds the na real angles. Refused
+// where the block's shared memory (bp_smem) exceeds the card's limit.
 TJ_API int tj_bp_ab(const float* y, const float* tab, const float* y_vol,
                     const float* inv_col, float* out, int n, int nt, int na,
                     int ns, int ab, void* stream) {
-  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || ab < 1 || ab > AB_MAX ||
-      n > 65535 || (n + BP_BC - 1) / BP_BC > 65535 ||
-      (y_vol == nullptr) != (inv_col == nullptr)) {
-    return cudaErrorInvalidValue;
-  }
-  const int na_pad = (na + ab - 1) / ab * ab;
-  const size_t smem = static_cast<size_t>(na_pad) * sizeof(float4) +
-                      static_cast<size_t>(ab) * AB_W * BP_BS * sizeof(float);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid((ns + BP_BS - 1) / BP_BS, (n + BP_BC - 1) / BP_BC, n);
-  const auto* t4 = reinterpret_cast<const float4*>(tab);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (y_vol != nullptr) {
-    bp_ab_kernel<true><<<grid, dim3(BP_BS, BP_BC), smem, st>>>(
-        y, t4, y_vol, inv_col, out, n, nt, na, na_pad, ab, ns);
-  } else {
-    bp_ab_kernel<false><<<grid, dim3(BP_BS, BP_BC), smem, st>>>(
-        y, t4, nullptr, nullptr, out, n, nt, na, na_pad, ab, ns);
-  }
-  return tj::launch_error();
+  if (ab < 1 || ab > AB_MAX || na <= 0) return cudaErrorInvalidValue;
+  return bp_launch(y, tab, y_vol, inv_col, out, n, nt, na, ns, ab,
+                   (na + ab - 1) / ab * ab,
+                   static_cast<cudaStream_t>(stream));
 }
+
+// The most dynamic shared memory one block may have on the current card
+// (bytes), or -1.
+TJ_API int tj_smem_limit() { return tj::smem_limit(); }

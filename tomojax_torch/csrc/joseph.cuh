@@ -1,12 +1,22 @@
-// Joseph tap helpers shared by the projector pair (joseph.cu: K1, K2) and
-// the SART sweep (sart.cu: K8), so every kernel picks its taps with the
-// same arithmetic. Slice-last layouts: volume x[r][c][s] (N, N, Ns),
-// sinogram plane y[j][s] (Nt, Ns); s is the caller's slice index.
+// Joseph tap helpers shared by the projector pair (joseph.cu: K1, K2), the
+// SART sweep (sart.cu: K8) and the experiment kernels (exp_hat.cuh), so
+// every kernel picks its taps with the same arithmetic. Slice-last
+// layouts: volume x[r][c][s] (N, N, Ns), sinogram plane y[j][s] (Nt, Ns);
+// s is the caller's slice index.
 #pragma once
 
 #include "common.cuh"
 
 namespace tj {
+
+// The tiling of K1's host plan (cuda_joseph.fp_plan: FP_GROUP, FP_BINS,
+// FP_STEPS, FP_WINDOW), which E1 (exp_projector.cu) reads as well: groups
+// of up to FP_G angles of one driving type x FP_B bins, walked FP_K
+// driving steps a chunk, windows of at most FP_W positions a step.
+constexpr int FP_G = 8;
+constexpr int FP_B = 32;
+constexpr int FP_K = 2;
+constexpr int FP_W = 96;
 
 // Unscaled driving-axis sum of one ray (bin j, slice s) through x, as
 // tomojax/projector/joseph.py:_fp_branch walks it. t = {1/denom, shear,

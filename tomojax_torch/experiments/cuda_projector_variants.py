@@ -7,13 +7,16 @@ Counterparts of the TPU kernels of ``scripts/exp_hat_model.py``,
 ``(N, N, Ns)``, sinograms ``(Na, Nt, Ns)``, float32, contiguous.
 
 * E1 ``fp_variant`` (``csrc/exp_projector.cu`` ``fp_variant_kernel``): the
-  forward projection, one thread per (angle, bin, slice) walking the
-  driving axis; at each step the two taps of K1's position, each weighted
-  from its distance d = j - J*(pixel) in one of the `FORMS`. ``ab`` angles
-  share a block (the TPU's a_blk); ``pair=True`` writes the rays of
-  theta and -theta of a symmetric series from one tap walk.
+  forward projection on K1's design: blocks of up to ``ab`` angles (the
+  TPU's a_blk) x 32 bins x 32 slices from K1's host plan
+  (`fp_variant_plan`), the windows of each step staged in shared memory;
+  at each step the two taps of K1's position, each weighted from its
+  distance d = j - J*(pixel) in one of the `FORMS`. The default ab is
+  K1's own group cap. ``pair=True`` writes the rays of theta and -theta of
+  a symmetric series from one walk over the angles Na/2 .. Na-1, staging
+  each window and its mirror.
 * E2 ``bp_variant`` (``bp_variant_kernel``): the backprojection, one
-  thread per voxel over the angles as K2, with the weight forms of
+  thread per voxel over the angles in K2's order, with the weight forms of
   `BP_FORMS`; ``aps=2`` loads two angles' taps before their products.
 
 The forms (csrc/exp_hat.cuh): FULL ``max(0, 1 - |d| invd) invd``; HAT5
@@ -38,7 +41,9 @@ import torch
 
 from tomojax_torch import _build
 from tomojax_torch.geometry import Geometry
-from tomojax_torch.projector.cuda_joseph import angle_tables
+from tomojax_torch.projector.cuda_joseph import (
+    FP_GROUP, FpPlan, angle_tables, fp_plan,
+)
 
 F32 = torch.float32
 FORMS = ("FULL", "HAT5", "BF16", "NOHAT", "NODOT", "W4")  # exp_hat.cuh Form
@@ -223,9 +228,20 @@ def _check_choice(value, allowed, name: str) -> None:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
 
 
+def fp_variant_plan(geom: Geometry, ab: int, pair: bool,
+                    device: torch.device) -> FpPlan:
+    """The plan E1 walks: K1's `fp_plan` with at most `ab` angles a group,
+    over the angles Na/2 .. Na-1 (member indices from 0) with pair."""
+    if pair:
+        geom = Geometry.make(geom.n, geom.angles[geom.nproj // 2:],
+                             nray=geom.nray)
+    return fp_plan(geom, device, group=ab)
+
+
 def fp_variant(x: torch.Tensor, geom: Geometry, form: str = "FULL",
-               ab: int = 1, pair: bool = False) -> torch.Tensor:
-    """E1: `fp_variant_ref` on the card, `ab` angles (or pairs) per block.
+               ab: int = FP_GROUP, pair: bool = False) -> torch.Tensor:
+    """E1: `fp_variant_ref` on the card, blocks of at most `ab` angles (or
+    pairs); the result does not depend on ab.
 
     pair=True needs form FULL and a series of `pair_series`."""
     _check_choice(form, FORMS, "form")
@@ -238,11 +254,14 @@ def fp_variant(x: torch.Tensor, geom: Geometry, form: str = "FULL",
     if _build.on_cpu(x):
         return fp_variant_ref(x, geom, form, pair)
     tabs = angle_tables(geom, x.device)
+    plan = fp_variant_plan(geom, ab, pair, x.device)
     out = torch.empty((geom.nproj, geom.nray, ns), dtype=F32, device=x.device)
     p = torch.Tensor.data_ptr
     _build.check(_build.lib().tj_exp_fp(
-        FORMS.index(form), int(pair), p(x), p(tabs.fp), p(tabs.bp), p(out),
-        geom.n, geom.nray, geom.nproj, ns, ab, _build.stream()), "tj_exp_fp")
+        FORMS.index(form), int(pair), p(x), p(tabs.fp), p(tabs.bp),
+        p(plan.table), plan.ng, plan.width, ab, int(plan.groups[:, 1].max()),
+        p(out), geom.n, geom.nray, geom.nproj, ns, _build.stream()),
+        "tj_exp_fp")
     fp_variant.launches += 1
     return out
 

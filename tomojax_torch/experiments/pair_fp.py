@@ -9,8 +9,8 @@ volume, with the same taps and weights. Rows:
 
   baseline   E1 FULL over the 90 angles (and the production K1);
   paired     E1 PAIR: 45 walks, each writing the +theta ray and the -theta
-             ray (the flipped row read in place), with rel|d| of both
-             halves against the baseline;
+             ray (the mirrored window staged beside the window), with
+             rel|d| of both halves against the baseline;
   control    the script's control, paired angles without shared taps: E1
              FULL over the 45 positive angles of the [x | row-flipped x]
              stack (the flip and the stack included in the time).

@@ -5,7 +5,7 @@
 
 The port of scripts/exp_projector_variants.py (n = ns = 256, 90 angles over
 +-76 deg by default): E1 (forward) with 1, 16 and 32 angles per block (the
-TPU's a_blk 16 and 32, beside the 1 of K1's layout) in the FULL weights and
+TPU's a_blk 16 and 32, beside a block of one angle) in the FULL weights and
 in W4, w = max(0, invd - |j invd^2 - invd^2 J*|), algebraically the FULL
 hat with fewer operations; E2 (back) in FULL and W4. Times per call of a
 batch of back-to-back calls (CUDA events) and max|d| against the first

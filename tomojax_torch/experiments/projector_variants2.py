@@ -6,9 +6,10 @@ step, on the card.
 
 The port of scripts/exp_projector_variants2.py (n = 256, 90 angles over
 +-76 deg; ns = n, or 128 from n = 512, by default). FP: the production
-kernel (K1 ``fp_sl``, one angle per block; the port's dispatch has no
-a_blk) beside E1 FULL with 16 and 32 angles per block. BP: the production
-K2 ``bp_sl`` beside E2 FULL with two angles per step (APS 2: both angles'
+kernel (K1 ``fp_sl``, up to 8 angles a block from its plan; the port's
+dispatch has no a_blk) beside E1 FULL with 16 and 32 angles per block.
+BP: the production K2 ``bp_sl`` beside E2 FULL with two angles per step
+(APS 2: both angles'
 taps loaded before their products, the counterpart of the TPU's two
 angles per contraction). Times per call of a batch of back-to-back calls
 (CUDA events) and max|d| against the production kernel, each beside the

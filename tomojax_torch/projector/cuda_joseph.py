@@ -7,14 +7,18 @@ slice-last and unpadded: volumes ``(N, N, Ns)``, sinograms
 * K1 ``fp_resid_sl`` (``csrc/joseph.cu`` ``fp_kernel<true>``): ``ax = A x``
   with the FISTA residual epilogue; ``fp_sl`` is the same kernel with the
   epilogue off (plain ``A x``). Both pass the geometry's `fp_plan`, the
-  angle groups and staging windows of K1's blocks.
+  angle groups and staging windows of K1's blocks (E1,
+  ``experiments/cuda_projector_variants.py``, walks the same plan with its
+  own cap on the angles a group).
 * K2 ``bp_sirt_sl`` (``csrc/joseph.cu`` ``bp_kernel<true>``): the SIRT
   update ``max(y_vol + inv_col * A^T r, 0)``; ``bp_sl`` is the same kernel
   with the epilogue off (plain ``A^T y``).
-* K10 ``bp_sl`` / ``bp_sirt_sl`` with ``ab > 1`` (``csrc/joseph.cu``
-  ``bp_ab_kernel``, launched by ``bp_ab_sl``): K2 with the angles staged
-  ``ab`` at a time over the angle set padded to a multiple of ab, the
-  reference's ``bp_pallas_sl(..., ab=)``; it equals K2.
+* K10 ``bp_sl`` / ``bp_sirt_sl`` with ``ab > 1`` (launched by
+  ``bp_ab_sl``): K2's ``bp_kernel`` with ``ab`` angles a stage of its ring
+  over the angle set padded to a multiple of ab, the reference's
+  ``bp_pallas_sl(..., ab=)``; it equals K2 bit for bit. Where the ring
+  and tables (`bp_smem_bytes`) exceed the card's shared memory per block,
+  ``bp_ab_sl`` raises a ValueError.
 
 The plain versions are the 2-point gathers of the reference's XLA
 ``gather`` mode (``tomojax/projector/joseph.py`` ``_fp_branch`` and
@@ -102,9 +106,10 @@ def fp_positions(tab: np.ndarray, n: int, nt: int, j, k) -> np.ndarray:
 class FpPlan:
     """K1's blocks for one geometry (`fp_plan`).
 
-    groups: (ng, 2 + FP_GROUP) int32 rows {row_driven, count, angles...}:
-        consecutive angles of one driving type whose rays of one bin tile
-        fit one staging window of FP_WINDOW positions per chunk;
+    groups: (ng, 2 + cap) int32 rows {row_driven, count, angles...}:
+        consecutive angles of one driving type, at most cap (FP_GROUP for
+        K1), whose rays of one bin tile fit one staging window of FP_WINDOW
+        positions per chunk;
     windows: (ng, bin tiles, chunks, 2) int32 {lo, width}: the positions
         [lo, lo + width) that a block stages per step of a chunk, clamped to
         the volume plus two zero positions on each side. A tap at i0 is read
@@ -149,11 +154,17 @@ def _clamp_window(lo, hi, n: int):
     return lo_eff, np.clip(hi, -1, n + 1) - lo_eff + 1
 
 
-@functools.lru_cache(maxsize=32)
-def fp_plan(geom: Geometry, device: torch.device) -> FpPlan:
+def fp_plan(geom: Geometry, device: torch.device,
+            group: int = FP_GROUP) -> FpPlan:
     """K1's plan: angles grouped in table order, a new group at a change of
-    driving type, at FP_GROUP angles, or where the next angle would widen
-    some window past FP_WINDOW; then each group's windows."""
+    driving type, at `group` angles (K1: FP_GROUP; E1: its ab), or where
+    the next angle would widen some window past FP_WINDOW; then each
+    group's windows. Group rows hold 2 + `group` ints."""
+    return _fp_plan(geom, device, group)
+
+
+@functools.lru_cache(maxsize=64)
+def _fp_plan(geom: Geometry, device: torch.device, group: int) -> FpPlan:
     tab = angle_tables(geom, torch.device("cpu")).fp.numpy()
     lo, hi = _fp_corner_windows(geom, tab)
     n = geom.n
@@ -162,7 +173,7 @@ def fp_plan(geom: Geometry, device: torch.device) -> FpPlan:
     for a in range(geom.nproj):
         if members:
             nlo, nhi = np.minimum(cur_lo, lo[a]), np.maximum(cur_hi, hi[a])
-            if (len(members) < FP_GROUP and tab[a, 3] == tab[members[0], 3]
+            if (len(members) < group and tab[a, 3] == tab[members[0], 3]
                     and _clamp_window(nlo, nhi, n)[1].max() <= FP_WINDOW):
                 members.append(a)
                 cur_lo, cur_hi = nlo, nhi
@@ -172,7 +183,7 @@ def fp_plan(geom: Geometry, device: torch.device) -> FpPlan:
         members, cur_lo, cur_hi = [a], lo[a], hi[a]
     groups.append(members)
     windows.append(_clamp_window(cur_lo, cur_hi, n))
-    g = np.zeros((len(groups), 2 + FP_GROUP), np.int32)
+    g = np.zeros((len(groups), 2 + group), np.int32)
     for i, m in enumerate(groups):
         g[i, 0], g[i, 1] = int(tab[m[0], 3] != 0), len(m)
         g[i, 2:2 + len(m)] = m
@@ -384,7 +395,7 @@ def fp_resid_sl(x, geom: Geometry, b, ax_old, inv_row, beta):
     return ax, resid, ddsq
 
 
-AB_MAX = 32  # largest angle group K10 takes (csrc/joseph.cu AB_MAX)
+AB_MAX = 32  # largest stage K10 takes (csrc/joseph.cu AB_MAX)
 
 
 def _round_up(a: int, b: int) -> int:
@@ -407,10 +418,25 @@ def _bp_launch(y, geom: Geometry, y_vol, inv_col):
     return out
 
 
+def bp_smem_bytes(na: int, stage: int) -> int:
+    """Shared memory of one block of K2's kernel (csrc/joseph.cu bp_smem):
+    the double-buffered ring of `stage` angles x BP_WINDOW bins x 32
+    slices, then a float4 table entry and an int window start for each of
+    the na angles rounded up to `stage`."""
+    return 2 * stage * BP_WINDOW * 32 * 4 + _round_up(na, stage) * 20
+
+
 def bp_ab_sl(y, geom: Geometry, ab: int, y_vol=None, inv_col=None):
     """K10's launch on CUDA operands that `bp_sl` / `bp_sirt_sl` checked:
-    K2's operator (and, with y_vol and inv_col, its epilogue) with the
-    angles staged `ab` at a time. Counts in ``bp_ab_sl.launches``."""
+    K2's kernel (and, with y_vol and inv_col, its epilogue) with `ab`
+    angles a stage. Raises a ValueError where the block's shared memory
+    exceeds the card's limit. Counts in ``bp_ab_sl.launches``."""
+    need, limit = bp_smem_bytes(geom.nproj, ab), _build.lib().tj_smem_limit()
+    if need > limit:
+        raise ValueError(
+            f"K10 at ab={ab} with {geom.nproj} angles needs {need} bytes of "
+            f"shared memory per block; the card allows {limit} "
+            f"(cudaDevAttrMaxSharedMemoryPerBlockOptin)")
     ns = y.shape[-1]
     tab = angle_tables(geom, y.device).bp
     out = torch.empty((geom.n, geom.n, ns), dtype=F32, device=y.device)
