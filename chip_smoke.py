@@ -23,10 +23,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    K1 and K2 (both epilogues) also at ragged shapes (N 33, Na 7, Ns 5 and
    N 48, Na 13, Ns 37) against their plain versions, and at 128 x 512^2 x
    90 against torch.sparse.mm with the CSR form (rel 1e-5); K1, K2, K10
-   (ab 6) and E1 FULL with their staged bytes and the L2-to-shared and
-   shared-memory read rates at both full shapes;
-   the SART sweep (K8) at three levels: one angle step, one sweep,
-   convergence after 5 sweeps;
+   (ab 6), E1 FULL and E2 FULL with their staged bytes and the
+   L2-to-shared and shared-memory read rates at both full shapes, and one
+   K8 sweep;
+   the SART sweep (K8) on both routes at three levels (one angle step
+   from random x, 1e-5 max|x|; one sweep from zero on nanocube
+   projections, 1e-4 max|x|; the rmse after 5 sweeps within 1e-4 of the
+   plain version's), with two sweeps identical and out-of-range order
+   entries leaving x: the resident route at 256^3 x 90 and at N 33, Na 7,
+   Ns 5, the streaming route at 128 x 512^2 x 90; each with its clusters,
+   waves and shared memory a block (resident), its ms a sweep over 10
+   back-to-back sweeps (CUDA events) beside its bound and (resident) the
+   phase cycles of the kernel's timed instantiation;
    the slab kernels K9a/K9b/K9c (and K5's right halo) on a 256^3 volume
    cut into 4 slabs of 64 slices, each rank role (bottom, interior, top)
    against the plain version with random halo planes, and on the whole
@@ -42,8 +50,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       2 iterations by kernel with the idle share;
    b. ASD-POCS: TomoTorch.asd_pocs on the same problem (one warm-up
       iteration, then 5) and TomoTorch.sart (2 sweeps), then the
-      functional asd_pocs_run and one sart_sweep_sl, timed with CUDA
-      events, and a profiler window of 2 asd_pocs_run iterations;
+      functional asd_pocs_run and one sart_sweep_sl (its route, one-call
+      and batch ms), timed with CUDA events, and a profiler window of 2
+      asd_pocs_run iterations;
    c. the slab-sharded path: an NCCL group of world size 1 (file store
       under build/), TomoTorch(..., group=g).fista (10 iterations) and
       .asd_pocs (5) on the same problem, and the functional runs with the
@@ -68,16 +77,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       FULL, HAT5, BF16, NOHAT, NODOT, W4 and PAIR, each at 1, 2, 4, 8, 16
       and 32 angles a block, with device times beside K1's; also at N 33,
       Na 7, Ns 5 and N 48, Na 14, Ns 37) and E2 (the BP forms FULL, BF16,
-      NOHAT, NODOT, W4; two angles per step) held against its plain
+      NOHAT, NODOT, W4; two angles per step; bit-equal required, also at
+      N 33, Na 7, Ns 5 and N 48, Na 13, Ns 37; batch ms beside K2's with
+      the split FULL - NOHAT, FULL - NODOT) held against its plain
       version at 256^3 x 90 (bound 1e-5 max|out|, torch.sparse.mm beside
       the forms that compute A x or A^T y), and of E3 (the SART modes
       TAPS_F32, TAPS_BF16, TABLE_BF16, NOHAT, NOFP, NOUPD, two launches per
       angle) and E4 (TAPS_F32, TAPS_BF16, TABLE_BF16, one launch per sweep)
       over one sweep from zero on nanocube projections (bound 1e-4 max|x|);
-      cuobjdump -sass of the ablations (E1's NODOT keeps its adds with no
-      ring copy or shared load, its NOHAT the ring copies and shared
-      loads; E2's NODOT loads only the angle tables, its NOHAT keeps its
-      data loads); then the six drivers
+      cuobjdump -sass of the ablations (E1's and E2's NODOT keep their adds
+      with no ring copy or shared load, their NOHAT the ring copies and
+      shared loads), with registers and stack bytes per kernel; then the
+      six drivers
       (hat_model, projector_variants, projector_variants2, pair_fp,
       sart_pipeline, sart_ablate) at 256^3 x 90, each with the E launch
       counts set to 0 before it and read after, their rows printed, the
@@ -97,9 +108,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
     python3 chip_smoke.py --projector-times
 
-times only K1, K2, K10 (ab 6) and E1 FULL at 256^3 x 90 and 128 x 512^2
-x 90, with the tomojax_torch package beside the file (a copy of it beside
-another tree times that tree's kernels).
+times only K1, K2, K10 (ab 6), E1 FULL, E2 FULL and one K8 sweep at
+256^3 x 90 and 128 x 512^2 x 90, with the tomojax_torch package beside
+the file (a copy of it beside another tree times that tree's kernels).
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
 printing any result.
@@ -169,6 +180,14 @@ def device_ms(fn, reps: int = 10) -> float:
 
 def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max())
+
+
+def sm_clock() -> str:
+    """The card's SM clock now and its maximum, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
 
 
 # ------------------------------------------------------------------ phase 1
@@ -277,14 +296,14 @@ def fgp_iter_work(v: int, dual_bytes: int, iters: int = 1):
     return v * (4 + 6 * dual_bytes), 51 * v * iters
 
 
-def joseph_csr(geom, dev):
-    """A (Na Nt x N^2) and A^T as CSR on the card, from the Joseph closed
-    form that K2 gathers with (the tables of cuda_joseph.angle_tables), and
-    the number of nonzeros: the yardstick `torch.sparse.mm` multiplies with
-    (cuSPARSE SpMM), built once and not timed."""
+def _joseph_taps(geom, dev):
+    """Both taps of every (angle, pixel), (Na, N, N) each, from the Joseph
+    closed form that K2 gathers with (the tables of
+    cuda_joseph.angle_tables): the bin j, the weight w and where it is a
+    nonzero of A (j in [0, Nt), w != 0)."""
     from tomojax_torch.projector.cuda_joseph import angle_tables
 
-    n, nt, na = geom.n, geom.nray, geom.nproj
+    n, nt = geom.n, geom.nray
     t = angle_tables(geom, dev).bp
     c, s, invd = (t[:, i, None, None] for i in range(3))
     ctr = (n - 1) / 2.0
@@ -293,12 +312,27 @@ def joseph_csr(geom, dev):
     jstar = c * xc[None, None, :] + s * yr[None, :, None] + (nt - 1) / 2.0
     f = torch.floor(jstar)
     j0 = f.long()
+    for j, fj in ((j0, f), (j0 + 1, f + 1.0)):
+        w = torch.clamp_min(1.0 - torch.abs(fj - jstar) * invd, 0.0) * invd
+        yield j, w, (j >= 0) & (j < nt) & (w != 0)
+
+
+def joseph_nnz(geom) -> int:
+    """The nonzeros of A at this geometry, as joseph_csr counts them."""
+    return sum(int(keep.sum()) for _, _, keep in
+               _joseph_taps(geom, torch.device("cuda")))
+
+
+def joseph_csr(geom, dev):
+    """A (Na Nt x N^2) and A^T as CSR on the card, from the Joseph closed
+    form that K2 gathers with (the tables of cuda_joseph.angle_tables), and
+    the number of nonzeros: the yardstick `torch.sparse.mm` multiplies with
+    (cuSPARSE SpMM), built once and not timed."""
+    n, nt, na = geom.n, geom.nray, geom.nproj
     pix = torch.arange(n * n, device=dev).reshape(1, n, n).expand(na, n, n)
     ang = torch.arange(na, device=dev).reshape(na, 1, 1).expand(na, n, n)
     rows, cols, vals = [], [], []
-    for j, fj in ((j0, f), (j0 + 1, f + 1.0)):
-        w = torch.clamp_min(1.0 - torch.abs(fj - jstar) * invd, 0.0) * invd
-        keep = (j >= 0) & (j < nt) & (w != 0)
+    for j, w, keep in _joseph_taps(geom, dev):
         rows.append((ang * nt + j)[keep])
         cols.append(pix[keep])
         vals.append(w[keep])
@@ -492,7 +526,7 @@ def phase_kernels(card: str) -> dict:
            f" (||g||^2 rel {gsq_rel:.2e} <= 2e-5; two runs identical)",
            work=(8 * V + 4, 27 * V))
 
-    _check_sart(geom, ns, uni, report, nnz)
+    _check_sart(geom, ns, uni, report, nnz, card)
     _check_halo_kernels(x, uni, report, card)
     _check_slab_chains(x, x_old, beta)
     return rows
@@ -563,7 +597,8 @@ RAGGED_SHAPES = ((33, 7, 5), (48, 13, 37))  # (N, Na, Ns)
 
 def projector_traffic(geom, ns: int):
     """{row: (staged bytes, shared-memory read bytes)} of K1, K2, K10 (ab
-    6) and E1 (FULL on K1's plan) at this geometry: the bytes the windows
+    6), E1 (FULL on K1's plan) and E2 (FULL on K2's tiles) at this
+    geometry: the bytes the windows
     copy from L2 into shared memory (rows inside the operand only;
     cuda_joseph.fp_plan, bp_window_lo), and the shared-memory reads of the
     gather, two 16-byte reads per tap pair and 4 slices of every ray step
@@ -583,20 +618,29 @@ def projector_traffic(geom, ns: int):
     bp = (int(inside.sum()) * ns * 4,
           na * lo.shape[1] * lo.shape[2] * cj.BP_TILE ** 2 * quads * 32)
     return {"K1_fp_resid": fp, "K1_fp": fp, "K2_bp_sirt": bp, "K2_bp": bp,
-            "K10_bp_ab6": bp, "E1_FULL": fp}
+            "K10_bp_ab6": bp, "E1_FULL": fp, "E2_FULL": bp}
 
 
 def _projector_calls(geom, ns: int, uni) -> dict:
-    """{row: call} of the four K1/K2 wrappers, K10 at ab = 6 (fused) and E1
-    FULL on K1's groups (8 angles at most) on random operands."""
+    """{row: call} of the four K1/K2 wrappers, K10 at ab = 6 (fused), E1
+    FULL on K1's groups (8 angles at most), E2 FULL on random operands, and
+    one K8 sweep over the angles in order from zero (random b, the
+    geometry's SART weights)."""
     from tomojax_torch.experiments import cuda_projector_variants as cpv
     from tomojax_torch.projector import cuda_joseph as cj
+    from tomojax_torch.solvers import (
+        cuda_sart, make_sart_weights, make_system,
+    )
 
     n, na, nt = geom.n, geom.nproj, geom.nray
     x, b, ax_old = uni(n, n, ns), uni(na, nt, ns), uni(na, nt, ns)
     inv_row = uni(na, nt, lo=0.1)
     beta = torch.tensor(0.3, device=x.device)
     y_vol, inv_col = uni(n, n, ns), uni(n, n, hi=0.05)
+    sysd = make_system(geom, x.device)
+    sart = (torch.zeros_like(x), b, geom, sysd.inv_row,
+            make_sart_weights(sysd), torch.tensor(1.0, device=x.device),
+            torch.arange(na, dtype=torch.int32, device=x.device))
     return {
         "K1_fp_resid": lambda: cj.fp_resid_sl(x, geom, b, ax_old, inv_row,
                                               beta),
@@ -605,13 +649,18 @@ def _projector_calls(geom, ns: int, uni) -> dict:
         "K2_bp": lambda: cj.bp_sl(b, geom),
         "K10_bp_ab6": lambda: cj.bp_sirt_sl(b, geom, y_vol, inv_col, ab=6),
         "E1_FULL": lambda: cpv.fp_variant(x, geom, "FULL", ab=8),
+        "E2_FULL": lambda: cpv.bp_variant(b, geom, "FULL"),
+        "K8_sweep": lambda: cuda_sart.sart_sweep_sl(*sart),
     }
 
 
 def projector_times(geom, ns: int, uni, card: str, tag: str) -> dict:
-    """One-call event times (median of 5) and device times (mean of 5) of
-    K1, K2, K10 (ab 6) and E1 FULL at this shape, printed; with the staged
-    bytes and the rates they reach where this tree has the tile plan."""
+    """One-call event times (median of 5), device times (mean of 5, from
+    torch.profiler) and batch times (CUDA events around 10 back-to-back
+    calls) of K1, K2, K10 (ab 6), E1 FULL, E2 FULL and one K8 sweep at this
+    shape, printed; with the staged bytes and the rates they reach at the
+    device time where this tree has the tile plan (not for K8)."""
+    from tomojax_torch.experiments.timing import batch_ms
     from tomojax_torch.projector import cuda_joseph as cj
 
     calls = _projector_calls(geom, ns, uni)
@@ -620,16 +669,19 @@ def projector_times(geom, ns: int, uni, card: str, tag: str) -> dict:
     out = {}
     for name, fn in calls.items():
         ms, dev_ms = time_ms(fn, 5), device_ms(fn, 5)
-        out[name] = (ms, dev_ms)
+        batch = batch_ms(fn, 10, torch.device("cuda"))
+        out[name] = (ms, dev_ms, batch)
         extra = ""
-        if traffic is not None:
+        if traffic is not None and name in traffic:
             staged, smem = traffic[name]
             extra = (f"; staged {staged / 1e9:.3f} GB at "
                      f"{staged / dev_ms / 1e9:.3f} TB/s L2 to shared, "
                      f"shared reads {smem / 1e9:.2f} GB at "
                      f"{smem / dev_ms / 1e9:.2f} TB/s")
         print(f"{tag} {name} at {ns} x {geom.n}^2 x {geom.nproj}: "
-              f"{ms:.4f} ms event, {dev_ms:.4f} ms device{extra} [{card}]")
+              f"{ms:.4f} ms event, {dev_ms:.4f} ms device, {batch:.4f} ms "
+              f"batch{extra}; SM clock "
+              f"after it, max: {sm_clock()} [{card}]")
     return out
 
 
@@ -736,11 +788,24 @@ def _check_fgp_variants(x, p, report) -> None:
            work=(V * (4 + 12 + 12), 19 * V))
 
 
-def _check_sart(geom, ns: int, uni, report, nnz: int) -> None:
-    """K8 against its plain version at three levels: one angle step (a
-    column- and a row-driven angle) from random x, tightly; one sweep from
-    zero on consistent nanocube projections; the rmse against the phantom
-    after 5 sweeps."""
+def sart_work(geom, ns: int, nnz: int):
+    """(bytes, operations) of one K8 sweep: x in and out once; b, inv_row,
+    inv_col_a, order read once; per angle its FP and BP taps (a
+    multiply-add each, 2 per nonzero of A and slice, each way) and a
+    4-operation update of every voxel."""
+    n, na = geom.n, geom.nproj
+    return (4 * (2 * n * n * ns + na * geom.nray * (ns + 1) + na * n * n
+                 + na + 1),
+            4 * nnz * ns + 4 * na * n * n * ns)
+
+
+def _sart_levels(geom, ns: int, x) -> dict:
+    """K8 against its plain version at three levels, each required: one
+    angle step (a column- and a row-driven angle) from random x within
+    1e-5 max|x|; one sweep from zero on consistent nanocube projections
+    within 1e-4 max|x|; the rmse against the phantom after 5 sweeps
+    within 1e-4 of the plain version's. Also: two sweeps agree bit for bit
+    and an order of out-of-range entries returns x."""
     from tomojax_torch import ops
     from tomojax_torch.projector.cuda_joseph import fp_sl
     from tomojax_torch.sim import nanocube_phantom
@@ -748,8 +813,10 @@ def _check_sart(geom, ns: int, uni, report, nnz: int) -> None:
         cuda_sart, make_sart_weights, make_system, to_sl,
     )
 
-    dev = torch.device("cuda")
+    dev = x.device
     n, na = geom.n, geom.nproj
+    route = cuda_sart.sart_route(n, geom.nray)
+    tag = f"K8 ({route}) at {ns} x {n}^2 x {na}"
     sysd = make_system(geom, dev)
     vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
     args = (fp_sl(vol, geom), geom, sysd.inv_row, make_sart_weights(sysd))
@@ -757,40 +824,101 @@ def _check_sart(geom, ns: int, uni, report, nnz: int) -> None:
     seq = torch.arange(na, dtype=torch.int32, device=dev)
     sweep, plain = cuda_sart.sart_sweep_sl, cuda_sart.sart_sweep_sl_ref
 
-    x = uni(n, n, ns)
     step_err = step_tol = 0.0
     for a in (0, na // 2):
         order = torch.tensor([a], dtype=torch.int32, device=dev)
         got = _launched(sweep, lambda: sweep(x, *args, one, order))
         ref = plain(x, *args, one, order)
         err, tol = max_err(got, ref), 1e-5 * float(ref.abs().max())
-        require(err <= tol, f"K8 one step at angle {a}: error {err:.3e} "
-                            f"above {tol:.3e}")
+        require(err <= tol, f"{tag}, one step at angle {a}: error "
+                            f"{err:.3e} above {tol:.3e}")
         step_err, step_tol = max(step_err, err), max(step_tol, tol)
+    skip = torch.tensor([na, -1], dtype=torch.int32, device=dev)
+    require(torch.equal(sweep(x, *args, one, skip), x),
+            f"{tag}: out-of-range order entries changed x")
 
     x0 = torch.zeros_like(vol)
     got, ref = sweep(x0, *args, one, seq), plain(x0, *args, one, seq)
     sweep_err, sweep_tol = max_err(got, ref), 1e-4 * float(ref.abs().max())
+    require(sweep_err <= sweep_tol, f"{tag}, one sweep: error "
+                                    f"{sweep_err:.3e} above {sweep_tol:.3e}")
+    require(torch.equal(sweep(x0, *args, one, seq), got),
+            f"{tag}: two sweeps differ")
     xk = xp = x0
     for _ in range(5):
         xk, xp = sweep(xk, *args, one, seq), plain(xp, *args, one, seq)
     rk, rp = float(ops.rmse(xk, vol)), float(ops.rmse(xp, vol))
     require(abs(rk - rp) <= 1e-4,
-            f"K8 rmse after 5 sweeps: kernel {rk:.6f}, plain {rp:.6f}")
-    report("K8_sart_sweep", sweep_err, sweep_tol,
-           time_ms(lambda: sweep(x0, *args, one, seq), 5),
-           time_ms(lambda: plain(x0, *args, one, seq), 2),
-           f" (one {na}-angle sweep from zero on nanocube projections, "
-           f"bound 1e-4 max|x|; one angle step {step_err:.2e} <= "
-           f"{step_tol:.2e} (1e-5 max|x|); rmse vs phantom after 5 sweeps "
-           f"kernel {rk:.6f}, plain {rp:.6f}, |d| {abs(rk - rp):.2e} "
-           f"<= 1e-4)",
-           # x in and out once; b, inv_row, inv_col_a, order read once;
-           # per angle its FP and BP taps and a 4-operation update of
-           # every voxel (V = n^2 ns)
-           work=(4 * (2 * n * n * ns + na * geom.nray * (ns + 1)
-                      + na * n * n + na + 1),
-                 4 * nnz * ns + 4 * na * n * n * ns))
+            f"{tag}: rmse after 5 sweeps kernel {rk:.6f}, plain "
+            f"{rp:.6f}")
+    return {"route": route, "tag": tag, "args": args, "x0": x0, "seq": seq,
+            "one": one, "sweep_err": sweep_err, "sweep_tol": sweep_tol,
+            "text": (f"one {na}-angle sweep from zero on nanocube "
+                     f"projections {sweep_err:.2e} <= {sweep_tol:.2e} (1e-4 "
+                     f"max|x|); one angle step {step_err:.2e} <= "
+                     f"{step_tol:.2e} (1e-5 max|x|); rmse vs phantom after "
+                     f"5 sweeps kernel {rk:.6f}, plain {rp:.6f}, |d| "
+                     f"{abs(rk - rp):.2e} <= 1e-4; two sweeps identical; "
+                     f"out-of-range entries leave x")}
+
+
+def _sart_route_line(geom, ns: int, lv: dict, nnz: int, card: str) -> None:
+    """Print a K8 route's launch (clusters, waves, shared memory a block)
+    and its ms a sweep over a batch of sweeps (CUDA events: torch.profiler
+    under-reported the cluster kernel in some windows) beside the bound
+    (resident: also the phase cycles of the kernel's timed
+    instantiation)."""
+    from tomojax_torch.experiments.timing import batch_ms
+    from tomojax_torch.solvers import cuda_sart
+
+    sweep_ms = batch_ms(lambda: cuda_sart.sart_sweep_sl(
+        lv["x0"], *lv["args"], lv["one"], lv["seq"]), 10, lv["x0"].device)
+    launch = "two launches a step"
+    if lv["route"] == "resident":
+        c = cuda_sart.resident_clusters(geom.n, geom.nray, ns)
+        launch = (f"{c['clusters']} clusters of {cuda_sart.BAND_BLOCKS} "
+                  f"blocks, {c['active']} at once "
+                  f"(cudaOccupancyMaxActiveClusters), {c['waves']} waves, "
+                  f"{c['smem']} B shared memory a block")
+    bound_ms, bound_by = bound(*sart_work(geom, ns, nnz))
+    print(f"{lv['tag']}: {lv['text']}; {launch}; {sweep_ms:.4f} ms/sweep "
+          f"over 10 back-to-back sweeps (CUDA events; SM clock after it, "
+          f"max: {sm_clock()}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+    if lv["route"] == "resident":
+        phases = cuda_sart.resident_phases(lv["x0"], *lv["args"], lv["one"],
+                                           lv["seq"])
+        print(f"  phases (the timed instantiation: clock64 cycles a step, "
+              f"mean over blocks; SM clock after it, max: {sm_clock()}): "
+              + "; ".join(
+                  f"{kind} ({v['steps']} steps) " + ", ".join(
+                      f"{name} {v[name]:.0f}" for name in cuda_sart.PHASES)
+                  for kind, v in phases.items()))
+
+
+def _check_sart(geom, ns: int, uni, report, nnz: int, card: str) -> None:
+    """K8 on both routes at _sart_levels' three levels: resident at this
+    shape (the row's numbers) and at N 33, Na 7, Ns 5 (a ragged slab, the
+    last band empty), streaming at 128 x 512^2 x 90; each with its launch
+    and ms a sweep beside its bound."""
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.solvers import cuda_sart
+
+    n = geom.n
+    lv = _sart_levels(geom, ns, uni(n, n, ns))
+    require(lv["route"] == "resident", f"K8 at {n}^2: route {lv['route']}")
+    _sart_route_line(geom, ns, lv, nnz, card)
+    sweep, plain = cuda_sart.sart_sweep_sl, cuda_sart.sart_sweep_sl_ref
+    args = (lv["x0"], *lv["args"], lv["one"], lv["seq"])
+    report("K8_sart_sweep", lv["sweep_err"], lv["sweep_tol"],
+           time_ms(lambda: sweep(*args), 5), time_ms(lambda: plain(*args), 2),
+           f" (resident route; {lv['text']})", work=sart_work(geom, ns, nnz))
+    for n2, na2, ns2, want in ((33, 7, 5, "resident"),
+                               (512, 90, 128, "streaming")):
+        g2 = Geometry.make(n2, np.deg2rad(np.linspace(-76, 76, na2)))
+        lv2 = _sart_levels(g2, ns2, uni(n2, n2, ns2))
+        require(lv2["route"] == want, f"K8 at {n2}^2: route {lv2['route']}")
+        _sart_route_line(g2, ns2, lv2, joseph_nnz(g2), card)
 
 
 SLABS = 4  # phase 3's emulated ranks: 256^3 as 4 slabs of 64 slices
@@ -1130,6 +1258,8 @@ def phase_asd_path(card: str, kernels: dict) -> dict:
     from tomojax_torch.solvers import (
         AsdPocsParams, asd_pocs_run, make_sart_weights, sart_sweep_sl,
     )
+    from tomojax_torch.experiments.timing import batch_ms
+    from tomojax_torch.solvers.cuda_sart import sart_route
 
     ns, n, na, iters = 256, 256, 90, 5
     angles = np.linspace(-76, 76, na)
@@ -1165,8 +1295,13 @@ def phase_asd_path(card: str, kernels: dict) -> dict:
                                               AsdPocsParams(niter=2)))
         beta = torch.tensor(1.0, device=dev)
         seq = torch.arange(na, dtype=torch.int32, device=dev)
-        sweep_ms = time_ms(lambda: sart_sweep_sl(
-            x0, tomo.b_sl, tomo.geom, tomo.sys.inv_row, w, beta, seq), 5)
+
+        def one_sweep():
+            return sart_sweep_sl(x0, tomo.b_sl, tomo.geom, tomo.sys.inv_row,
+                                 w, beta, seq)
+
+        sweep_ms, sweep_batch = time_ms(one_sweep, 5), batch_ms(one_sweep,
+                                                                10, dev)
     counts = _read(kernels, "ASD-POCS path", ASD_KERNELS)
     run_dd, run_tv = run_dd.cpu().numpy(), run_tv.cpu().numpy()
     require(recon.shape == (ns, n, n) and bool(np.isfinite(recon).all()),
@@ -1184,8 +1319,10 @@ def phase_asd_path(card: str, kernels: dict) -> dict:
           f"TomoTorch.asd_pocs({iters}) {api_s * 1e3:.1f} ms wall incl. "
           f"one host read per iteration; asd_pocs_run {ms_iter:.3f} "
           f"ms/iter = {ns * n * n / (ms_iter / 1e3) / 1e6:.1f}M "
-          f"voxel-iters/s; sart_sweep_sl {sweep_ms:.3f} ms/sweep = "
-          f"{ns * n * n / (sweep_ms / 1e3) / 1e6:.1f}M voxel-iters/s [{card}]")
+          f"voxel-iters/s; sart_sweep_sl ({sart_route(n, n)} route) "
+          f"{sweep_ms:.3f} ms/sweep = "
+          f"{ns * n * n / (sweep_ms / 1e3) / 1e6:.1f}M voxel-iters/s, "
+          f"{sweep_batch:.4f} ms/sweep over 10 back-to-back sweeps [{card}]")
     print(f"  dd {dd_vec[0]:.1f} -> {dd_vec[-1]:.1f}, tv {tv_vec[0]:.1f} -> "
           f"{tv_vec[-1]:.1f}, rmse vs phantom {rmse:.6f}; sart dd "
           f"{sart_cost[0]:.1f} -> {sart_cost[-1]:.1f}")
@@ -1652,8 +1789,9 @@ def _check_experiment_kernels(card: str) -> dict:
     from tomojax_torch.experiments import (
         cuda_projector_variants as cpv, cuda_sart_variants as csv,
     )
+    from tomojax_torch.experiments.timing import batch_ms
     from tomojax_torch.geometry import Geometry
-    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.projector.cuda_joseph import bp_sl, fp_sl
     from tomojax_torch.sim import nanocube_phantom
     from tomojax_torch.solvers import make_sart_weights, make_system, to_sl
 
@@ -1713,16 +1851,28 @@ def _check_experiment_kernels(card: str) -> dict:
     print(f"E1 device ms at angle caps {'/'.join(map(str, caps))}: {by_cap}; "
           f"K1 {device_ms(lambda: fp_sl(x, geom), 5):.4f} [{card}]")
     _check_e1_ragged(gen)
-    for form in cpv.BP_FORMS:
-        nodot = form == "NODOT"
-        held(f"E2 {form}", cpv.bp_variant,
-             lambda: cpv.bp_variant(y, geom, form),
-             lambda: cpv.bp_variant_ref(y, geom, form), 1e-5,
-             (4 * V, 7 * nnz * ns) if nodot else (4 * (S + V), spmv),
+    e2 = {form: (lambda f=form: cpv.bp_variant(y, geom, f))
+          for form in cpv.BP_FORMS}
+    e2["APS2"] = lambda: cpv.bp_variant(y, geom, aps=2)
+    for form, fn in e2.items():
+        fm = "FULL" if form == "APS2" else form
+        held(f"E2 {form}", cpv.bp_variant, fn,
+             lambda: cpv.bp_variant_ref(y, geom, fm), 1e-5,
+             (4 * V, 7 * nnz * ns) if form == "NODOT" else (4 * (S + V), spmv),
              None if form in ("NOHAT", "NODOT") else bp_lib)
-    held("E2 APS2", cpv.bp_variant, lambda: cpv.bp_variant(y, geom, aps=2),
-         lambda: cpv.bp_variant_ref(y, geom), 1e-5, (4 * (S + V), spmv),
-         bp_lib)
+        require(rows[f"E2 {form}"]["max_abs_err"] == 0.0,
+                f"E2 {form} is not bit-equal to its plain version")
+    _check_e2_ragged(gen)
+    # CUDA events around a batch: torch.profiler under-reported E2 here
+    e2_ms = {form: batch_ms(fn, 10, dev) for form, fn in e2.items()}
+    k2_ms = batch_ms(lambda: bp_sl(y, geom), 10, dev)
+    print(f"E2 ms a call over 10 back-to-back calls (CUDA events; K2's "
+          f"tiles): " + ", ".join(f"{k} {v:.4f}" for k, v in e2_ms.items())
+          + f"; K2 {k2_ms:.4f}; split on K2's design: hat (FULL - NOHAT) "
+          f"{e2_ms['FULL'] - e2_ms['NOHAT']:.4f}, loads (FULL - NODOT) "
+          f"{e2_ms['FULL'] - e2_ms['NODOT']:.4f}, NOHAT - K2 "
+          f"{e2_ms['NOHAT'] - k2_ms:.4f}; torch.sparse.mm A^T y "
+          f"{bp_lib:.4f} (one call) [{card}]")
 
     # SART: K8's check (one sweep from zero on nanocube projections, real
     # weights) and K8's work; the tables' bytes for TABLE_BF16; NOFP does
@@ -1776,13 +1926,30 @@ def _check_e1_ragged(gen) -> None:
           f"{worst:.1e} <= 1e-5 max|out|")
 
 
+def _check_e2_ragged(gen) -> None:
+    """E2 at the ragged shapes (N 33, Na 7, Ns 5 and N 48, Na 13, Ns 37:
+    tiles and slabs cut short, scalar copies and stores, a ragged last ring
+    stage): every form and APS 2 equal to the plain version bit for bit."""
+    from tomojax_torch.experiments import cuda_projector_variants as cpv
+    from tomojax_torch.geometry import Geometry
+
+    for n, na, ns in RAGGED_SHAPES:
+        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+        y = torch.rand((na, n, ns), generator=gen, device="cuda")
+        for form, aps in [(f, 1) for f in cpv.BP_FORMS] + [("FULL", 2)]:
+            require(torch.equal(cpv.bp_variant(y, geom, form, aps=aps),
+                                cpv.bp_variant_ref(y, geom, form)),
+                    f"E2 {form} aps {aps} at {(n, na, ns)} differs from "
+                    f"its plain version")
+    print(f"E2 at N 33, Na 7, Ns 5 and N 48, Na 13, Ns 37: every form and "
+          f"APS 2 equal to the plain version bit for bit")
+
+
 def _check_ablation_sass() -> None:
     """The ablations must keep what they claim to keep (cuobjdump -sass of
-    the built library). E1 (each block size): NODOT its weights' adds with
-    no ring copy (LDGSTS) and no shared load (LDS), NOHAT its ring copies
-    and 16-byte shared loads. E2: NODOT its adds with no load but the
-    float4 angle tables (LDG.E.128), NOHAT its scalar loads of the
-    sinogram."""
+    the built library). E1 (each block size) and E2: NODOT its weights'
+    adds with no ring copy (LDGSTS) and no shared load (LDS), NOHAT its
+    ring copies and 16-byte shared loads."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -1801,54 +1968,60 @@ def _check_ablation_sass() -> None:
                                  f"{pattern}")
         return found[0]
 
-    for maxt in (256, 512, 1024):
-        nodot = body(f"fp_variant_kernelILi4ELb0ELi{maxt}E")
-        nohat = body(f"fp_variant_kernelILi3ELb0ELi{maxt}E")
+    def ablations(kernel: str, nodot_pattern: str, nohat_pattern: str):
+        nodot, nohat = body(nodot_pattern), body(nohat_pattern)
         adds = re.findall(r"\bFADD", nodot)
         ring = re.findall(r"\bLDGSTS\S*|\bLDS\S*", nodot)
         copies = re.findall(r"\bLDGSTS\S*", nohat)
         reads = re.findall(r"\bLDS\.128", nohat)
         require(len(adds) >= 4 and not ring,
-                f"E1 NODOT ({maxt} threads): {len(adds)} FADD, ring "
-                f"traffic {sorted(set(ring))}")
+                f"{kernel} NODOT: {len(adds)} FADD, ring traffic "
+                f"{sorted(set(ring))}")
         require(bool(copies) and bool(reads),
-                f"E1 NOHAT ({maxt} threads) lost its ring: {len(copies)} "
-                f"LDGSTS, {len(reads)} LDS.128")
-        print(f"SASS fp_variant_kernel ({maxt} threads): NODOT {len(adds)} "
-              f"FADD, no LDGSTS or LDS; NOHAT {len(copies)} LDGSTS "
-              f"{sorted(set(copies))}, {len(reads)} LDS.128")
-    nodot = body("bp_variant_kernelILi4E")
-    nohat = body("bp_variant_kernelILi3E")
-    loads, adds = re.findall(r"LDG\S*", nodot), re.findall(r"\bFADD", nodot)
-    scalar = [op for op in re.findall(r"LDG\S*", nohat) if ".128" not in op]
-    require(len(adds) >= 4 and all(".128" in op for op in loads),
-            f"bp_variant_kernel NODOT: {len(adds)} FADD, loads "
-            f"{sorted(set(loads))}")
-    require(bool(scalar), "bp_variant_kernel NOHAT lost its data loads")
-    print(f"SASS bp_variant_kernel: NODOT {len(adds)} FADD, loads "
-          f"{sorted(set(loads))}; NOHAT {len(scalar)} scalar loads")
+                f"{kernel} NOHAT lost its ring: {len(copies)} LDGSTS, "
+                f"{len(reads)} LDS.128")
+        print(f"SASS {kernel}: NODOT {len(adds)} FADD, no LDGSTS or LDS; "
+              f"NOHAT {len(copies)} LDGSTS {sorted(set(copies))}, "
+              f"{len(reads)} LDS.128")
 
-    # registers and stack (spills) per thread of E1's instantiations and of
-    # K2/K10's bp_kernel, from cuobjdump -res-usage
+    for maxt in (256, 512, 1024):
+        ablations(f"fp_variant_kernel ({maxt} threads)",
+                  f"fp_variant_kernelILi4ELb0ELi{maxt}E",
+                  f"fp_variant_kernelILi3ELb0ELi{maxt}E")
+    ablations("bp_variant_kernel", "bp_variant_kernelILi4E",
+              "bp_variant_kernelILi3E")
+
+    # registers and stack (spills) per thread of E1's and E2's
+    # instantiations, of K2/K10's bp_kernel and of K8's resident kernel,
+    # from cuobjdump -res-usage
     usage = subprocess.run([str(tool), "-res-usage", str(_build.build().path)],
                            capture_output=True, text=True, timeout=300).stdout
     found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", usage)
     if not found:
         print("registers/stack bytes: not read (cuobjdump -res-usage)")
     forms = ("FULL", "HAT5", "BF16", "NOHAT", "NODOT", "W4")
-    e1 = {}
+    e1, e2 = {}, []
     for name, reg, stack in found:
         m = re.search(r"fp_variant_kernelILi(\d)ELb(\d)ELi(\d+)E", name)
         if m:
             form = "PAIR" if m[2] == "1" else forms[int(m[1])]
             e1.setdefault(int(m[3]), []).append(f"{form} {reg}/{stack}")
+        m = re.search(r"bp_variant_kernelILi(\d)ELi(\d)E", name)
+        if m:
+            form = "APS2" if m[2] == "2" else forms[int(m[1])]
+            e2.append(f"{form} {reg}/{stack}")
         m = re.search(r"bp_kernelILb(\d)E", name)
         if m and "variant" not in name:
             print(f"registers/stack bytes bp_kernel<{m[1] == '1'}> (K2, "
                   f"K10): {reg}/{stack}")
+        m = re.search(r"\d+sart_resident_kernelILb(\d)E", name)
+        if m and "exp_sart" not in name:
+            print(f"registers/stack bytes sart_resident_kernel<PROF="
+                  f"{m[1] == '1'}> (K8): {reg}/{stack}")
     for maxt in sorted(e1):
         print(f"registers/stack bytes fp_variant_kernel ({maxt} threads): "
               f"{', '.join(sorted(e1[maxt]))}")
+    print(f"registers/stack bytes bp_variant_kernel: {', '.join(sorted(e2))}")
 
 
 def phase_experiments(card: str) -> dict:
@@ -2035,8 +2208,9 @@ def phase_golden_fusion(card: str) -> None:
 
 
 def projector_times_main() -> int:
-    """`--projector-times`: only the times of K1, K2, K10 (ab 6) and E1
-    FULL at 256^3 x 90 and 128 x 512^2 x 90 (`projector_times`), with the
+    """`--projector-times`: only the times of K1, K2, K10 (ab 6), E1 FULL,
+    E2 FULL and one K8 sweep at 256^3 x 90 and 128 x 512^2 x 90
+    (`projector_times`), with the
     tomojax_torch package beside this file; a copy of this file beside
     another tree times that tree's kernels."""
     from tomojax_torch.geometry import Geometry

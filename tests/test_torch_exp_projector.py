@@ -278,8 +278,9 @@ def test_projector_drivers_run_on_cpu(name, capsys):
 def test_e1_e2_kernels_match_plain_on_card():
     """Every instantiation of E1 (six forms, PAIR, angles per block 1 to
     32) and E2 (five forms, APS 2) equals its plain version bit for bit;
-    E1 also at ragged shapes (N 33, Ns 5 and N 48, Ns 37: scalar copies,
-    bin tiles and slabs cut short), PAIR on symmetric series."""
+    both also at ragged shapes (N 33, Ns 5 and N 48, Ns 37: scalar copies,
+    tiles and slabs cut short, a ragged last ring stage), PAIR on
+    symmetric series."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -304,3 +305,11 @@ def test_e1_e2_kernels_match_plain_on_card():
         ref = cpv.bp_variant_ref(y, g, form)
         assert torch.equal(cpv.bp_variant(y, g, form), ref), form
     assert torch.equal(cpv.bp_variant(y, g, aps=2), cpv.bp_variant_ref(y, g))
+    for n, na, ns in ((33, 7, 5), (48, 13, 37)):
+        geom = _geoms(n, na)[1]
+        ys = torch.from_numpy(_data(n, ns, na, seed=n)[1]).to(dev)
+        for form in cpv.BP_FORMS:
+            assert torch.equal(cpv.bp_variant(ys, geom, form),
+                               cpv.bp_variant_ref(ys, geom, form)), (n, form)
+        assert torch.equal(cpv.bp_variant(ys, geom, aps=2),
+                           cpv.bp_variant_ref(ys, geom)), (n, "APS2")

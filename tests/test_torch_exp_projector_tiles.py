@@ -1,4 +1,5 @@
-"""E1's staged gather (csrc/exp_projector.cu fp_variant_kernel), emulated.
+"""E1's and E2's staged gathers (csrc/exp_projector.cu fp_variant_kernel,
+bp_variant_kernel), emulated.
 
 E1 walks K1's host plan (`cuda_joseph.fp_plan` with at most `ab` angles a
 group): per group and driving step it stages the window [lo, lo + width)
@@ -10,6 +11,13 @@ mirrored window (row N-1-k, or rows N-1-i of column k). A numpy emulation
 of that gather, in every weight form, equals the plain version
 `fp_variant_ref` bit for bit: both round each float32 operation alone, in
 the same order.
+
+E2 is K2's block: per 16 x 16 tile and angle it stages 24 bins from the
+window start of `cuda_joseph.bp_window_lo` (zeros outside [0, Nt)), 8
+angles a ring stage, and each pixel reads its taps floor(J*), floor(J*) + 1
+from there with the weights of its form; APS 2 reads two angles' taps
+before adding them in angle order. Its emulation equals `bp_variant_ref`
+bit for bit in every form.
 """
 
 import numpy as np
@@ -138,6 +146,79 @@ def test_staged_e1_pair_matches_plain(n, extra, name):
     for ab in CAPS:
         np.testing.assert_array_equal(_emulate_e1(x, geom, "FULL", ab, True),
                                       want, err_msg=f"ab={ab}")
+
+
+BP_STAGE = 8  # E2's angles a ring stage (csrc/staging.cuh BP_G)
+
+
+def _emulate_e2(y, geom, form, aps=1):
+    """E2's blocks in numpy: per tile and angle BP_WINDOW bins from the
+    tile's window start, zeros outside [0, Nt); per pixel the taps of J*,
+    the weights of `form` (NODOT: the weights alone), the values read from
+    the staged window (times invd for BF16); the ring's stages of BP_STAGE
+    angles, two angles' reads before their sums with aps 2, the angles
+    added in order."""
+    n, nt, na, ns = geom.n, geom.nray, geom.nproj, y.shape[-1]
+    tab = cj.angle_tables(geom, CPU).bp.numpy()
+    lo = cj.bp_window_lo(geom)  # (Na, row tiles, column tiles)
+    tiles = lo.shape[1]
+    side = tiles * cj.BP_TILE  # pixels past N are computed, not stored
+    ctr = F32(0.5) * F32(n - 1)
+    px = np.arange(side, dtype=F32)
+    jstar = cj.bp_jstar(tab, nt, (px - ctr)[None, :], (ctr - px)[:, None])
+    f = np.floor(jstar)  # (Na, rows, columns)
+    tr, tc = np.meshgrid(np.arange(side) // cj.BP_TILE,
+                         np.arange(side) // cj.BP_TILE, indexing="ij")
+    bins = np.arange(cj.BP_WINDOW)
+    acc = np.zeros((side, side) if form == "NODOT" else (side, side, ns),
+                   F32)
+    for g in range(0, na, BP_STAGE):
+        stage = list(range(g, min(g + BP_STAGE, na)))
+        ring = {}
+        for a in stage:  # the stage: every tile's window of every angle
+            j = lo[a][:, :, None] + bins  # (tiles, tiles, BP_WINDOW)
+            ring[a] = np.where(((j >= 0) & (j < nt))[..., None],
+                               y[a, np.clip(j, 0, nt - 1)], F32(0))
+        # aps 2: pairs of the stage, its odd last angle alone
+        for step in (stage[i:i + aps] for i in range(0, len(stage), aps)):
+            reads = []
+            for a in step:  # every read of the step first
+                invd = tab[a, 2]
+                w0 = _weight(form, f[a], jstar[a], invd)
+                w1 = _weight(form, f[a] + F32(1), jstar[a], invd)
+                if form == "NODOT":
+                    reads.append((w0, w1, None, None))
+                    continue
+                rel = f[a].astype(np.int64) - lo[a][tr, tc]
+                assert rel.min() >= 0 and rel.max() <= cj.BP_WINDOW - 2
+                v0, v1 = ring[a][tr, tc, rel], ring[a][tr, tc, rel + 1]
+                if form == "BF16":
+                    v0, v1 = v0 * invd, v1 * invd
+                reads.append((w0, w1, v0, v1))
+            for w0, w1, v0, v1 in reads:  # then the sums, in angle order
+                if form == "NODOT":
+                    acc = acc + w0
+                    acc = acc + w1
+                else:
+                    acc = acc + w0[..., None] * v0
+                    acc = acc + w1[..., None] * v1
+    if form == "NODOT":
+        acc = np.repeat(acc[..., None], ns, axis=-1)
+    return acc[:n, :n]
+
+
+@pytest.mark.parametrize("form", (*cpv.BP_FORMS, "APS2"))
+@pytest.mark.parametrize("name", sorted(ANGLE_SETS))
+@pytest.mark.parametrize("n,extra", [(16, 0), (16, 7), (33, 0), (33, 7)])
+def test_staged_e2_matches_plain(n, extra, name, form):
+    geom = Geometry.make(n, np.deg2rad(ANGLE_SETS[name]), nray=n + extra)
+    y = np.random.default_rng(3 * n + extra).normal(
+        size=(geom.nproj, geom.nray, 3)).astype(F32)
+    aps = 2 if form == "APS2" else 1
+    fm = "FULL" if aps == 2 else form
+    want = cpv.bp_variant_ref(torch.from_numpy(y), geom, fm)
+    got = torch.from_numpy(_emulate_e2(y, geom, fm, aps))
+    assert torch.equal(got, want)
 
 
 def test_pair_plan_walks_the_second_half():

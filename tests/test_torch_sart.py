@@ -203,3 +203,60 @@ def test_sart_kernel_matches_plain_on_card():
         assert float((got - ref).abs().max()) <= tol
     assert torch.equal(x, to_sl(torch.from_numpy(np.random.default_rng(
         3).random((6, 40, 40)).astype(np.float32))).to(dev))  # input kept
+
+
+@pytest.mark.cuda
+def test_sart_routes_match_plain_on_card():
+    """Both routes of csrc/sart.cu against the plain version: resident at
+    N 33, Na 7, Ns 5 (a ragged slab, empty last band) and N 40 with 5
+    extra bins, streaming at N 320; the C route is the Python helper's, an
+    out-of-range order entry leaves x as it was, and two runs agree bit
+    for bit (no float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from tomojax_torch import _build
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.solvers import cuda_sart
+
+    dev = torch.device("cuda")
+    lib = _build.lib()
+    for n, nt in ((16, 16), (256, 256), (256, 263), (288, 288), (289, 289),
+                  (512, 512)):
+        assert bool(lib.tj_sart_route(n, nt)) == (
+            cuda_sart.sart_route(n, nt) == "resident"), (n, nt)
+    rng = np.random.default_rng(4)
+    for n, na, ns, extra, route in ((33, 7, 5, 0, "resident"),
+                                    (40, 15, 4, 5, "resident"),
+                                    (320, 5, 3, 0, "streaming")):
+        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)),
+                             nray=n + extra)
+        assert cuda_sart.sart_route(n, geom.nray) == route
+        sys_c = make_system(geom, dev)
+        w = make_sart_weights(sys_c)
+        vol = to_sl(torch.from_numpy(
+            np.stack([shepp_logan(n)] * ns).astype(np.float32))).to(dev)
+        b_sl = fp_sl(vol, geom)
+        x = torch.from_numpy(rng.random((n, n, ns), np.float32)).to(dev)
+        keep = x.clone()
+        beta = torch.tensor(1.0, device=dev)
+        args = (b_sl, geom, sys_c.inv_row, w, beta)
+        for a in (0, na // 2):
+            order = torch.tensor([a], dtype=torch.int32, device=dev)
+            got = sart_sweep_sl(x, *args, order)
+            ref = sart_sweep_sl_ref(x, *args, order)
+            assert float((got - ref).abs().max()) <= 1e-5 * float(
+                ref.abs().max()), (route, a)
+        seq = torch.arange(na, dtype=torch.int32, device=dev)
+        x0 = torch.zeros_like(x)
+        got = sart_sweep_sl(x0, *args, seq)
+        ref = sart_sweep_sl_ref(x0, *args, seq)
+        assert float((got - ref).abs().max()) <= 1e-4 * float(
+            ref.abs().max()), route
+        assert torch.equal(sart_sweep_sl(x0, *args, seq), got)
+        skip = torch.tensor([na, -1], dtype=torch.int32, device=dev)
+        assert torch.equal(sart_sweep_sl(x, *args, skip), x)
+        assert torch.equal(x, keep)
+        if route == "resident":  # the timed instantiation walks every step
+            phases = cuda_sart.resident_phases(x0, *args, seq)
+            assert sum(v["steps"] for v in phases.values()) == na
+            assert all(v["FP"] > 0 for v in phases.values() if v["steps"])

@@ -1,0 +1,222 @@
+"""K8's resident route (csrc/sart.cu sart_resident_kernel), emulated.
+
+A cluster of `BAND_BLOCKS` blocks keeps 4 slices of the volume for the
+whole sweep, block r the rows [r R, (r + 1) R), R = ceil(N / blocks). Per
+step each block sums every ray's taps that lie in its own rows: a
+row-driven angle's steps over its rows, a column-driven angle's steps in
+the closed-form range of `cuda_sart.column_steps`, reading 0 for a tap row
+outside the band. The blocks' partials are added in block order, scaled by
+1/D into the residual, and every pixel takes K8's update.
+
+These tests show, on the host, that every in-volume tap of every (angle,
+bin, step) falls in exactly one band (so the partials add up to the ray),
+hold a torch emulation of the sweep against the plain version
+`sart_sweep_sl_ref` within the bounds `chip_smoke.py` applies to the
+kernel, and check the route helper.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from tomojax_torch import ops  # noqa: E402
+from tomojax_torch.geometry import Geometry  # noqa: E402
+from tomojax_torch.projector import cuda_joseph as cj  # noqa: E402
+from tomojax_torch.sim import nanocube_phantom  # noqa: E402
+from tomojax_torch.solvers import (  # noqa: E402
+    make_sart_weights, make_system, to_sl,
+)
+from tomojax_torch.solvers import cuda_sart as cs  # noqa: E402
+
+CPU = torch.device("cpu")
+F32 = np.float32
+ANGLE_SETS = {
+    "tilt16": np.linspace(-76, 76, 16),
+    "full90": np.arange(0, 180, 2.0),
+    "exact": np.array([0.0, 45.0, 90.0, 135.0, 180.0, -45.0, -90.0]),
+}
+
+
+def _bands(n, blocks):
+    rows = -(-n // blocks)
+    return [(min(r * rows, n), min((r + 1) * rows, n)) for r in range(blocks)]
+
+
+def _taps_counted(geom, a, blocks):
+    """How often the bands count each tap of angle a: (2, N steps, Nt) for
+    the taps i0 and i0 + 1, with the in-volume mask of each."""
+    n, nt = geom.n, geom.nray
+    tab = cj.angle_tables(geom, CPU).fp.numpy()
+    k, j = np.arange(n)[:, None], np.arange(nt)[None, :]
+    pos = cj.fp_positions(tab[[a]], n, nt, j, k)[0]  # (N steps, Nt)
+    i0 = np.floor(pos).astype(np.int64)
+    taps = np.stack([i0, i0 + 1])
+    inside = (taps >= 0) & (taps < n)
+    counted = np.zeros(taps.shape, np.int64)
+    row_driven = tab[a, 3] != 0
+    ctr = F32(0.5) * F32(n - 1)
+    u = ctr - (np.arange(nt, dtype=F32) - F32(0.5) * F32(nt - 1)) * tab[a, 0]
+    for r0, r1 in _bands(n, blocks):
+        if row_driven:  # the band's rows are its steps, every column held
+            walked = (k >= r0) & (k < r1)
+            counted += walked & inside
+        else:  # taps along rows: those in the band, over its step range
+            k0, k1 = cs.column_steps(u, tab[a, 1], n, nt, r0, r1)
+            walked = (k >= k0[None, :]) & (k < k1[None, :])
+            counted += walked & (taps >= r0) & (taps < r1)
+    return counted, inside
+
+
+@pytest.mark.parametrize("blocks", [8, 3])
+@pytest.mark.parametrize("name", sorted(ANGLE_SETS))
+@pytest.mark.parametrize("n,extra", [(16, 0), (33, 7), (48, 0)])
+def test_every_tap_falls_in_exactly_one_band(n, extra, name, blocks):
+    geom = Geometry.make(n, np.deg2rad(ANGLE_SETS[name]), nray=n + extra)
+    for a in range(geom.nproj):
+        counted, inside = _taps_counted(geom, a, blocks)
+        np.testing.assert_array_equal(counted, inside.astype(np.int64),
+                                      err_msg=f"angle {a}")
+
+
+def test_column_steps_are_short_ranges():
+    """The closed form walks about R / |shear| steps a band, not all N: at
+    76 degrees (|shear| 0.25) a band of 32 rows of 256 takes at most 140."""
+    geom = Geometry.make(256, np.deg2rad([76.0]))
+    tab = cj.angle_tables(geom, CPU).fp.numpy()
+    assert tab[0, 3] == 0  # column-driven
+    ctr = F32(127.5)
+    u = ctr - (np.arange(256, dtype=F32) - F32(127.5)) * tab[0, 0]
+    longest = max(int((k1 - k0).max()) for k0, k1 in (
+        cs.column_steps(u, tab[0, 1], 256, 256, r0, r1)
+        for r0, r1 in _bands(256, cs.BAND_BLOCKS)))
+    assert 0 < longest <= 140
+
+
+def _band_partial(x, t, n, nt, r0, r1):
+    """One block's FP partial (Nt, Ns) of an angle with fp table row t: the
+    taps of its rows, in the kernel's positions, over its steps."""
+    inv_d, shear, _, row_driven = t
+    ctr = (n - 1) / 2.0
+    steps = torch.arange(n, dtype=torch.float32)
+    base = (torch.arange(nt, dtype=torch.float32) - (nt - 1) / 2.0) * inv_d
+    k = torch.arange(n)[:, None]
+    if row_driven:
+        pos = (base[None, :] + (ctr - steps)[:, None] * shear) + ctr
+        walked = (k >= r0) & (k < r1)
+        lo, hi = 0, n
+    else:
+        u = ctr - base
+        pos = u[None, :] + (steps - ctr)[:, None] * shear
+        k0, k1 = cs.column_steps(u.numpy(), shear, n, nt, r0, r1)
+        walked = (k >= torch.from_numpy(k0)) & (k < torch.from_numpy(k1))
+        lo, hi = r0, r1
+    f = torch.floor(pos)
+    frac = pos - f
+    acc = torch.zeros((nt, x.shape[-1]))
+    for tap, w in ((f.long(), 1.0 - frac), (f.long() + 1, frac)):
+        held = walked & (tap >= lo) & (tap < hi)
+        tc = tap.clamp(0, n - 1)
+        v = x[k, tc] if row_driven else x[tc, k]  # (N steps, Nt, Ns)
+        acc = acc + torch.where(held[..., None], v * w[..., None], 0.0).sum(0)
+    return acc
+
+
+def emulate_resident_sweep(x, b, geom, inv_row, inv_col_a, beta, order,
+                           blocks=cs.BAND_BLOCKS):
+    """The resident sweep on the host: per step the bands' partials added in
+    block order, scaled by 1/D into the residual, then K8's update; an
+    order entry outside [0, Na) leaves x unchanged."""
+    n, nt, na = geom.n, geom.nray, geom.nproj
+    tabs = cj.angle_tables(geom, CPU)
+    fp_tab, bp_tab = tabs.fp.tolist(), tabs.bp.tolist()
+    for a in order.tolist():
+        if not 0 <= a < na:
+            continue
+        parts = [_band_partial(x, fp_tab[a], n, nt, r0, r1)
+                 for r0, r1 in _bands(n, blocks)]
+        ray = parts[0]
+        for p in parts[1:]:
+            ray = ray + p
+        resid = (b[a] - ray * fp_tab[a][2]) * inv_row[a][:, None]
+        upd = cj.bp_angle_ref(resid, bp_tab[a], n)
+        x = torch.clamp_min(x + beta * inv_col_a[a][:, :, None] * upd, 0.0)
+    return x
+
+
+def _problem(n, na, ns, extra=0):
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)),
+                         nray=n + extra)
+    sysd = make_system(geom, "cpu")
+    vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)))
+    return geom, sysd, vol, cj.fp_sl_ref(vol, geom), make_sart_weights(sysd)
+
+
+@pytest.mark.parametrize("order_kind", ["ordered", "permuted"])
+@pytest.mark.parametrize("n,na,ns,extra", [(33, 7, 5, 0), (40, 15, 3, 5)])
+def test_emulated_sweep_within_chip_smoke_bounds(n, na, ns, extra,
+                                                 order_kind):
+    """chip_smoke.py's three levels: one angle step (a column- and a
+    row-driven angle) from random x within 1e-5 max|x|; one sweep from zero
+    on consistent projections within 1e-4 max|x|; rmse against the phantom
+    after 5 sweeps within 1e-4 of the plain version's."""
+    geom, sysd, vol, b, w = _problem(n, na, ns, extra)
+    args = (b, geom, sysd.inv_row, w, torch.tensor(1.0))
+    x = torch.from_numpy(np.random.default_rng(n).random(
+        (n, n, ns)).astype(F32))
+    for a in (0, na // 2):
+        order = torch.tensor([a], dtype=torch.int32)
+        ref = cs.sart_sweep_sl_ref(x, *args, order)
+        got = emulate_resident_sweep(x, *args, order)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    order = torch.arange(na, dtype=torch.int32)
+    if order_kind == "permuted":
+        order = torch.from_numpy(
+            np.random.default_rng(5).permutation(na).astype(np.int32))
+    x0 = torch.zeros_like(vol)
+    ref = cs.sart_sweep_sl_ref(x0, *args, order)
+    got = emulate_resident_sweep(x0, *args, order)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    xe = xp = x0
+    for _ in range(5):
+        xe = emulate_resident_sweep(xe, *args, order)
+        xp = cs.sart_sweep_sl_ref(xp, *args, order)
+    assert abs(float(ops.rmse(xe, vol)) - float(ops.rmse(xp, vol))) <= 1e-4
+
+
+def test_out_of_range_order_entries_leave_x():
+    geom, sysd, vol, b, w = _problem(24, 6, 2)
+    args = (b, geom, sysd.inv_row, w, torch.tensor(0.7))
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (24, 24, 2)).astype(F32))
+    skip = torch.tensor([6, -1, 100], dtype=torch.int32)
+    assert torch.equal(emulate_resident_sweep(x, *args, skip), x)
+    mixed = torch.tensor([6, 2, -1, 4], dtype=torch.int32)
+    assert torch.equal(emulate_resident_sweep(x, *args, mixed),
+                       emulate_resident_sweep(
+                           x, *args, torch.tensor([2, 4], dtype=torch.int32)))
+
+
+def test_phase_timing_checks_its_operands():
+    """The timed instantiation takes `sart_sweep_sl`'s operands, checked
+    before any pointer reaches the card, and only on the card."""
+    geom, sysd, vol, b, w = _problem(24, 6, 2)
+    args = [vol, b, geom, sysd.inv_row, w, torch.tensor(1.0),
+            torch.arange(6, dtype=torch.int32)]
+    with pytest.raises(ValueError, match="CUDA"):
+        cs.resident_phases(*args)
+    args[4] = w[:-1]  # weights of another geometry
+    with pytest.raises(ValueError, match="inv_col_a"):
+        cs.resident_phases(*args)
+
+
+def test_route_depends_on_the_shape_alone():
+    assert cs.resident_smem_bytes(256, 256) == (32 * 260 * 16 + 32 * 256 * 4
+                                                + 256 * 68)
+    for n in (16, 33, 64, 128, 256, 288):
+        assert cs.sart_route(n, n) == "resident", n
+    for n in (289, 320, 512, 1024):
+        assert cs.sart_route(n, n) == "streaming", n
+    assert cs.sart_route(256, 256 + 7) == "resident"
+    assert cs.band_rows(256) == 32 and cs.band_rows(33) == 5

@@ -33,6 +33,7 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of every C entry (pointers and the stream as c_void_p, so that
 # ctypes does not truncate them to 32-bit ints)
 _SIGNATURES = {
@@ -61,6 +62,10 @@ _SIGNATURES = {
     "tj_tv_grad_partials": [_I, _I, _I],
     "tj_sart_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _P],
+    "tj_sart_resident_phases": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                _I, _I, _I, _I, _P, _P],
+    "tj_sart_route": [_I, _I],
+    "tj_sart_active_clusters": [_I, _I, _I, _IP],
     "tj_exp_fp": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
                   _I, _P],
     "tj_exp_bp": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P],

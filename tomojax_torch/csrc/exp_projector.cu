@@ -1,8 +1,8 @@
 // Experiment projectors E1 (forward) and E2 (back), the counterparts of
 // the TPU kernels of scripts/exp_hat_model.py, exp_projector_variants.py,
 // exp_projector_variants2.py and exp_pair_fp.py. E1 is K1's slab-resident
-// design (joseph.cu fp_kernel, on K1's host plan) and E2 a
-// one-thread-per-voxel gather of K2's taps, each with the weight forms of
+// design (joseph.cu fp_kernel, on K1's host plan) and E2 K2's (joseph.cu
+// bp_kernel, on the staging of staging.cuh), each with the weight forms of
 // exp_hat.cuh, so a script's variant is a template instantiation of one
 // kernel and not a TPU tiling: band windows, MXU tiles and VMEM blocks do
 // not carry over.
@@ -19,14 +19,15 @@
 namespace {
 
 using namespace tj::xp;
+using tj::BP_G;
+using tj::BP_NT;
+using tj::BP_PX;
+using tj::BP_T;
+using tj::BP_W;
 using tj::FP_B;
 using tj::FP_K;
 using tj::FP_W;
 using tj::SLAB;
-
-constexpr int BS = 32;            // E2 slices per block (threadIdx.x)
-constexpr int BP_BC = 8;          // E2 columns per block (threadIdx.y)
-constexpr int BP_MAX_ANGLES = 3072;
 
 // E1 -- replaces scripts/exp_hat_model.py:_fp_banded_kernel (FULL, HAT5,
 // BF16, NOHAT, NODOT), exp_projector_variants.py:_fp_kernel (FULL, W4; its
@@ -270,11 +271,20 @@ fp_variant_kernel(const float* __restrict__ x,
 // banded split on Hopper, as K2), exp_projector_variants.py:_bp_kernel
 // (FULL, W4) and exp_projector_variants2.py:_bp2_kernel (FULL with APS 2).
 //
-// One thread per voxel (r, c, s) loops over the angles as K2: the bins
-// j0 = floor(J*), j0 + 1 weighted by weight<FORM>(j, J*). APS = 2 takes two
-// angles per step and issues their four sinogram loads before the first
-// product; the products are added in K2's angle order, so APS does not
-// change the result.
+// K2's blocks and staging (joseph.cu bp_kernel; staging.cuh bp_windows and
+// bp_stage): a 16 x 16 tile of pixels x 32 slices, a thread 8 pixels of one
+// column x 4 slices; the angles streamed BP_G a stage through the
+// double-buffered ring of BP_W bins from each (tile, angle)'s window start
+// x 32 slices, zeros for bins outside [0, Nt). Per pixel and angle a thread
+// computes J*, the taps j0 = floor(J*), j0 + 1 and weight<FORM>(j, J*) of
+// both once for its 4 slices and reads two float4 from the ring (BF16: each
+// value times invd first, in f32). Every product and sum is rounded on its
+// own and the angles are added in order, so E2 equals bp_variant_ref bit
+// for bit: a bin outside [0, Nt) reads a staged 0, as the plain version's.
+// APS = 2 takes two angles of a stage per step and issues their four shared
+// reads before the first product; the products are still added in angle
+// order, so APS does not change the result. NOHAT keeps every stage and
+// shared read; NODOT stages nothing and reads only the angle tables.
 template <int FORM>
 __device__ __forceinline__ void bp_taps_of(float4 t, float xc, float yr,
                                            float off, int& j0, float& w0,
@@ -287,69 +297,128 @@ __device__ __forceinline__ void bp_taps_of(float4 t, float xc, float yr,
   w1 = weight<FORM>(__fadd_rn(f, 1.f), jstar, t.z, inv2);
 }
 
+// The two staged taps of bin j0 (its window at win, starting at bin lo),
+// times invd for BF16.
 template <int FORM>
-__device__ __forceinline__ float bp_load(const float* __restrict__ ya,
-                                         int j, int nt, int ns, float invd) {
-  if (FORM == NODOT) return 0.f;
-  const float v = (j >= 0 && j < nt) ? ya[j * ns] : 0.f;
-  return FORM == BF16 ? __fmul_rn(v, invd) : v;  // BF16: y invd, in f32
-}
-
-template <int FORM>
-__device__ __forceinline__ float bp_add(float acc, float w0, float w1,
-                                        float v0, float v1) {
-  if (FORM == NODOT) return __fadd_rn(__fadd_rn(acc, w0), w1);
-  return __fadd_rn(__fadd_rn(acc, __fmul_rn(w0, v0)), __fmul_rn(w1, v1));
+__device__ __forceinline__ void bp_reads(const float* win, int lo, int j0,
+                                         float invd, float4& v0, float4& v1) {
+  const float* v = win + (j0 - lo) * SLAB;
+  v0 = *reinterpret_cast<const float4*>(v);
+  v1 = *reinterpret_cast<const float4*>(v + SLAB);
+  if (FORM == BF16) {
+    v0 = make_float4(__fmul_rn(v0.x, invd), __fmul_rn(v0.y, invd),
+                     __fmul_rn(v0.z, invd), __fmul_rn(v0.w, invd));
+    v1 = make_float4(__fmul_rn(v1.x, invd), __fmul_rn(v1.y, invd),
+                     __fmul_rn(v1.z, invd), __fmul_rn(v1.w, invd));
+  }
 }
 
 template <int FORM, int APS>
-__global__ void __launch_bounds__(BS * BP_BC)
+__global__ void __launch_bounds__(BP_NT)
 bp_variant_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
-                  float* __restrict__ out, int n, int nt, int na, int ns) {
-  extern __shared__ float4 stab[];
-  const int tid = threadIdx.y * BS + threadIdx.x;
-  for (int i = tid; i < na; i += BS * BP_BC) stab[i] = tab[i];
-  __syncthreads();
-
-  const int s = blockIdx.x * BS + threadIdx.x;
-  const int c = blockIdx.y * BP_BC + threadIdx.y;
-  const int r = blockIdx.z;
-  if (s >= ns || c >= n) return;
+                  float* __restrict__ out, int n, int nt, int na, int ns,
+                  bool vec) {
+  extern __shared__ float4 e2_smem4[];
+  const int tiles_c = (n + BP_T - 1) / BP_T;
+  const int r0 = blockIdx.x / tiles_c * BP_T;
+  const int c0 = (blockIdx.x % tiles_c) * BP_T;
+  const int s0 = blockIdx.y * SLAB;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int q = lane & 7;                        // slices s0 + 4q ...
+  const int slot = (tid >> 5) * 4 + (lane >> 3);  // 0 .. 31
+  const int c = c0 + slot % BP_T;
+  const int r_first = r0 + slot / BP_T;  // rows r_first + 2i
   const float ctr = 0.5f * static_cast<float>(n - 1);
-  const float xc = static_cast<float>(c) - ctr;
-  const float yr = ctr - static_cast<float>(r);
   const float off = 0.5f * static_cast<float>(nt - 1);
-  const size_t plane = static_cast<size_t>(nt) * ns;
-  const float* ys = y + s;
-  float acc = 0.f;
-  int a = 0;
-  if (APS == 2) {
-    for (; a + 1 < na; a += 2) {
-      const float4 t0 = stab[a], t1 = stab[a + 1];
-      int j0, j1;
-      float w00, w01, w10, w11;
-      bp_taps_of<FORM>(t0, xc, yr, off, j0, w00, w01);
-      bp_taps_of<FORM>(t1, xc, yr, off, j1, w10, w11);
-      const float* y0 = ys + a * plane;
-      const float* y1 = y0 + plane;
-      const float v00 = bp_load<FORM>(y0, j0, nt, ns, t0.z);
-      const float v01 = bp_load<FORM>(y0, j0 + 1, nt, ns, t0.z);
-      const float v10 = bp_load<FORM>(y1, j1, nt, ns, t1.z);
-      const float v11 = bp_load<FORM>(y1, j1 + 1, nt, ns, t1.z);
-      acc = bp_add<FORM>(acc, w00, w01, v00, v01);
-      acc = bp_add<FORM>(acc, w10, w11, v10, v11);
+  const float xc = static_cast<float>(c) - ctr;
+  float4 acc[BP_PX];
+#pragma unroll
+  for (int i = 0; i < BP_PX; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  if (FORM == NODOT) {  // the weights alone: acc + w0 + w1 per pixel
+    for (int a = 0; a < na; ++a) {
+      const float4 t = tab[a];
+#pragma unroll
+      for (int i = 0; i < BP_PX; ++i) {
+        int j0;
+        float w0, w1;
+        bp_taps_of<FORM>(t, xc, ctr - static_cast<float>(r_first + 2 * i),
+                         off, j0, w0, w1);
+        acc[i].x = __fadd_rn(__fadd_rn(acc[i].x, w0), w1);
+      }
+    }
+  } else {
+    float* ring = reinterpret_cast<float*>(e2_smem4);  // [2][BP_G][BP_W][32]
+    const int half = BP_G * BP_W * SLAB;               // floats per buffer
+    float4* stab = e2_smem4 + half / 2;                // na table entries
+    int* slo = reinterpret_cast<int*>(stab + na);      // na window starts
+    tj::bp_windows(tab, na, na, r0, c0, n, nt, stab, slo);
+    __syncthreads();
+    const int ngroups = (na + BP_G - 1) / BP_G;
+    tj::bp_stage(ring, y, slo, 0, BP_G, na, nt, ns, s0, vec);
+    for (int g = 0; g < ngroups; ++g) {
+      tj::copy_wait();
+      __syncthreads();  // group g landed; every thread is done with g - 1
+      if (g + 1 < ngroups) {
+        tj::bp_stage(ring + ((g + 1) & 1) * half, y, slo, g + 1, BP_G, na,
+                     nt, ns, s0, vec);
+      }
+      const float* buf = ring + (g & 1) * half + 4 * q;
+      const int kn = min(BP_G, na - g * BP_G);
+      int k = 0;
+      if (APS == 2) {
+        for (; k + 1 < kn; k += 2) {
+          const int a = g * BP_G + k;
+          const float4 t0 = stab[a], t1 = stab[a + 1];
+          const float* win0 = buf + k * BP_W * SLAB;
+          const float* win1 = win0 + BP_W * SLAB;
+          const int lo0 = slo[a], lo1 = slo[a + 1];
+#pragma unroll
+          for (int i = 0; i < BP_PX; ++i) {
+            const float yr = ctr - static_cast<float>(r_first + 2 * i);
+            int j0, j1;
+            float w00, w01, w10, w11;
+            bp_taps_of<FORM>(t0, xc, yr, off, j0, w00, w01);
+            bp_taps_of<FORM>(t1, xc, yr, off, j1, w10, w11);
+            float4 v00, v01, v10, v11;
+            bp_reads<FORM>(win0, lo0, j0, t0.z, v00, v01);
+            bp_reads<FORM>(win1, lo1, j1, t1.z, v10, v11);
+            acc[i] = add_pair(acc[i], w00, v00, w01, v01);
+            acc[i] = add_pair(acc[i], w10, v10, w11, v11);
+          }
+        }
+      }
+      for (; k < kn; ++k) {
+        const int a = g * BP_G + k;
+        const float4 t = stab[a];
+        const float* win = buf + k * BP_W * SLAB;
+        const int lo = slo[a];
+#pragma unroll
+        for (int i = 0; i < BP_PX; ++i) {
+          int j0;
+          float w0, w1;
+          bp_taps_of<FORM>(t, xc, ctr - static_cast<float>(r_first + 2 * i),
+                           off, j0, w0, w1);
+          float4 v0, v1;
+          bp_reads<FORM>(win, lo, j0, t.z, v0, v1);
+          acc[i] = add_pair(acc[i], w0, v0, w1, v1);
+        }
+      }
     }
   }
-  for (; a < na; ++a) {
-    const float4 t = stab[a];
-    int j0;
-    float w0, w1;
-    bp_taps_of<FORM>(t, xc, yr, off, j0, w0, w1);
-    const float* ya = ys + a * plane;
-    acc = bp_add<FORM>(acc, w0, w1, bp_load<FORM>(ya, j0, nt, ns, t.z),
-                       bp_load<FORM>(ya, j0 + 1, nt, ns, t.z));
+
+  if (c >= n) return;
+  const int valid = ns - (s0 + 4 * q);
+#pragma unroll
+  for (int i = 0; i < BP_PX; ++i) {
+    const int r = r_first + 2 * i;
+    if (r >= n) break;
+    float4 v = acc[i];
+    if (FORM == NODOT) v = make_float4(v.x, v.x, v.x, v.x);
+    tj::store4(out + (static_cast<size_t>(r) * n + c) * ns + s0 + 4 * q, v,
+               valid, vec);
   }
-  out[(static_cast<size_t>(r) * n + c) * ns + s] = acc;
 }
 
 // E1's launch: x, the tables, the plan (fp_plan's table, ng groups of at
@@ -405,10 +474,20 @@ struct Launch {
 
 template <int FORM, int APS>
 int launch_bp(const Launch& g) {
-  const dim3 grid((g.ns + BS - 1) / BS, (g.n + BP_BC - 1) / BP_BC, g.n);
-  bp_variant_kernel<FORM, APS><<<grid, dim3(BS, BP_BC),
-                                 g.na * sizeof(float4), g.st>>>(
-      g.in, g.bt, g.out, g.n, g.nt, g.na, g.ns);
+  const int limit = tj::smem_limit();
+  static bool opted = false;  // once per instantiation, to the card's limit
+  const int err = tj::allow_smem(bp_variant_kernel<FORM, APS>, limit, &opted);
+  if (err != 0) return err;
+  const size_t smem = FORM == NODOT ? 0 : tj::bp_smem(BP_G, g.na);
+  if (limit < 0 || smem > static_cast<size_t>(limit)) {
+    return cudaErrorInvalidValue;
+  }
+  const int tiles = (g.n + BP_T - 1) / BP_T;
+  const dim3 grid(tiles * tiles, (g.ns + SLAB - 1) / SLAB);
+  const bool vec = g.ns % 4 == 0 && tj::aligned16(g.in) &&
+                   tj::aligned16(g.out);
+  bp_variant_kernel<FORM, APS><<<grid, BP_NT, smem, g.st>>>(
+      g.in, g.bt, g.out, g.n, g.nt, g.na, g.ns, vec);
   return tj::launch_error();
 }
 
@@ -448,12 +527,14 @@ TJ_API int tj_exp_fp(int form, int pair, const float* x, const float* fp_tab,
 }
 
 // E2: out (N, N, Ns) from y (Na, Nt, Ns); form a Form other than HAT5, aps
-// 1 or 2 (2 with FULL only).
+// 1 or 2 (2 with FULL only). Refused where the ring and the tables of na
+// angles (tj::bp_smem) exceed the card's shared memory a block.
 TJ_API int tj_exp_bp(int form, int aps, const float* y, const float* bp_tab,
                      float* out, int n, int nt, int na, int ns,
                      void* stream) {
-  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || na > BP_MAX_ANGLES ||
-      n > 65535 || (aps != 1 && aps != 2) || (aps == 2 && form != FULL)) {
+  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || n > 65535 ||
+      (ns + SLAB - 1) / SLAB > 65535 || (aps != 1 && aps != 2) ||
+      (aps == 2 && form != FULL)) {
     return cudaErrorInvalidValue;
   }
   const Launch g{y, reinterpret_cast<const float4*>(bp_tab), out, n, nt, na,

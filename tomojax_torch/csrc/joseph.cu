@@ -240,7 +240,7 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
 //
 // Each voxel (r, c, s) adds over the angles, in angle order, the 2-point
 // gather of tj::bp_taps: acc = fmaf(v1, w1, fmaf(v0, w0, acc)), the chain of
-// tj::bp_angle (so K8's update, which shares it, agrees with K2). With
+// tj::bp_angle (K8's update, whose weights are rounded alone). With
 // EPI (the FISTA/SIRT update) the result is
 // z = max(y_vol + inv_col[r, c] * acc, 0); without, plain A^T y.
 //
@@ -256,7 +256,9 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
 // float4 from shared memory. At 256^3 x 90: ~0.57 GB staged from L2 against
 // 12 GB of shared-memory reads. Tiling, chosen on an H100 at 256^3 x 90 and
 // 128 x 512^2 x 90: K2's BP_G = 8 angles a stage beat 4 and 16 by 1-3 %;
-// forcing 4 blocks an SM (64 registers) spilled and lost 9 %.
+// forcing 4 blocks an SM (64 registers) spilled and lost 9 %. The window
+// starts and the ring's stages come from staging.cuh (bp_windows,
+// bp_stage), which E2 shares.
 //
 // K10 walks na_pad = Na rounded up to ab: a padded angle a >= Na stages zero
 // rows and has the table entry {0, 0, 0, 0} (1/D = 0, as the reference's
@@ -264,19 +266,13 @@ fp_kernel(const float* __restrict__ x, const float4* __restrict__ tab,
 // bit for bit at every ab. Its ring is 2 ab BP_W 32 floats: 37 KB at
 // ab = 6, 192 KB at ab = 32 (one block an SM), beside 20 bytes an angle of
 // tables and window starts.
-constexpr int BP_T = 16;                    // tile side, rows and columns
-constexpr int BP_NT = 256;                  // threads per block
-constexpr int BP_PX = BP_T * BP_T / 32;     // pixels per thread (8)
-constexpr int BP_G = 8;                     // K2's angles per stage
-constexpr int BP_W = 24;                    // staged bins per angle
+using tj::BP_G;
+using tj::BP_NT;
+using tj::BP_PX;
+using tj::BP_T;
+using tj::BP_W;
+using tj::bp_smem;
 constexpr int AB_MAX = 32;                  // K10's largest stage
-
-// the dynamic shared memory of one block: the ring, then the tables and
-// window starts of the na_pad angles it walks
-size_t bp_smem(int stage, int na_pad) {
-  return 2 * static_cast<size_t>(stage) * BP_W * SLAB * sizeof(float) +
-         static_cast<size_t>(na_pad) * (sizeof(float4) + sizeof(int));
-}
 
 template <bool EPI>
 __global__ void __launch_bounds__(BP_NT)
@@ -296,37 +292,8 @@ bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
   const int tid = threadIdx.x;
   const float ctr = 0.5f * static_cast<float>(n - 1);
   const float off = 0.5f * static_cast<float>(nt - 1);
-  {
-    // window starts from the tile's corners (cuda_joseph.bp_window_lo)
-    const float xa = static_cast<float>(c0) - ctr;
-    const float xb = static_cast<float>(c0 + BP_T - 1) - ctr;
-    const float ya = ctr - static_cast<float>(r0);
-    const float yb = ctr - static_cast<float>(r0 + BP_T - 1);
-    for (int a = tid; a < na_pad; a += BP_NT) {
-      const float4 t = a < na ? tab[a] : make_float4(0.f, 0.f, 0.f, 0.f);
-      stab[a] = t;
-      const float lo = fminf(
-          fminf(tj::bp_jstar(t, xa, ya, off), tj::bp_jstar(t, xb, ya, off)),
-          fminf(tj::bp_jstar(t, xa, yb, off), tj::bp_jstar(t, xb, yb, off)));
-      slo[a] = static_cast<int>(floorf(lo));
-    }
-  }
+  tj::bp_windows(tab, na, na_pad, r0, c0, n, nt, stab, slo);
   __syncthreads();
-
-  const int shift = vec ? 3 : 5;  // 8 copies of 16 B or 32 of 4 B per row
-  auto stage_rows = [&](int g, float* buf) {
-    for (int i = tid; i < (stage * BP_W) << shift; i += BP_NT) {
-      const int row = i >> shift;  // k * BP_W + bin offset
-      const int k = row / BP_W;
-      const int a = g * stage + k;
-      const int j = (a < na ? slo[a] : 0) + row - k * BP_W;
-      const bool in = a < na && j >= 0 && j < nt;
-      copy_slices(buf + row * SLAB,
-                  y + (in ? (static_cast<size_t>(a) * nt + j) * ns : 0), y,
-                  in, s0, ns, i & ((1 << shift) - 1), vec);
-    }
-    copy_commit();
-  };
 
   const int lane = tid & 31;
   const int q = lane & 7;                        // slices s0 + 4q ...
@@ -339,11 +306,14 @@ bp_kernel(const float* __restrict__ y, const float4* __restrict__ tab,
   for (int i = 0; i < BP_PX; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   const int ngroups = (na_pad + stage - 1) / stage;
-  stage_rows(0, ring);
+  tj::bp_stage(ring, y, slo, 0, stage, na, nt, ns, s0, vec);
   for (int g = 0; g < ngroups; ++g) {
     copy_wait();
     __syncthreads();  // group g landed; every thread is done with g - 1
-    if (g + 1 < ngroups) stage_rows(g + 1, ring + ((g + 1) & 1) * half);
+    if (g + 1 < ngroups) {
+      tj::bp_stage(ring + ((g + 1) & 1) * half, y, slo, g + 1, stage, na, nt,
+                   ns, s0, vec);
+    }
     const float* buf = ring + (g & 1) * half + 4 * q;
     const int kn = min(stage, na_pad - g * stage);
     for (int k = 0; k < kn; ++k) {

@@ -81,16 +81,27 @@ __device__ __forceinline__ float bp_jstar(float4 t, float xc, float yr,
 
 // The two taps of one angle at pixel (x_c, y_r), as
 // tomojax/projector/joseph.py:_bp_impl picks them: bins floor(J*) and
-// floor(J*)+1 with weights hat((j - J*)/D)/D.
+// floor(J*)+1 with weights hat((j - J*)/D)/D. K2 lets the compiler contract
+// 1 - |j - J*| / D into one FMA; with RN every operation is rounded on its
+// own, as the plain versions round them (K8's update, bp_angle).
 struct BpTaps {
   int j0;
   float w0, w1;
 };
 
+template <bool RN = false>
 __device__ __forceinline__ BpTaps bp_taps(float4 t, float xc, float yr,
                                           float off) {
   const float jstar = bp_jstar(t, xc, yr, off);
   const float f = floorf(jstar);
+  if (RN) {
+    return {static_cast<int>(f),
+            fmaxf(0.f, __fsub_rn(1.f, __fmul_rn(fabsf(f - jstar), t.z))) *
+                t.z,
+            fmaxf(0.f, __fsub_rn(1.f, __fmul_rn(fabsf((f + 1.f) - jstar),
+                                                t.z))) *
+                t.z};
+  }
   return {static_cast<int>(f),
           fmaxf(0.f, 1.f - fabsf(f - jstar) * t.z) * t.z,
           fmaxf(0.f, 1.f - fabsf((f + 1.f) - jstar) * t.z) * t.z};
@@ -98,12 +109,15 @@ __device__ __forceinline__ BpTaps bp_taps(float4 t, float xc, float yr,
 
 // acc plus one angle's backprojection at pixel (x_c, y_r): a 2-point read
 // of ya (the angle's (Nt, Ns) plane, offset to the caller's slice) at the
-// taps of `bp_taps`; out-of-range bins read 0.
+// taps of `bp_taps<true>`; out-of-range bins read 0. K8's update: where a
+// pixel's one in-range tap nearly vanishes its weight is near 0, and
+// inv_col_a (1 / the weight) magnifies any difference from the plain
+// version's weight, so the weights are rounded as the plain version's.
 __device__ __forceinline__ float bp_angle(const float* __restrict__ ya,
                                           float4 t, float xc, float yr,
                                           float off, int nt, int ns,
                                           float acc) {
-  const BpTaps k = bp_taps(t, xc, yr, off);
+  const BpTaps k = bp_taps<true>(t, xc, yr, off);
   const float v0 = (k.j0 >= 0 && k.j0 < nt) ? ya[k.j0 * ns] : 0.f;
   const float v1 = (k.j0 + 1 >= 0 && k.j0 + 1 < nt) ? ya[(k.j0 + 1) * ns]
                                                      : 0.f;

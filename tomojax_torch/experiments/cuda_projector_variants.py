@@ -15,9 +15,12 @@ Counterparts of the TPU kernels of ``scripts/exp_hat_model.py``,
   K1's own group cap. ``pair=True`` writes the rays of theta and -theta of
   a symmetric series from one walk over the angles Na/2 .. Na-1, staging
   each window and its mirror.
-* E2 ``bp_variant`` (``bp_variant_kernel``): the backprojection, one
-  thread per voxel over the angles in K2's order, with the weight forms of
-  `BP_FORMS`; ``aps=2`` loads two angles' taps before their products.
+* E2 ``bp_variant`` (``bp_variant_kernel``): the backprojection on K2's
+  design: 16 x 16 pixel tiles x 32 slices, the angles staged 8 at a time,
+  24 bins each from the window start of ``cuda_joseph.bp_window_lo``
+  (zeros outside the sinogram), with the weight forms of `BP_FORMS`, the
+  angles added in order; ``aps=2`` reads two angles' taps before their
+  products.
 
 The forms (csrc/exp_hat.cuh): FULL ``max(0, 1 - |d| invd) invd``; HAT5
 ``max(0, min(1 - u, 1 + u))``, u = d invd, the sum times invd; BF16

@@ -14,14 +14,36 @@ transpose as K2 computes it (closed-form 2-tap gather); the plain version
 is K1's and K2's one-angle plain bodies (``cuda_joseph.fp_angle_ref``,
 ``bp_angle_ref``), and all read the float64-derived tables of
 ``cuda_joseph.angle_tables``, so the plain version and the kernel pick
-the same taps. ``sart_sweep_sl`` runs
+the same taps.
+
+``csrc/sart.cu`` has two routes, chosen by the shape alone (`sart_route`,
+which ``tj_sart_route`` mirrors):
+
+* resident, where one block's share fits the card's shared memory
+  (`resident_smem_bytes` <= 227 KB: N <= 288 at Nt = N): one launch a
+  sweep. A thread-block cluster of `BAND_BLOCKS` blocks keeps
+  `CLUSTER_SLICES` slices of the volume in shared memory for the whole
+  sweep, block r the rows [r R, (r + 1) R), R = `band_rows` (N); per step
+  each block sums every ray's taps in its own rows (column-driven angles
+  over the steps of `column_steps`), the partials are added in block
+  order through distributed shared memory, and each block updates its rows;
+* streaming otherwise (N = 512 for one): two launches a step, the volume
+  in device memory.
+
+Only the resident FP's sum order differs (the ray as band partials added
+in block order), so its result is within rounding of the plain version's,
+not bit-equal; the update is the same arithmetic. ``sart_sweep_sl`` runs
 the plain version only when its tensors lie on the CPU; on CUDA tensors it
-launches ``csrc/sart.cu`` or raises. One call is one sweep and counts one
-in ``sart_sweep_sl.launches``.
+launches ``csrc/sart.cu`` or raises, and a resident launch that fails
+raises rather than take the other route. One call is one sweep and counts
+one in ``sart_sweep_sl.launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from tomojax_torch import _build
@@ -31,6 +53,136 @@ from tomojax_torch.projector.cuda_joseph import (
 )
 
 F32 = torch.float32
+# the resident route's tiling (csrc/sart.cu R_BLOCKS, R_SLICES,
+# RESIDENT_SMEM_MAX, STEP_SLACK): blocks of a cluster, slices of a cluster,
+# the shared memory of one block on an H100 (opt-in), and the margin of the
+# column-driven step range (2^-20 positions per unit of 2N + Nt + 8)
+BAND_BLOCKS, CLUSTER_SLICES = 8, 4
+RESIDENT_SMEM_MAX = 232448
+STEP_SLACK = 2.0 ** -20
+
+
+def band_rows(n: int) -> int:
+    """Rows of the volume each block of a resident cluster holds."""
+    return -(-n // BAND_BLOCKS)
+
+
+BAND_PAD = 4  # float4 after each band row (csrc/sart.cu R_PAD)
+
+
+def resident_smem_bytes(n: int, nt: int) -> int:
+    """Shared memory of one resident block (csrc/sart.cu resident_smem):
+    its rows of x as float4 (rows of N + `BAND_PAD`) and of inv_col_a[a]
+    as floats, the double-buffered partials, the residual plane and b[a]
+    (4 float4 a bin) and inv_row[a] (a float a bin)."""
+    rows = band_rows(n)
+    return rows * (n + BAND_PAD) * 16 + rows * n * 4 + nt * 68
+
+
+def sart_route(n: int, nt: int) -> str:
+    """'resident' where `resident_smem_bytes` fits `RESIDENT_SMEM_MAX`,
+    else 'streaming': the route ``tj_sart_sweep`` takes at this shape."""
+    return ("resident" if resident_smem_bytes(n, nt) <= RESIDENT_SMEM_MAX
+            else "streaming")
+
+
+def column_steps(u, shear: float, n: int, nt: int, r0: int, r1: int):
+    """The steps [k0, k1) in which a resident block with rows [r0, r1)
+    walks a column-driven ray, for rays of ``u = (N-1)/2 - base`` (a
+    float32 array) and the angle's shear: the closed form of
+    csrc/sart.cu column_steps, each float32 operation rounded alone in the
+    kernel's order. pos(k) = u + (k - (N-1)/2) shear is monotone in k and a
+    tap row lies in the band when pos lies in [r0 - 1, r1); the ends are
+    widened by 2 steps plus the rounding of pos over |shear|. Returns two
+    int64 arrays of u's shape."""
+    f32 = np.float32
+    u = np.asarray(u, f32)
+    zero = np.zeros(u.shape, np.int64)
+    if r0 >= r1:
+        return zero, zero
+    sh = f32(shear)
+    if sh == 0:
+        inside = (u >= f32(r0 - 1)) & (u < f32(r1))
+        return zero, np.where(inside, n, 0).astype(np.int64)
+    ctr = f32(0.5) * f32(n - 1)
+    # np.fmin/np.fmax drop a NaN operand, as fminf/fmaxf do
+    with np.errstate(over="ignore", invalid="ignore"):
+        ta = (f32(r0 - 1) - u) / sh
+        tb = (f32(r1) - u) / sh
+        slack = f32(STEP_SLACK) * f32(2 * n + nt + 8)
+        m = f32(2) + slack / abs(sh)
+        lo = (ctr + np.fmin(ta, tb)) - m
+        hi = (ctr + np.fmax(ta, tb)) + m
+    k0 = np.fmin(np.fmax(np.floor(lo), f32(0)), f32(n))
+    k1 = np.fmin(np.fmax(np.ceil(hi) + f32(1), f32(0)), f32(n))
+    return k0.astype(np.int64), k1.astype(np.int64)
+
+
+def resident_clusters(n: int, nt: int, ns: int) -> dict:
+    """The resident route's launch at this shape on the current card:
+    clusters (one per `CLUSTER_SLICES` slices), how many the card holds at
+    once (cudaOccupancyMaxActiveClusters), the waves that makes, and the
+    shared memory of a block."""
+    active = ctypes.c_int(0)
+    _build.check(_build.lib().tj_sart_active_clusters(
+        n, nt, ns, ctypes.byref(active)), "tj_sart_active_clusters")
+    clusters = -(-ns // CLUSTER_SLICES)
+    return {"clusters": clusters, "active": active.value,
+            "waves": -(-clusters // max(active.value, 1)),
+            "smem": resident_smem_bytes(n, nt)}
+
+
+def _checked_on_cpu(x, b, geom: Geometry, inv_row, inv_col_a, beta,
+                    order) -> bool:
+    """Raise unless the operands are as `sart_sweep_sl` takes them; True
+    when they all lie on the CPU, False when all lie on the card."""
+    ns = x.shape[-1]
+    n, nt, na = geom.n, geom.nray, geom.nproj
+    _build.check_operand(x, "x", (n, n, ns), F32)
+    _build.check_operand(b, "b", (na, nt, ns), F32)
+    _build.check_operand(inv_row, "inv_row", (na, nt), F32)
+    _build.check_operand(inv_col_a, "inv_col_a", (na, n, n), F32)
+    _build.check_operand(beta, "beta", (), F32)
+    if order.dim() != 1 or order.numel() == 0:
+        raise ValueError(f"order: shape {tuple(order.shape)}, expected (K,) "
+                         f"with K >= 1")
+    _build.check_operand(order, "order", order.shape, torch.int32)
+    return _build.on_cpu(x, b, inv_row, inv_col_a, beta, order)
+
+
+PHASES = ("copy issue", "FP", "copy wait + cluster barrier", "residual",
+          "update")  # csrc/sart.cu R_PHASES
+
+
+def resident_phases(x, b, geom: Geometry, inv_row, inv_col_a, beta,
+                    order) -> dict:
+    """One resident sweep on the card with its phases timed (the kernel's
+    PROF instantiation; operands as `sart_sweep_sl`'s, on the card): for
+    row- and column-driven steps, their count and the mean clock64 cycles
+    a step of each of `PHASES` over the blocks (thread 0 of each; the FP
+    ends at a block barrier of its own). Counts in no launch count."""
+    if _checked_on_cpu(x, b, geom, inv_row, inv_col_a, beta, order):
+        raise ValueError("resident_phases times the kernel: pass CUDA "
+                         "tensors")
+    n, nt, na, ns = geom.n, geom.nray, geom.nproj, x.shape[-1]
+    blocks = BAND_BLOCKS * -(-ns // CLUSTER_SLICES)
+    prof = torch.zeros((blocks, 2, len(PHASES) + 1), dtype=torch.int64,
+                       device=x.device)
+    tabs = angle_tables(geom, x.device)
+    out = torch.empty_like(x)
+    p = torch.Tensor.data_ptr
+    _build.check(_build.lib().tj_sart_resident_phases(
+        p(x), p(tabs.fp), p(tabs.bp), p(b), p(inv_row), p(inv_col_a),
+        p(beta), p(order), order.numel(), p(out), n, nt, na, ns, p(prof),
+        _build.stream()), "tj_sart_resident_phases")
+    cycles = prof.cpu().double()
+    res = {}
+    for i, kind in enumerate(("row-driven", "column-driven")):
+        steps = int(cycles[0, i, -1])
+        res[kind] = {"steps": steps, **{
+            name: float(cycles[:, i, q].mean()) / max(steps, 1)
+            for q, name in enumerate(PHASES)}}
+    return res
 
 
 def sart_sweep_sl_ref(x, b, geom: Geometry, inv_row, inv_col_a, beta, order):
@@ -49,7 +201,7 @@ def sart_sweep_sl_ref(x, b, geom: Geometry, inv_row, inv_col_a, beta, order):
 
 
 def sart_sweep_sl(x, b, geom: Geometry, inv_row, inv_col_a, beta, order):
-    """K8: `sart_sweep_sl_ref` on the card.
+    """K8: `sart_sweep_sl_ref` on the card, on the route of `sart_route`.
 
     x (N, N, Ns); b (Na, Nt, Ns); inv_row (Na, Nt) = System.inv_row;
     inv_col_a (Na, N, N) per-angle column weights
@@ -57,26 +209,19 @@ def sart_sweep_sl(x, b, geom: Geometry, inv_row, inv_col_a, beta, order):
     order a contiguous int32 (K,) tensor, both on x's device and read there
     by the kernel. Entries of order must lie in [0, Na): the plain version
     raises on others, the kernel leaves x unchanged for them."""
+    if _checked_on_cpu(x, b, geom, inv_row, inv_col_a, beta, order):
+        return sart_sweep_sl_ref(x, b, geom, inv_row, inv_col_a, beta, order)
     ns = x.shape[-1]
     n, nt, na = geom.n, geom.nray, geom.nproj
-    _build.check_operand(x, "x", (n, n, ns), F32)
-    _build.check_operand(b, "b", (na, nt, ns), F32)
-    _build.check_operand(inv_row, "inv_row", (na, nt), F32)
-    _build.check_operand(inv_col_a, "inv_col_a", (na, n, n), F32)
-    _build.check_operand(beta, "beta", (), F32)
-    if order.dim() != 1 or order.numel() == 0:
-        raise ValueError(f"order: shape {tuple(order.shape)}, expected (K,) "
-                         f"with K >= 1")
-    _build.check_operand(order, "order", order.shape, torch.int32)
-    if _build.on_cpu(x, b, inv_row, inv_col_a, beta, order):
-        return sart_sweep_sl_ref(x, b, geom, inv_row, inv_col_a, beta, order)
     tabs = angle_tables(geom, x.device)
-    resid = torch.empty((nt, ns), dtype=F32, device=x.device)
+    resid = (torch.empty((nt, ns), dtype=F32, device=x.device)
+             if sart_route(n, nt) == "streaming" else None)
     out = torch.empty_like(x)
     p = torch.Tensor.data_ptr
     _build.check(_build.lib().tj_sart_sweep(
         p(x), p(tabs.fp), p(tabs.bp), p(b), p(inv_row), p(inv_col_a),
-        p(beta), p(order), order.numel(), p(resid), p(out), n, nt, na, ns,
+        p(beta), p(order), order.numel(),
+        None if resid is None else p(resid), p(out), n, nt, na, ns,
         _build.stream()), "tj_sart_sweep")
     sart_sweep_sl.launches += 1
     return out
