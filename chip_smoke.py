@@ -41,7 +41,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    256^3 volume as the one rank of phase 4c's group (the shape and halos
    that path gives them, where they are timed), then 4-slab chains
    in one process (10 FGP iterations with f32 and bf16 duals, 10 TV-GD
-   gradients) against K3/K4 and K7 on the whole volume;
+   gradients) against K3/K4 and K7 on the whole volume; the TV-GD step
+   (tj_tv_step) equal to its plain version (torch.equal), clamped and not;
+   K7, K9c, the step, K3 and K9a at shapes across the plane march's
+   boundaries (n0 below and above its chunk, ragged rows, n2 = 1) against
+   their plain versions, K7's partial count against tv/march.py; and the
+   device times of K3 (256^3 and 256^2 x 128), K9a, K7, K9c and the step
+   with the device-memory rate each reaches;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, and with every plain version made to raise:
    a. FISTA-TV: TomoTorch on the 256 x 256^2 x 90 nanocube problem (one
@@ -111,6 +117,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 times only K1, K2, K10 (ab 6), E1 FULL, E2 FULL and one K8 sweep at
 256^3 x 90 and 128 x 512^2 x 90, with the tomojax_torch package beside
 the file (a copy of it beside another tree times that tree's kernels).
+
+    python3 chip_smoke.py --tv-times
+
+times only K3, K9a, K7, K9c, the TV step kernel (where the tree has it) and
+the PyTorch step expression at 256^3 (K3 also at 256^2 x 128), in the same
+way beside another tree.
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
 printing any result.
@@ -272,6 +284,9 @@ def _kernel_table():
                           "tomojax/tv/pallas_fgp.py:217"),
         "K12_fgp_grad": (cuda_fgp.fgp_grad, "tomojax_torch/csrc/fgp.cu",
                          "tomojax/tv/pallas_fgp.py:98"),
+        # the TV-GD step, which XLA fused around the TPU kernel
+        "tv_step": (cuda_tvgd.tv_step, "tomojax_torch/csrc/tvgd.cu",
+                    "tomojax/tv/pallas_tvgd.py:96"),
     }
 
 
@@ -525,11 +540,142 @@ def phase_kernels(card: str) -> dict:
            time_ms(lambda: cuda_tvgd.tv_grad_ref(x), 5),
            f" (||g||^2 rel {gsq_rel:.2e} <= 2e-5; two runs identical)",
            work=(8 * V + 4, 27 * V))
+    _check_tv_step(x, got, gsq, report)
+    _check_tv_march(uni2, card)
 
     _check_sart(geom, ns, uni, report, nnz, card)
     _check_halo_kernels(x, uni, report, card)
+    tv_times(uni2, card, "tv")
     _check_slab_chains(x, x_old, beta)
     return rows
+
+
+def _check_tv_step(x, g, gsq, report) -> None:
+    """tj_tv_step against tv_step_ref with torch.equal (the same rounding),
+    unclamped and clamped, with dpocs a float and a 0-dim tensor."""
+    from tomojax_torch.tv import cuda_tvgd
+
+    dp_t = torch.tensor(0.02, device=x.device)
+    for dp in (0.02, dp_t):
+        for clamp in (False, True):
+            got = _launched(cuda_tvgd.tv_step, lambda: cuda_tvgd.tv_step(
+                x, g, gsq, dp, clamp))
+            require(torch.equal(got, cuda_tvgd.tv_step_ref(x, g, gsq, dp,
+                                                           clamp)),
+                    f"tv_step (clamp {clamp}, dpocs {type(dp).__name__}) "
+                    f"differs from x - dpocs * g / torch.sqrt(gsq)")
+    V = x.numel()
+    report("tv_step", 0.0, 0.0,
+           time_ms(lambda: cuda_tvgd.tv_step(x, g, gsq, dp_t, True), 10),
+           time_ms(lambda: cuda_tvgd.tv_step_ref(x, g, gsq, dp_t, True), 5),
+           " (torch.equal, clamped and not, dpocs float and 0-dim)",
+           work=(12 * V + 8, 4 * V))
+
+
+TV_SHAPES = ((5, 11, 37), (40, 16, 1), (70, 33, 130), (256, 256, 64))
+
+
+def _check_tv_march(uni, card: str) -> None:
+    """K7, K9c, the step, K3 and K9a against their plain versions at shapes
+    that cross the march's boundaries (n0 below and above TV_C, ragged n1
+    and n2, n2 = 1; the slab of a 4-way split at 256^2), with phase 3's
+    bounds (K3 f32 duals 1e-6, bf16 one rounding, 2^-7), and K7's partial
+    count against tv/march.py."""
+    from tomojax_torch import _build
+    from tomojax_torch.tv import cuda_fgp, cuda_tvgd, march
+    from tomojax_torch.tv import cuda_fgp_sharded as fs
+    from tomojax_torch.tv import cuda_tvgd_sharded as gs
+
+    worst = {}
+
+    def held(name, err, tol):
+        require(err <= tol, f"{name}: {err:.3e} above {tol:.3e}")
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for shape in TV_SHAPES:
+        require(_build.lib().tj_tv_grad_partials(*shape)
+                == march.grad_partials(*shape),
+                f"K7 partials at {shape}: tj_tv_grad_partials vs "
+                f"march.grad_partials")
+        x = uni(*shape, lo=-0.5, hi=1.5)
+        lo, hi = uni(*shape[:2]), uni(*shape[:2])
+        for name, (g, gsq), (g_r, gsq_r) in (
+                ("K7", cuda_tvgd.tv_grad(x), cuda_tvgd.tv_grad_ref(x)),
+                ("K9c", gs.tv_grad_halo(x, lo, hi),
+                 gs.tv_grad_halo_ref(x, lo, hi))):
+            held(name, max_err(g, g_r), 1e-5 * float(g_r.abs().max()))
+            held(f"{name} ||g||^2 rel", abs(float(gsq) - float(gsq_r))
+                 / float(gsq_r), 2e-5)
+            require(torch.equal(cuda_tvgd.tv_step(x, g, gsq, 0.05, True),
+                                cuda_tvgd.tv_step_ref(x, g, gsq, 0.05, True)),
+                    f"tv_step at {shape}")
+        for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2 ** -7)):
+            p = tuple((uni(*shape) - 0.5).to(dt) for _ in range(3))
+            p3_lo = (uni(*shape[:2]) - 0.5).to(dt)
+            his = (uni(*shape[:2]), *((uni(*shape[:2]) - 0.5).to(dt)
+                                      for _ in range(3)))
+            for name, got, ref in (
+                    ("K3", cuda_fgp.fgp_iter(x, *p, LAM),
+                     cuda_fgp.fgp_iter_ref(x, *p, LAM)),
+                    ("K9a", fs.fgp_iter_halo(x, *p, LAM, p3_lo, his),
+                     fs.fgp_iter_halo_ref(x, *p, LAM, p3_lo, his)),
+                    ("K9a top", fs.fgp_iter_halo(x, *p, LAM, p3_lo),
+                     fs.fgp_iter_halo_ref(x, *p, LAM, p3_lo))):
+                held(f"{name} {str(dt)[6:]}", max(
+                    max_err(a.float(), b.float()) for a, b in zip(got, ref)),
+                    tol)
+    torch.cuda.synchronize()
+    print(f"TV march at {', '.join('x'.join(map(str, s)) for s in TV_SHAPES)}"
+          f": " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; tv_step equal; K7 partials as march.grad_partials [{card}]")
+
+
+def tv_times(uni, card: str, tag: str) -> dict:
+    """Device ms (torch.profiler, mean of 10) and batch ms (CUDA events over
+    10 back-to-back calls) of K3 (bf16 duals) at 256^3 and at fusion's
+    256^2 x 128, K9a (world size 1: zero P3 plane below, no right halo), K7,
+    K9c (the volume's own last and first slices as halos), the TV step
+    (where this tree has the kernel) and the PyTorch step expression at
+    256^3, with the device-memory rate each reaches (the bytes it must move
+    over its device time)."""
+    from tomojax_torch.experiments.timing import batch_ms
+    from tomojax_torch.tv import cuda_fgp, cuda_tvgd
+    from tomojax_torch.tv import cuda_fgp_sharded as fs
+    from tomojax_torch.tv import cuda_tvgd_sharded as gs
+
+    n = 256
+    x = uni(n, n, n)
+    xf = uni(n, n, n // 2)
+    P = n * n
+    p = tuple((uni(n, n, n) - 0.5).bfloat16() for _ in range(3))
+    pf = tuple((uni(n, n, n // 2) - 0.5).bfloat16() for _ in range(3))
+    zero = torch.zeros((n, n), dtype=torch.bfloat16, device=x.device)
+    lo_x, hi_x = _last(x), _first(x)
+    g, gsq = cuda_tvgd.tv_grad(x)
+    dp = torch.tensor(0.02, device=x.device)
+    calls = {
+        "K3 bf16 256^3": (lambda: cuda_fgp.fgp_iter(x, *p, LAM),
+                          16 * x.numel()),
+        "K3 bf16 256^2x128": (lambda: cuda_fgp.fgp_iter(xf, *pf, LAM),
+                              16 * xf.numel()),
+        "K9a bf16 256^3": (lambda: fs.fgp_iter_halo(x, *p, LAM, zero),
+                           16 * x.numel() + 2 * P),
+        "K7 256^3": (lambda: cuda_tvgd.tv_grad(x), 8 * x.numel()),
+        "K9c 256^3": (lambda: gs.tv_grad_halo(x, lo_x, hi_x),
+                      8 * x.numel() + 8 * P),
+        "step PyTorch 256^3": (lambda: torch.clamp_min(
+            x - dp * g / torch.sqrt(gsq), 0.0), 12 * x.numel()),
+    }
+    if hasattr(cuda_tvgd, "tv_step"):
+        calls["step kernel 256^3"] = (
+            lambda: cuda_tvgd.tv_step(x, g, gsq, dp, True), 12 * x.numel())
+    out = {}
+    for name, (fn, nbytes) in calls.items():
+        dev, batch = device_ms(fn), batch_ms(fn, 10, x.device)
+        out[name] = (dev, batch)
+        print(f"{tag} {name}: {dev:.4f} ms device, {batch:.4f} ms batch, "
+              f"{nbytes / dev / 1e9:.3f} TB/s at the device time [{card}]")
+    return out
 
 
 AB_SWEEP = (2, 3, 6, 8, 10, 16, 32)  # K10's stages held and timed
@@ -1152,7 +1298,7 @@ def plain_versions_forbidden():
                         "fgp_obj_mom_ref"],
              cuda_fgp_sharded: ["fgp_iter_halo_ref", "fgp_obj_halo_ref"],
              cuda_tv_value: ["tv_value_ref"],
-             cuda_tvgd: ["tv_grad_ref"],
+             cuda_tvgd: ["tv_grad_ref", "tv_step_ref"],
              cuda_tvgd_sharded: ["tv_grad_halo_ref"],
              cuda_sart: ["sart_sweep_sl_ref"]}
     saved = {(m, k): getattr(m, k) for m, ks in names.items() for k in ks}
@@ -1174,10 +1320,10 @@ def plain_versions_forbidden():
 FISTA_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp", "K3_fgp_iter",
                  "K4_fgp_obj_mom", "K5_tv_value")
 ASD_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp", "K5_tv_value", "K7_tv_grad",
-               "K8_sart_sweep")
+               "K8_sart_sweep", "tv_step")
 SHARDED_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp",
                    "K5_tv_value", "K8_sart_sweep", "K9a_fgp_iter_halo",
-                   "K9b_fgp_obj_halo", "K9c_tv_grad_halo")
+                   "K9b_fgp_obj_halo", "K9c_tv_grad_halo", "tv_step")
 FUSION_KERNELS = ("K1_fp", "K2_bp_sirt", "K2_bp", "K3_fgp_iter",
                   "K4_fgp_obj_mom", "K5_tv_value")
 VARIANT_KERNELS = ("K10_bp_ab", "K11_fgp_iter2", "K12_fgp_grad")
@@ -1303,6 +1449,9 @@ def phase_asd_path(card: str, kernels: dict) -> dict:
         sweep_ms, sweep_batch = time_ms(one_sweep, 5), batch_ms(one_sweep,
                                                                 10, dev)
     counts = _read(kernels, "ASD-POCS path", ASD_KERNELS)
+    require(counts["tv_step"] == counts["K7_tv_grad"],
+            f"ASD-POCS path: {counts['tv_step']} TV steps for "
+            f"{counts['K7_tv_grad']} gradients")
     run_dd, run_tv = run_dd.cpu().numpy(), run_tv.cpu().numpy()
     require(recon.shape == (ns, n, n) and bool(np.isfinite(recon).all()),
             "TomoTorch.asd_pocs reconstruction is not finite (256^3)")
@@ -1391,6 +1540,9 @@ def phase_sharded_path(card: str, kernels: dict) -> dict:
                 x0, tomo.b_sl, tomo.sys, w, params, group=group))
         counts = _read(kernels, "sharded path (NCCL, world size 1)",
                        SHARDED_KERNELS)
+        require(counts["tv_step"] == counts["K9c_tv_grad_halo"],
+                f"sharded path: {counts['tv_step']} TV steps for "
+                f"{counts['K9c_tv_grad_halo']} gradients")
         # the unsharded path on the same problem, then both in turn
         # (unsharded, sharded, sharded, unsharded) for the times
         with plain_versions_forbidden():
@@ -2207,6 +2359,21 @@ def phase_golden_fusion(card: str) -> None:
 # ------------------------------------------------------------------- main
 
 
+def tv_times_main() -> int:
+    """`--tv-times`: only the device and batch times of `tv_times`, with the
+    tomojax_torch package beside this file; a copy of this file beside
+    another tree times that tree's kernels."""
+    card = phase_device()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def uni(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    times = tv_times(uni, card, str(ROOT.name))
+    print(json.dumps({"tv_ms": times, "tree": str(ROOT)}))
+    return 0
+
+
 def projector_times_main() -> int:
     """`--projector-times`: only the times of K1, K2, K10 (ab 6), E1 FULL,
     E2 FULL and one K8 sweep at 256^3 x 90 and 128 x 512^2 x 90
@@ -2236,6 +2403,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--projector-times"]:
         return projector_times_main()
+    if sys.argv[1:] == ["--tv-times"]:
+        return tv_times_main()
     try:
         card = phase_device()
         phase_build()

@@ -124,3 +124,12 @@ def test_tv_kernels_match_plain_on_card():
         tol = 1e-4 if dt == torch.float32 else 0.1 * 2e-2
         assert float((d - d_r).abs().max()) <= tol
         assert float((y - y_r).abs().max()) <= 2 * tol
+    # K3's march across its boundaries: n0 below and above TV_C, ragged n1
+    # and n2, n2 = 1; one iteration from random duals
+    for shape in [(5, 11, 37), (40, 16, 1), (70, 33, 130)]:
+        x = torch.from_numpy(_vol(shape, 9)).to(dev)
+        for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2 ** -7)):
+            p = tuple(torch.from_numpy(_vol(shape, 10 + k, -0.5)).to(dev, dt)
+                      for k in range(3))
+            for a, b in zip(fgp_iter(x, *p, 0.1), fgp_iter_ref(x, *p, 0.1)):
+                assert float((a.float() - b.float()).abs().max()) <= tol

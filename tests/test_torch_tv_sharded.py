@@ -287,3 +287,11 @@ def test_k9_slab_chains_equal_k3_k4_k7_on_card():
     g = torch.cat([tv_grad_halo(xs[i], *ring_halos(xs, i))[0]
                    for i in range(4)], dim=2)
     assert torch.equal(g, tv_grad(x)[0])
+    # a slab chain that crosses the march's chunks (n0 above TV_C) with
+    # ragged planes, and the descent with the step kernel on both sides
+    x = torch.rand((40, 11, 36), generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(fgp_chain(x, 4, 6, 0.1, dt),
+                           tv_fgp_fused(x, 6, 0.1, dt))
+    np.testing.assert_allclose(gd_chain(x, 4, 5, 0.07).cpu().numpy(),
+                               tv_gd(x, 5, 0.07)[0].cpu().numpy(), atol=1e-6)

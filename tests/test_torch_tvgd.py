@@ -19,7 +19,9 @@ from tomojax import tv as jtv  # noqa: E402
 from tomojax.tv.pallas_tvgd import tv_gd_pallas, tv_grad_pallas  # noqa: E402
 
 from tomojax_torch.tv import tv_gd  # noqa: E402
-from tomojax_torch.tv.cuda_tvgd import tv_grad, tv_grad_ref  # noqa: E402
+from tomojax_torch.tv.cuda_tvgd import (  # noqa: E402
+    tv_grad, tv_grad_ref, tv_step, tv_step_ref,
+)
 
 VOLS = [(6, 16, 16), (5, 12, 7), (8, 9, 13)]
 
@@ -93,16 +95,31 @@ def test_tv_grad_rejects_bad_operands():
 
 @pytest.mark.cuda
 def test_tv_grad_kernel_matches_plain_on_card():
+    """K7 and the step at shapes across the march's boundaries (n0 below
+    and above TV_C, ragged n1 and n2, n2 = 1), then tv_gd."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from tomojax_torch import _build
+    from tomojax_torch.tv import march
+
+    for shape in [(24, 40, 36), (5, 11, 37), (40, 16, 1), (70, 33, 130)]:
+        x = _sl(_vol(shape, 3)).cuda()
+        assert _build.lib().tj_tv_grad_partials(*x.shape) == \
+            march.grad_partials(*x.shape)
+        g, gsq = tv_grad(x)
+        g_r, gsq_r = tv_grad_ref(x)
+        assert float((g - g_r).abs().max()) <= 1e-5 * float(g_r.abs().max())
+        np.testing.assert_allclose(float(gsq), float(gsq_r), rtol=2e-5)
+        g2, gsq2 = tv_grad(x)
+        assert torch.equal(g2, g) and float(gsq2) == float(gsq)
+        for dp in (0.3, torch.tensor(0.3, device=x.device)):
+            for clamp in (False, True):
+                assert torch.equal(tv_step(x, g, gsq, dp, clamp),
+                                   tv_step_ref(x, g, gsq, dp, clamp))
     x = _sl(_vol((24, 40, 36), 3)).cuda()
-    g, gsq = tv_grad(x)
-    g_r, gsq_r = tv_grad_ref(x)
-    assert float((g - g_r).abs().max()) <= 1e-5 * float(g_r.abs().max())
-    np.testing.assert_allclose(float(gsq), float(gsq_r), rtol=2e-5)
-    g2, gsq2 = tv_grad(x)
-    assert torch.equal(g2, g) and float(gsq2) == float(gsq)
+    before = tv_step.launches
     got, tv0 = tv_gd(x, 5, 0.3)
+    assert tv_step.launches == before + 5
     ref, tv0_r = tv_gd(x.cpu(), 5, 0.3)
     assert float((got.cpu() - ref).abs().max()) <= 1e-5
     np.testing.assert_allclose(float(tv0), float(tv0_r), rtol=2e-5)

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "tj_tv_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tj_tv_grad_halo": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tj_tv_grad_partials": [_I, _I, _I],
+    "tj_tv_step": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     "tj_sart_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _P],
     "tj_sart_resident_phases": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,

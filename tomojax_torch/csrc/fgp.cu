@@ -15,7 +15,7 @@
 // One body serves K3/K4 and K9a/K9b: the HALO template flag replaces the
 // in-slab boundary on axis 2 by halo planes, so a slab chain computes
 // bit for bit what K3/K4 compute on the whole volume.
-#include "common.cuh"
+#include "tv_march.cuh"
 
 namespace {
 
@@ -96,63 +96,215 @@ __device__ __forceinline__ float p3_below(const T* __restrict__ p3,
   return i2 > 0 ? tj::load(p3, o - 1) : 0.f;
 }
 
+// d = max(x - lam * div P, 0) from staged values: P1 and the P1 one plane
+// below (p1m), P2 and the one a row before (p2m), P3 and the one a slice
+// before (p3m), zero where the predecessor lies outside the volume. The
+// same operations in the same order as `objective`.
+__device__ __forceinline__ float objective_at(float x, float p1, float p1m,
+                                              float p2, float p2m, float p3,
+                                              float p3m, float lam) {
+  float div = p1 - p1m;
+  div += p2 - p2m;
+  div += p3 - p3m;
+  return fmaxf(__fsub_rn(x, __fmul_rn(lam, div)), 0.f);
+}
+
 // K3 -- replaces tomojax/tv/pallas_fgp.py:_fused_kernel (HALO false).
 // K9a -- replaces tomojax/tv/pallas_fgp_sharded.py:_fused_kernel_halo
 // (HALO true): the same iteration on a slab, whose slice-n2 neighbour and
 // P3 below slice 0 come from the halo planes.
 //
-// One thread per voxel: d at the voxel and at its +1 neighbour along each
-// axis (recomputed from P_in, never stored), the forward difference
-// g = d - d(+1) (zero at the far boundary), P += g / (26 lam), and the
-// isotropic projection: if |P|^2 > 1, P *= 1/sqrt(|P|^2). It reads P_in and
-// writes P_out (ping-pong), so no thread reads a neighbour's updated P.
+// One FGP iteration: d = max(x - lam div P, 0), the forward difference
+// g = d - d(+1) on each axis (zero at the far boundary), P += g / (26 lam),
+// and the isotropic projection: if |P|^2 > 1, P *= 1/sqrt(|P|^2). It reads
+// P_in and writes P_out (ping-pong), so no thread reads an updated P.
 //
 // Bound on the H100: device memory. At 256^3 with bf16 duals one launch
-// must move 64 MiB of x and 96 MiB of duals in and 96 MiB out; the
-// neighbour reloads (x and P at the +1 voxels) hit L1/L2, because the
-// axis-2 neighbours sit in the same warp and the axis-0/1 neighbours are
-// read by nearby blocks in the same wave.
-template <typename T, bool HALO>
-__global__ void __launch_bounds__(BX * BY)
+// must move 64 MiB of x and 96 MiB of duals in and 96 MiB out. The kernel
+// marches along axis 0 (tv_march.cuh): each plane of x, P1, P2 and P3 is
+// staged once over the tile and its one-voxel halo (16-byte copies two
+// planes ahead where every row is 16-byte aligned), zeros outside the
+// volume (HALO: P3 below slice 0 from p3_lo, slice n2 from the right halo
+// planes); d is computed once a voxel at plane i0 + 1 on the tile plus one
+// row and one column, into one of two region buffers; g1 reads d of plane
+// i0 from the other buffer, g2 and g3 read it one row and one column on;
+// the dual step runs on P of plane i0, staged a step earlier.
+// `objective_at` and `dual_step` take the operands of the per-voxel form in
+// its order, so the duals are the same bit for bit.
+template <typename T, bool HALO, bool VEC>
+__global__ void __launch_bounds__(tj::TV_NT, tj::TV_MIN_BLOCKS)
 fgp_iter_kernel(const float* __restrict__ x, const T* __restrict__ p1,
                 const T* __restrict__ p2, const T* __restrict__ p3,
                 T* __restrict__ o1, T* __restrict__ o2, T* __restrict__ o3,
                 Halo<T> h, Vol v, float lam, float multip) {
-  const int i2 = blockIdx.x * BX + threadIdx.x;
-  const int i1 = blockIdx.y * BY + threadIdx.y;
-  const int i0 = blockIdx.z;
-  if (i2 >= v.n2 || i1 >= v.n1) return;
-  const size_t o = v.at(i0, i1, i2), row = v.plane(i0, i1);
-  const size_t s0 = static_cast<size_t>(v.n1) * v.n2;
-  // d at this voxel and at its +1 neighbours on axes 0 and 1 (same slice)
-  auto obj = [&](size_t oo, size_t rr, int a0, int a1) {
-    return objective(x, p1, p2, p3, oo, s0, v.n2, a0 > 0, a1 > 0,
-                     p3_below<T, HALO>(p3, h, oo, rr, i2), lam);
+  using BXb = tj::TvBox<float>;
+  using BPb = tj::TvBox<T>;
+  using Cells = tj::CellSet<VEC, false, HALO>;
+  constexpr int R2 = tj::TV_R2;
+  using S = tj::PlaneSlot<T, 3>;
+  __shared__ __align__(16) unsigned char ring[tj::TV_RING * S::BYTES];
+  __shared__ float ds[2][tj::TV_REG];  // d of planes i0 and i0 + 1
+  const int tx = threadIdx.x % tj::TV_T2, ty = threadIdx.x / tj::TV_T2;
+  const int c0 = blockIdx.x * tj::TV_T2, r0 = blockIdx.y * tj::TV_T1;
+  const int i_s = blockIdx.z * tj::TV_C;
+  const int i_e = min(v.n0, i_s + tj::TV_C);
+  const int c = c0 + tx;
+  const size_t plane = static_cast<size_t>(v.n1) * v.n2;
+  const T* pv[3] = {p1, p2, p3};
+  const T* lo[3] = {nullptr, nullptr, HALO ? h.p3_lo : nullptr};
+  const T* hi[3] = {HALO ? h.p1_hi : nullptr, HALO ? h.p2_hi : nullptr,
+                    HALO ? h.p3_hi : nullptr};
+  const float* x_hi = HALO ? h.x_hi : nullptr;
+  const bool has_hi = x_hi != nullptr;
+  const bool in_lo = c0 == 0, in_hi = v.n2 <= c0 + tj::TV_T2;
+  Cells cells;
+  cells.init(r0, c0, v.n1, v.n2);
+  // which operands' cells a thread stores: with VEC only the halo columns
+  // that come from elsewhere, P3's column -1 (HALO) and every operand's
+  // column n2 (a right halo); the copies bring the rest
+  const bool keep = !VEC || (!cells.lo_side && has_hi);  // x, P1, P2
+  const bool keep_p3 = !VEC || (cells.lo_side ? HALO : has_hi);
+  // the cells of two planes in flight (tj::Set)
+  float vx[2][Cells::N];
+  T vp[2][3][Cells::N];
+  auto slot = [&](int p) { return (p - i_s + 1) % tj::TV_RING; };
+  auto X = [&](int b) {
+    return reinterpret_cast<float*>(ring + b * S::BYTES);
   };
-  const float d = obj(o, row, i0, i1);
-  const float g1 = i0 < v.n0 - 1 ? d - obj(o + s0, row + v.n1, i0 + 1, i1)
-                                 : 0.f;
-  const float g2 = i1 < v.n1 - 1 ? d - obj(o + v.n2, row + 1, i0, i1 + 1)
-                                 : 0.f;
-  // The +1 neighbour on axis 2: in the slab, or after a slab's last slice
-  // on the right halo plane (index row, strides n1 and 1); none (g3 = 0) at
-  // the top of the volume or of the chain. One code path whose arrays are
-  // picked at the last slice: it keeps K9a's registers at K3's.
-  float g3 = 0.f;
-  const bool last = i2 == v.n2 - 1;
-  if (!last || (HALO && h.x_hi != nullptr)) {
-    const bool hl = HALO && last;
-    g3 = d - objective(hl ? h.x_hi : x + 1, hl ? h.p1_hi : p1 + 1,
-                       hl ? h.p2_hi : p2 + 1, hl ? h.p3_hi : p3 + 1,
-                       hl ? row : o, hl ? static_cast<size_t>(v.n1) : s0,
-                       hl ? 1 : static_cast<size_t>(v.n2), i0 > 0, i1 > 0,
-                       tj::load(p3, o), lam);
+  auto P = [&](int b, int k) {
+    return reinterpret_cast<T*>(ring + b * S::BYTES + S::XB + k * S::PB);
+  };
+  tj::PlaneCopy cps[S::COPIES];
+#pragma unroll
+  for (int j = 0; j < S::COPIES; ++j) {
+    cps[j] = tj::plane_copy<T, 3, false>(
+        threadIdx.x + j * tj::TV_NT, r0, c0, v.n1, v.n2,
+        HALO && in_lo ? 1 << 3 : 0, has_hi && in_hi ? 0xf : 0);
   }
-  const Dual q = dual_step(tj::load(p1, o), tj::load(p2, o), tj::load(p3, o),
-                           g1, g2, g3, multip);
-  o1[o] = tj::store<T>(q.q1);
-  o2[o] = tj::store<T>(q.q2);
-  o3[o] = tj::store<T>(q.q3);
+  const void* const ops[4] = {x, p1, p2, p3};
+  // plane p (zeros outside [0, n0)); only P1 unless `all`; planes past the
+  // chunk's last + 1 are not needed: an empty group
+  auto stage_async = [&](int p, bool all) {
+    if (VEC && p <= i_e) {
+      const bool ok = p >= 0 && p < v.n0;
+      tj::copy_plane<T, 3>(ring + slot(p) * S::BYTES, cps, ops,
+                            ok ? p * plane : 0, ok, all ? -1 : 1);
+    }
+    tj::tv_commit();
+  };
+  auto fetch = [&](int p, bool all, auto set) {
+    constexpr int k_ = decltype(set)::value;
+    const bool ok = p >= 0 && p < v.n0;
+    const size_t po = ok ? p * plane : 0, ho = ok ? p * size_t(v.n1) : 0;
+#pragma unroll
+    for (int s = 0; s < Cells::N; ++s) {
+      if (!cells.live[s]) continue;
+      tj::BoxCell cl = cells.cell[s];
+      if (!ok) cl.src = tj::BOX_ZERO;
+      if (all) {
+        vx[k_][s] = tj::cell_fetch<float>(cl, x, nullptr, x_hi, po, ho);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (all || k == 0) {
+          vp[k_][k][s] = tj::cell_fetch<T>(cl, pv[k], lo[k], hi[k], po, ho);
+        }
+      }
+    }
+  };
+  auto put = [&](int p, bool all, auto set) {
+    constexpr int k_ = decltype(set)::value;
+    const int b = slot(p);
+#pragma unroll
+    for (int s = 0; s < Cells::N; ++s) {
+      if (!cells.live[s]) continue;
+      const int ax = BXb::at(cells.cell[s].a, cells.cell[s].b);
+      const int ap = BPb::at(cells.cell[s].a, cells.cell[s].b);
+      if (all && keep) X(b)[ax] = vx[k_][s];
+      if (keep) P(b, 0)[ap] = vp[k_][0][s];
+      if (all && keep) P(b, 1)[ap] = vp[k_][1][s];
+      if (all && keep_p3) P(b, 2)[ap] = vp[k_][2][s];
+    }
+  };
+  // d of plane p on the region (box rows 1..TV_T1 + 1, columns
+  // 1..TV_T2 + 1: the tile and one row and one column after it), P1 one
+  // plane below from plane p - 1's buffer; NR cells a thread at most
+  constexpr int ROWS = tj::TV_ROWS, TY = tj::TV_TY, NR = tj::TV_RCELLS;
+  int rx[NR], rp[NR];
+#pragma unroll
+  for (int m = 0; m < NR; ++m) {
+    const int e = threadIdx.x + m * tj::TV_NT;
+    rx[m] = BXb::at(e / R2 + 1, e % R2 + 1);
+    rp[m] = BPb::at(e / R2 + 1, e % R2 + 1);
+  }
+  auto region_d = [&](int p, float* out) {
+    const int b = slot(p), bm = slot(p - 1);
+    const float* Xb = X(b);
+    const T* P1 = P(b, 0);
+    const T* P2 = P(b, 1);
+    const T* P3 = P(b, 2);
+    const T* P1m = P(bm, 0);
+#pragma unroll
+    for (int m = 0; m < NR; ++m) {
+      const int e = threadIdx.x + m * tj::TV_NT, ox = rx[m], op = rp[m];
+      if (m == 0 || e < tj::TV_REG) {
+        out[e] = objective_at(Xb[ox], tj::load(P1, op), tj::load(P1m, op),
+                              tj::load(P2, op), tj::load(P2, op - BPb::W),
+                              tj::load(P3, op), tj::load(P3, op - 1), lam);
+      }
+    }
+  };
+
+  // plane i_s - 1: P1 only, which the divergence of plane i_s reads
+  stage_async(i_s - 1, false);
+  stage_async(i_s, true);
+  stage_async(i_s + 1, true);
+  stage_async(i_s + 2, true);
+  tj::tv_wait<2>();
+  fetch(i_s - 1, false, tj::Set0{});
+  fetch(i_s, true, tj::Set1{});
+  put(i_s - 1, false, tj::Set0{});
+  put(i_s, true, tj::Set1{});
+  fetch(i_s + 1, true, tj::Set1{});  // the loop's steps take sets 1, 0, 1, ...
+  fetch(i_s + 2, true, tj::Set0{});
+  __syncthreads();
+  region_d(i_s, ds[0]);
+  const bool has3 = c < v.n2 - 1 || has_hi;
+  // plane i0, its d in ds[dc]: the cells of plane i0 + 1 come from `set`,
+  // which then takes plane i0 + 3's
+  auto step = [&](int i0, int dc, auto set) {
+    const size_t at = i0 * plane + static_cast<size_t>(r0 + ty) * v.n2 + c;
+    tj::tv_wait<1>();
+    put(i0 + 1, true, set);
+    __syncthreads();
+    stage_async(i0 + 3, true);
+    if (i0 + 3 <= i_e) fetch(i0 + 3, true, set);
+    region_d(i0 + 1, ds[dc ^ 1]);
+    __syncthreads();
+    const int b = slot(i0);
+    const float* dd = ds[dc];
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      const int r = r0 + ty + TY * j;
+      if (r >= v.n1 || c >= v.n2) continue;
+      const int op = BPb::at(ty + TY * j + 1, tx + 1);  // the voxel in the box
+      const int q = (ty + TY * j) * R2 + tx;            // in the region
+      const float d = dd[q];
+      const float g1 = i0 < v.n0 - 1 ? d - ds[dc ^ 1][q] : 0.f;
+      const float g2 = r < v.n1 - 1 ? d - dd[q + R2] : 0.f;
+      const float g3 = has3 ? d - dd[q + 1] : 0.f;
+      const Dual u = dual_step(tj::load(P(b, 0), op), tj::load(P(b, 1), op),
+                               tj::load(P(b, 2), op), g1, g2, g3, multip);
+      const size_t o = at + static_cast<size_t>(TY * j) * v.n2;
+      o1[o] = tj::store<T>(u.q1);
+      o2[o] = tj::store<T>(u.q2);
+      o3[o] = tj::store<T>(u.q3);
+    }
+  };
+  for (int i0 = i_s; i0 < i_e; i0 += 2) {
+    step(i0, 0, tj::Set1{});
+    if (i0 + 1 < i_e) step(i0 + 1, 1, tj::Set0{});
+  }
 }
 
 // K11 -- replaces tomojax/tv/pallas_fgp.py:_fused2_kernel
@@ -357,12 +509,19 @@ dim3 vol_grid(const Vol& v) {
   return dim3((v.n2 + BX - 1) / BX, (v.n1 + BY - 1) / BY, v.n0);
 }
 
+// VEC where every operand's rows are 16-byte aligned.
 template <typename T, bool HALO>
 void launch_iter(const float* x, const void* p1, const void* p2,
                  const void* p3, void* o1, void* o2, void* o3,
                  const Halo<T>& h, Vol v, float lam, float multip,
                  cudaStream_t st) {
-  fgp_iter_kernel<T, HALO><<<vol_grid(v), dim3(BX, BY), 0, st>>>(
+  const bool vec =
+      v.n2 % tj::TvBox<T>::PAD == 0 &&
+      (reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(p1) |
+       reinterpret_cast<size_t>(p2) | reinterpret_cast<size_t>(p3)) % 16 == 0;
+  auto kernel = vec ? fgp_iter_kernel<T, HALO, true>
+                    : fgp_iter_kernel<T, HALO, false>;
+  kernel<<<tj::march_grid(v.n0, v.n1, v.n2), tj::TV_NT, 0, st>>>(
       x, static_cast<const T*>(p1), static_cast<const T*>(p2),
       static_cast<const T*>(p3), static_cast<T*>(o1), static_cast<T*>(o2),
       static_cast<T*>(o3), h, v, lam, multip);
@@ -417,7 +576,7 @@ TJ_API int tj_fgp_iter(const float* x, const void* p1, const void* p2,
                        const void* p3, void* o1, void* o2, void* o3, int n0,
                        int n1, int n2, int bf16, float lam, float multip,
                        void* stream) {
-  if (!vol_ok(n0, n1, n2)) return cudaErrorInvalidValue;
+  if (!tj::march_ok(n0, n1, n2)) return cudaErrorInvalidValue;
   const Vol v{n0, n1, n2};
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16) {
@@ -474,7 +633,8 @@ TJ_API int tj_fgp_iter_halo(const float* x, const void* p1, const void* p2,
                             int bf16, float lam, float multip, void* stream) {
   const int n_hi = (x_hi != nullptr) + (p1_hi != nullptr) +
                    (p2_hi != nullptr) + (p3_hi != nullptr);
-  if (!vol_ok(n0, n1, n2) || p3_lo == nullptr || (n_hi != 0 && n_hi != 4)) {
+  if (!tj::march_ok(n0, n1, n2) || p3_lo == nullptr ||
+      (n_hi != 0 && n_hi != 4)) {
     return cudaErrorInvalidValue;
   }
   const Vol v{n0, n1, n2};

@@ -29,7 +29,7 @@ from tomojax_torch.dist import SlabGroup, all_reduce_sum, halo_exchange
 from tomojax_torch.tv.cuda_fgp import tv_fgp_fused, tv_fgp_two_pass
 from tomojax_torch.tv.cuda_fgp_sharded import tv_fgp_sharded
 from tomojax_torch.tv.cuda_tv_value import EPS_TV, tv_value
-from tomojax_torch.tv.cuda_tvgd import tv_grad
+from tomojax_torch.tv.cuda_tvgd import tv_descent, tv_grad, tv_step
 from tomojax_torch.tv.cuda_tvgd_sharded import tv_gd_sharded
 
 COMPAT = ("global", "reference-mpi")
@@ -84,7 +84,8 @@ def tv_gd(x: torch.Tensor, ng: int, dpocs, group: SlabGroup | None = None,
 
     Returns (x_new, tv_of_input), as ``tomojax.tv.tv_gd`` does. dpocs is a
     float or a 0-dim tensor on x's device; the norm stays on the device
-    (K7, K9c), so the steps never wait for the host.
+    (K7, K9c) and each step is one pass on the card (``tv_step``), so the
+    steps never wait for the host.
 
     A 4D (Nel, ...) stack takes axis_norm=(1, 2, 3) (the reference's 4D
     TV-GD): K7 per element, each normalised by its own norm. 3D volumes
@@ -112,21 +113,13 @@ def tv_gd(x: torch.Tensor, ng: int, dpocs, group: SlabGroup | None = None,
             return tv_gd_sharded(x, ng, dpocs, group), tv0
     else:
         tv0 = all_reduce_sum(tv_value(x), group)
-    for _ in range(ng):
-        g, gsq = tv_grad(x)
-        x = x - dpocs * g / torch.sqrt(gsq)
-    return torch.clamp_min(x, 0.0), tv0
+    return tv_descent(x, ng, dpocs), tv0
 
 
 def _tv_gd_4d(x: torch.Tensor, ng: int, dpocs):
-    """TV-GD of a 4D stack: K7 per element, each element's own norm."""
-    tv0 = tv(x)
-    xs = list(x)
-    for _ in range(ng):
-        for e, xe in enumerate(xs):
-            g, gsq = tv_grad(xe)
-            xs[e] = xe - dpocs * g / torch.sqrt(gsq)
-    return torch.clamp_min(torch.stack(xs), 0.0), tv0
+    """TV-GD of a 4D stack: K7 and the step per element, each element's
+    own norm."""
+    return torch.stack([tv_descent(xe, ng, dpocs) for xe in x]), tv(x)
 
 
 def tv_4d(x: torch.Tensor) -> torch.Tensor:
@@ -156,4 +149,4 @@ def tv_gd_4d(x: torch.Tensor, ng: int, dpocs):
 
 __all__ = ["EPS_TV", "tv", "tv_4d", "tv_fgp", "tv_fgp_4d", "tv_fgp_fused",
            "tv_fgp_sharded", "tv_fgp_two_pass", "tv_gd", "tv_gd_4d",
-           "tv_gd_sharded", "tv_grad", "tv_value"]
+           "tv_gd_sharded", "tv_grad", "tv_step", "tv_value"]

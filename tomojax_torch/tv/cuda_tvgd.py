@@ -1,15 +1,20 @@
-"""TV-GD subgradient kernel K7 on the card, with its plain PyTorch version.
+"""TV-GD subgradient kernel K7 and the descent step on the card, with their
+plain PyTorch versions.
 
-Counterpart of ``tomojax/tv/pallas_tvgd.py`` (``_grad_kernel``): the
-4-term isotropic TV subgradient with periodic wrap and eps = 1e-6 of
-``tomojax/tv/__init__.py:_tv_grad``, plus ``||g||^2``. The port's volumes
-are slice-last (N, N, Ns), so the reference's slice axis i is axis 2, its
-row axis j is axis 0 and its column axis k is axis 1; both versions keep
-the reference's summation order (i, then j, then k). ``tv_grad`` runs the
-plain version only for a CPU tensor; on a CUDA tensor it launches
-``csrc/tvgd.cu`` (per-block partial sums of g^2, then one fixed-order
-sum: repeated runs give identical norms) or raises. Launches are counted
-in ``tv_grad.launches``.
+Counterpart of ``tomojax/tv/pallas_tvgd.py`` (``_grad_kernel`` and the
+step ``tv_gd_pallas`` leaves to XLA): the 4-term isotropic TV subgradient
+with periodic wrap and eps = 1e-6 of ``tomojax/tv/__init__.py:_tv_grad``,
+plus ``||g||^2``, and the normalised step x - dpocs g / ||g||. The port's
+volumes are slice-last (N, N, Ns), so the reference's slice axis i is axis
+2, its row axis j is axis 0 and its column axis k is axis 1; both versions
+keep the reference's summation order (i, then j, then k).
+
+``tv_grad`` runs the plain version only for a CPU tensor; on a CUDA tensor
+it launches ``csrc/tvgd.cu`` (the plane march of ``tv/march.py``; per-block
+partial sums of g^2, then one fixed-order sum: repeated runs give
+identical norms) or raises. ``tv_step`` likewise launches ``tj_tv_step``,
+one elementwise pass that reads dpocs and ||g||^2 on the device and rounds
+as the plain expression does. Launches are counted in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -63,4 +68,42 @@ def tv_grad(x: torch.Tensor):
     return g, gsq
 
 
+def tv_step_ref(x, g, gsq, dpocs, clamp: bool = False):
+    """Plain descent step ``x - dpocs * g / sqrt(gsq)``, then positivity
+    when `clamp` (the last of the steps)."""
+    x = x - dpocs * g / torch.sqrt(gsq)
+    return torch.clamp_min(x, 0.0) if clamp else x
+
+
+def tv_step(x, g, gsq, dpocs, clamp: bool = False):
+    """The descent step as `tv_step_ref` says, for contiguous float32 x and
+    g of one shape and a 0-dim float32 gsq; dpocs a float or a 0-dim
+    tensor. On the card one pass, dpocs and gsq read on the device."""
+    _build.check_operand(x, "x", x.shape, F32)
+    _build.check_operand(g, "g", x.shape, F32)
+    _build.check_operand(gsq, "gsq", (), F32)
+    if _build.on_cpu(x, g, gsq):
+        return tv_step_ref(x, g, gsq, dpocs, clamp)
+    dp = torch.as_tensor(dpocs, dtype=F32, device=x.device)
+    _build.check_operand(dp, "dpocs", (), F32)
+    out = torch.empty_like(x)
+    _build.check(_build.lib().tj_tv_step(
+        x.data_ptr(), g.data_ptr(), dp.data_ptr(), gsq.data_ptr(),
+        out.data_ptr(), x.numel(), int(clamp), _build.stream()), "tj_tv_step")
+    tv_step.launches += 1
+    return out
+
+
+def tv_descent(x: torch.Tensor, ng: int, dpocs, grad=tv_grad):
+    """`ng` normalised steps along `grad` (a function x -> (g, ||g||^2)),
+    the last one clamped to x >= 0; with ng = 0 only the clamp."""
+    if ng == 0:
+        return torch.clamp_min(x, 0.0)
+    for k in range(ng):
+        g, gsq = grad(x)
+        x = tv_step(x, g, gsq, dpocs, clamp=k == ng - 1)
+    return x
+
+
 tv_grad.launches = 0
+tv_step.launches = 0

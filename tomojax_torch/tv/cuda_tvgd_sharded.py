@@ -11,7 +11,7 @@ whole volume bit for bit. Its ||g||^2 is the slab's fixed-order partial,
 all-reduced into the global norm, so every rank takes the same normalised
 step as the unsharded `tv_gd` (the reference's multi-rank TV-GD uses the
 local norm instead: ``tv.tv_gd(compat='reference-mpi')``). The step and
-the clamp stay PyTorch ops, as on the unsharded path.
+the clamp are `cuda_tvgd.tv_step`, as on the unsharded path.
 
 ``tv_grad_halo`` runs the plain version only for CPU tensors; on CUDA
 tensors it launches the kernel or raises. Launches are counted in
@@ -24,7 +24,7 @@ import torch
 
 from tomojax_torch import _build
 from tomojax_torch.dist import SlabGroup, all_reduce_sum, halo_exchange
-from tomojax_torch.tv.cuda_tvgd import F32, tv_grad_field
+from tomojax_torch.tv.cuda_tvgd import F32, tv_descent, tv_grad_field
 
 _SLAB = 2  # the slab axis of a slice-last volume
 
@@ -70,13 +70,13 @@ def tv_gd_sharded(x: torch.Tensor, ng: int, dpocs, group: SlabGroup):
     (N, N, n_loc), then positivity (``tv_gd_sharded`` of the JAX package,
     without the TV value: ``tv.tv_gd`` adds it). dpocs is a float or a
     0-dim tensor on x's device; no step reads the host."""
-    for _ in range(ng):
-        lo, hi = halo_exchange(x[:, :, 0].contiguous(),
-                               x[:, :, -1].contiguous(), group, ring=True)
-        g, gsq = tv_grad_halo(x, lo, hi)
-        all_reduce_sum(gsq, group)
-        x = x - dpocs * g / torch.sqrt(gsq)
-    return torch.clamp_min(x, 0.0)
+    def grad(v):
+        lo, hi = halo_exchange(v[:, :, 0].contiguous(),
+                               v[:, :, -1].contiguous(), group, ring=True)
+        g, gsq = tv_grad_halo(v, lo, hi)
+        return g, all_reduce_sum(gsq, group)
+
+    return tv_descent(x, ng, dpocs, grad)
 
 
 tv_grad_halo.launches = 0
