@@ -43,11 +43,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    in one process (10 FGP iterations with f32 and bf16 duals, 10 TV-GD
    gradients) against K3/K4 and K7 on the whole volume; the TV-GD step
    (tj_tv_step) equal to its plain version (torch.equal), clamped and not;
-   K7, K9c, the step, K3 and K9a at shapes across the plane march's
-   boundaries (n0 below and above its chunk, ragged rows, n2 = 1) against
-   their plain versions, K7's partial count against tv/march.py; and the
-   device times of K3 (256^3 and 256^2 x 128), K9a, K7, K9c and the step
-   with the device-memory rate each reaches;
+   K7, K9c, the step, K3, K9a, K11 (f32 and bf16 duals, 0.0) and K5 (with
+   and without a right halo; two runs identical) at shapes across the
+   plane march's boundaries (n0 below and above its chunk, ragged rows,
+   n2 = 1, one plane) against their plain versions, K5 on a 4D stack in
+   one launch, K7's and K5's partial counts against tv/march.py; and the
+   device times of K3 (256^3 and 256^2 x 128), K9a, K7, K9c, the step, K5
+   (256^3, and the 3 x 128 x 256^2 stack in one launch beside the
+   per-element loop) and K11 beside two K3 launches, with the
+   device-memory rate each reaches;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, and with every plain version made to raise:
    a. FISTA-TV: TomoTorch on the 256 x 256^2 x 90 nanocube problem (one
@@ -70,7 +74,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       there), data_fusion(fused=True) and method='sart' (K8); K1, K2, K3,
       K4, K5 and K8 then held against their plain versions at the shapes
       this path gives them (element 0 of its state, 256^2 x 128, under both
-      geometries), with phase 3's bounds; then the
+      geometries; K5 also on the whole 4D state in one launch), with phase
+      3's bounds; then the
       outer iteration as bench.py times it (random data from
       default_rng(0)), ms/iteration over 5 iterations with CUDA events
       and a torch.profiler breakdown with the idle share;
@@ -120,9 +125,11 @@ the file (a copy of it beside another tree times that tree's kernels).
 
     python3 chip_smoke.py --tv-times
 
-times only K3, K9a, K7, K9c, the TV step kernel (where the tree has it) and
-the PyTorch step expression at 256^3 (K3 also at 256^2 x 128), in the same
-way beside another tree.
+times only K3, K9a, K7, K9c, the TV step kernel (where the tree has it),
+the PyTorch step expression, K5 and K11 (bf16 duals) beside two K3 launches
+at 256^3 (K3 also at 256^2 x 128), and K5 on the 3 x 128 x 256^2 fusion
+stack, one launch (where the tree takes a 4D stack) and the per-element
+loop, in the same way beside another tree.
 
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
 printing any result.
@@ -172,10 +179,11 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
     """Device time of the kernels one call of `fn` launches (mean of `reps`
-    calls after a warm-up, from torch.profiler's CUDA events): unlike
-    `time_ms` it leaves out the gaps while the host issues the launch."""
+    calls after a warm-up, from torch.profiler's CUDA events), or of those
+    whose name holds `kernel`: unlike `time_ms` it leaves out the gaps
+    while the host issues the launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -186,7 +194,7 @@ def device_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == cuda)
+             if e.device_type == cuda and kernel in e.name)
     return us / reps / 1e3
 
 
@@ -572,17 +580,20 @@ def _check_tv_step(x, g, gsq, report) -> None:
            work=(12 * V + 8, 4 * V))
 
 
-TV_SHAPES = ((5, 11, 37), (40, 16, 1), (70, 33, 130), (256, 256, 64))
+TV_SHAPES = ((5, 11, 37), (40, 16, 1), (70, 33, 130), (256, 256, 64),
+             (1, 8, 32))
 
 
 def _check_tv_march(uni, card: str) -> None:
-    """K7, K9c, the step, K3 and K9a against their plain versions at shapes
-    that cross the march's boundaries (n0 below and above TV_C, ragged n1
-    and n2, n2 = 1; the slab of a 4-way split at 256^2), with phase 3's
-    bounds (K3 f32 duals 1e-6, bf16 one rounding, 2^-7), and K7's partial
-    count against tv/march.py."""
+    """K7, K9c, the step, K3, K9a, K11 and K5 against their plain versions
+    at shapes that cross the march's boundaries (n0 below and above TV_C,
+    ragged n1 and n2, n2 = 1, one plane; the slab of a 4-way split at
+    256^2), with phase 3's bounds (K3 f32 duals 1e-6, bf16 one rounding,
+    2^-7; K11 0.0; K5 rtol 2e-5, two runs identical, with and without a
+    right halo), K5 on a 4D stack in one launch, and K7's and K5's partial
+    counts against tv/march.py."""
     from tomojax_torch import _build
-    from tomojax_torch.tv import cuda_fgp, cuda_tvgd, march
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd, march
     from tomojax_torch.tv import cuda_fgp_sharded as fs
     from tomojax_torch.tv import cuda_tvgd_sharded as gs
 
@@ -592,13 +603,26 @@ def _check_tv_march(uni, card: str) -> None:
         require(err <= tol, f"{name}: {err:.3e} above {tol:.3e}")
         worst[name] = max(worst.get(name, 0.0), err)
 
+    def k5(name, x, hi=None):
+        got = cuda_tv_value.tv_value(x, hi)
+        again = cuda_tv_value.tv_value(x, hi)
+        ref = float(cuda_tv_value.tv_value_ref(x, hi))
+        require(float(got) == float(again), f"{name} is not repeatable")
+        held(name, abs(float(got) - ref) / abs(ref), 2e-5)
+
     for shape in TV_SHAPES:
         require(_build.lib().tj_tv_grad_partials(*shape)
                 == march.grad_partials(*shape),
                 f"K7 partials at {shape}: tj_tv_grad_partials vs "
                 f"march.grad_partials")
+        require(_build.lib().tj_tv_value_partials(3, *shape)
+                == march.value_partials(3, *shape),
+                f"K5 partials at 3 x {shape}: tj_tv_value_partials vs "
+                f"march.value_partials")
         x = uni(*shape, lo=-0.5, hi=1.5)
         lo, hi = uni(*shape[:2]), uni(*shape[:2])
+        k5("K5 rel", x)
+        k5("K5 halo rel", x, hi)
         for name, (g, gsq), (g_r, gsq_r) in (
                 ("K7", cuda_tvgd.tv_grad(x), cuda_tvgd.tv_grad_ref(x)),
                 ("K9c", gs.tv_grad_halo(x, lo, hi),
@@ -620,14 +644,23 @@ def _check_tv_march(uni, card: str) -> None:
                     ("K9a", fs.fgp_iter_halo(x, *p, LAM, p3_lo, his),
                      fs.fgp_iter_halo_ref(x, *p, LAM, p3_lo, his)),
                     ("K9a top", fs.fgp_iter_halo(x, *p, LAM, p3_lo),
-                     fs.fgp_iter_halo_ref(x, *p, LAM, p3_lo))):
+                     fs.fgp_iter_halo_ref(x, *p, LAM, p3_lo)),
+                    ("K11", cuda_fgp.fgp_iter2(x, *p, LAM),
+                     cuda_fgp.fgp_iter2_ref(x, *p, LAM))):
                 held(f"{name} {str(dt)[6:]}", max(
                     max_err(a.float(), b.float()) for a, b in zip(got, ref)),
-                    tol)
+                    0.0 if name == "K11" else tol)
+    stack = uni(3, 40, 16, 36, lo=-0.5, hi=1.5)
+    before = cuda_tv_value.tv_value.launches
+    k5("K5 4D rel", stack)
+    require(cuda_tv_value.tv_value.launches == before + 2,
+            "K5 took more than one launch for a 4D stack")
     torch.cuda.synchronize()
     print(f"TV march at {', '.join('x'.join(map(str, s)) for s in TV_SHAPES)}"
-          f": " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + f"; tv_step equal; K7 partials as march.grad_partials [{card}]")
+          f" and K5 on a 3x40x16x36 stack (one launch): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; tv_step equal; K5 two runs identical; K7 and K5 partials as "
+          f"march.py [{card}]")
 
 
 def tv_times(uni, card: str, tag: str) -> dict:
@@ -635,11 +668,13 @@ def tv_times(uni, card: str, tag: str) -> dict:
     10 back-to-back calls) of K3 (bf16 duals) at 256^3 and at fusion's
     256^2 x 128, K9a (world size 1: zero P3 plane below, no right halo), K7,
     K9c (the volume's own last and first slices as halos), the TV step
-    (where this tree has the kernel) and the PyTorch step expression at
-    256^3, with the device-memory rate each reaches (the bytes it must move
-    over its device time)."""
+    (where this tree has the kernel), the PyTorch step expression, K5, K11
+    (bf16 duals) and two K3 launches at 256^3, and K5 on fusion's 3 x 128 x
+    256^2 stack (one launch where this tree takes a 4D stack; the
+    per-element loop), with the device-memory rate each reaches (the bytes
+    it must move over its device time)."""
     from tomojax_torch.experiments.timing import batch_ms
-    from tomojax_torch.tv import cuda_fgp, cuda_tvgd
+    from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd, march
     from tomojax_torch.tv import cuda_fgp_sharded as fs
     from tomojax_torch.tv import cuda_tvgd_sharded as gs
 
@@ -669,12 +704,32 @@ def tv_times(uni, card: str, tag: str) -> dict:
     if hasattr(cuda_tvgd, "tv_step"):
         calls["step kernel 256^3"] = (
             lambda: cuda_tvgd.tv_step(x, g, gsq, dp, True), 12 * x.numel())
+    xs = uni(3, n, n, n // 2)
+    calls["K5 256^3"] = (lambda: cuda_tv_value.tv_value(x), 4 * x.numel())
+    if hasattr(march, "value_partials"):
+        calls["K5 3x256^2x128 one launch"] = (
+            lambda: cuda_tv_value.tv_value(xs), 4 * xs.numel())
+    calls["K5 3x256^2x128 per element"] = (
+        lambda: torch.stack([cuda_tv_value.tv_value(e) for e in xs]).sum(),
+        4 * xs.numel())
+    calls["K11 bf16 256^3"] = (lambda: cuda_fgp.fgp_iter2(x, *p, LAM),
+                               16 * x.numel())
+    calls["two K3 bf16 256^3"] = (
+        lambda: cuda_fgp.fgp_iter(x, *cuda_fgp.fgp_iter(x, *p, LAM), LAM),
+        32 * x.numel())
     out = {}
     for name, (fn, nbytes) in calls.items():
         dev, batch = device_ms(fn), batch_ms(fn, 10, x.device)
         out[name] = (dev, batch)
         print(f"{tag} {name}: {dev:.4f} ms device, {batch:.4f} ms batch, "
               f"{nbytes / dev / 1e9:.3f} TB/s at the device time [{card}]")
+    # K5's two launches apart: the march and tj::sum_partials
+    k5 = calls["K5 256^3"][0]
+    split = (device_ms(k5, kernel="tv_value_kernel"),
+             device_ms(k5, kernel="sum_kernel"))
+    out["K5 256^3 march, partial sum"] = split
+    print(f"{tag} K5 256^3 apart: march {split[0]:.4f} ms, partial sum "
+          f"{split[1]:.4f} ms device [{card}]")
     return out
 
 
@@ -1689,7 +1744,8 @@ def _check_fusion_kernels(tomo, card: str) -> None:
     HAADF model h, K1 and K2 (plain and fused, as SIRT and Poisson-ML call
     it) under the chemistry geometry (45 angles) and the HAADF geometry
     (90), the FGP chain of 5 iterations (K3, then K4 with momentum off)
-    with f32 and bf16 duals, K5, and one HAADF SART sweep (K8) from h."""
+    with f32 and bf16 duals, K5 (element 0, and the whole state in one
+    launch), and one HAADF SART sweep (K8) from h."""
     from tomojax_torch.fusion import model_haadf
     from tomojax_torch.projector import cuda_joseph as cj
     from tomojax_torch.solvers import cuda_sart, make_sart_weights
@@ -1741,6 +1797,15 @@ def _check_fusion_kernels(tomo, card: str) -> None:
     err = abs(float(got) - float(ref))
     require(err <= 2e-5 * abs(float(ref)), f"fusion shapes, K5: {err:.3e}")
     out.append(f"K5 rel {err / abs(float(ref)):.2e} <= 2e-5")
+    xs = tomo.x.contiguous()  # the whole state, as tv() takes it
+    before = cuda_tv_value.tv_value.launches
+    got, ref = cuda_tv_value.tv_value(xs), cuda_tv_value.tv_value_ref(xs)
+    require(cuda_tv_value.tv_value.launches == before + 1,
+            "fusion shapes: K5 took more than one launch for the 4D state")
+    err = abs(float(got) - float(ref))
+    require(err <= 2e-5 * abs(float(ref)), f"fusion shapes, K5 4D: {err:.3e}")
+    out.append(f"K5 on the {tuple(xs.shape)} state (one launch) rel "
+               f"{err / abs(float(ref)):.2e} <= 2e-5")
 
     sh = fsys.haadf
     args = (tomo.b_haadf, sh.geom, sh.inv_row, make_sart_weights(sh),

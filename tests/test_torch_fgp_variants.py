@@ -222,13 +222,18 @@ def test_variant_kernels_match_plain_on_card():
     assert cuda_joseph.bp_smem_bytes(2000, 32) > 227 * 1024
     with pytest.raises(ValueError, match="shared memory"):
         bp_sl(torch.zeros((2000, 8, 4), device=dev), many, ab=32)
+    # K11's march across its boundaries: n0 below and above TV_C, ragged
+    # n1 and n2, n2 = 1, one plane
+    for shape in ((21, 30, 37), (5, 11, 37), (40, 16, 1), (70, 33, 130),
+                  (1, 8, 32)):
+        x = torch.from_numpy(_vol(shape, 13)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            p = tuple((torch.rand(x.shape, device=dev) - 0.5).to(dt)
+                      for _ in range(3))
+            for a, b in zip(fgp_iter2(x, *p, 0.1),
+                            cuda_fgp.fgp_iter2_ref(x, *p, 0.1)):
+                assert torch.equal(a, b), (shape, dt)
     x = torch.from_numpy(_vol((21, 30, 37), 13)).to(dev)
-    for dt in (torch.float32, torch.bfloat16):
-        p = tuple((torch.rand(x.shape, device=dev) - 0.5).to(dt)
-                  for _ in range(3))
-        for a, b in zip(fgp_iter2(x, *p, 0.1),
-                        cuda_fgp.fgp_iter2_ref(x, *p, 0.1)):
-            assert torch.equal(a, b)
     d = torch.from_numpy(_vol((21, 30, 37), 14)).to(dev)
     p = tuple(torch.rand(x.shape, device=dev) - 0.5 for _ in range(3))
     for a, b in zip(fgp_grad(d, *p, 0.1), cuda_fgp.fgp_grad_ref(d, *p, 0.1)):

@@ -40,6 +40,17 @@ def test_tv_value_matches_pallas(shape):
     np.testing.assert_allclose(float(got), ref, rtol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(3, 8, 16, 16), (3, 5, 12, 7)])
+def test_tv_value_4d_matches_pallas(shape):
+    """A (nel, n0, n1, n2) stack: the summed per-element value, one K5
+    launch on the card."""
+    x = _vol(shape, 11)
+    ref = float(tv_value_pallas(jnp.asarray(x), interpret=True))
+    got = tv_value(torch.from_numpy(x))
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), ref, rtol=1e-5)
+
+
 def test_tv_4d_matches_reference():
     x = _vol((2, 6, 10, 9), 1)
     np.testing.assert_allclose(float(tv(torch.from_numpy(x))),
@@ -112,6 +123,19 @@ def test_tv_kernels_match_plain_on_card():
     beta = torch.tensor(0.3, device=dev)
     np.testing.assert_allclose(float(tv_value(x)), float(tv_value_ref(x)),
                                rtol=2e-5)
+    # K5's march across its boundaries, with and without a right halo, and
+    # a 4D stack in one launch
+    for shape in [(5, 11, 37), (40, 16, 1), (70, 33, 130), (1, 8, 32)]:
+        xs = torch.from_numpy(_vol(shape, 15)).to(dev)
+        for hi in (None, torch.from_numpy(_vol(shape[:2], 16)).to(dev)):
+            np.testing.assert_allclose(float(tv_value(xs, hi)),
+                                       float(tv_value_ref(xs, hi)),
+                                       rtol=2e-5)
+    stack = torch.from_numpy(_vol((3, 24, 40, 36), 17)).to(dev)
+    before = tv_value.launches
+    np.testing.assert_allclose(float(tv_value(stack)),
+                               float(tv_value_ref(stack)), rtol=2e-5)
+    assert tv_value.launches == before + 1
     for dt in (torch.float32, torch.bfloat16):
         p = tuple(torch.zeros(x.shape, dtype=dt, device=dev)
                   for _ in range(3))

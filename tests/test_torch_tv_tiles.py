@@ -1,17 +1,20 @@
-"""The plane march of K7/K9c and K3/K9a (csrc/tv_march.cuh, tvgd.cu, fgp.cu)
-emulated on the CPU.
+"""The plane march of K7/K9c, K3/K9a, K5 and K11 (csrc/tv_march.cuh,
+tvgd.cu, fgp.cu, tv_value.cu) emulated on the CPU.
 
 The kernels stage each plane of their tile with a one-voxel halo (periodic
-for K7, zero outside the volume for K3, the halo planes for K9c/K9a), march
-TV_C planes of axis 0 a block (a chunk restarts one plane below), compute
+for K7 and K5, zero outside the volume for K3, the halo planes for
+K9c/K9a and K5's right halo) or a two-voxel one (K11), march TV_C planes
+of axis 0 a block (a chunk restarts one plane below, K11's two), compute
 K7's denominator D and K3's objective d once a voxel on the tile plus one
-row and one column, and keep the previous plane's values. A torch
-emulation of each march, with the kernels' staging rules and the same
-float32 operations in the same order, must equal the plain versions bit for
-bit at shapes that cross every boundary: n0 below, at and above TV_C; n1
-and n2 not multiples of the tile; n2 = 1. K7's ||g||^2 partials are
-emulated in the kernel's layout and order (one a block; warp shuffle trees,
-then the warps in order).
+row and one column (K11: d^1, P^1 and d^2 on the tile and the rows and
+columns their neighbours read), and keep the previous planes' values. A
+torch emulation of each march, with the kernels' staging rules and the
+same float32 operations in the same order, must equal the plain versions
+bit for bit at shapes that cross every boundary: n0 below, at and above
+TV_C; n1 and n2 not multiples of the tile; n2 = 1. K7's ||g||^2 partials
+and K5's partials are emulated in the kernel's layout and order (one a
+block; warp shuffle trees, then the warps in order), and K5's total in
+tj::sum_partials' order.
 """
 
 import re
@@ -23,11 +26,14 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from tomojax_torch.experiments import march_sweep  # noqa: E402
 from tomojax_torch.tv import march  # noqa: E402
 from tomojax_torch.tv import tv_gd  # noqa: E402
-from tomojax_torch.tv.cuda_fgp import fgp_iter_ref  # noqa: E402
+from tomojax_torch.tv.cuda_fgp import fgp_iter2_ref, fgp_iter_ref  # noqa: E402
 from tomojax_torch.tv.cuda_fgp_sharded import fgp_iter_halo_ref  # noqa: E402
-from tomojax_torch.tv.cuda_tv_value import EPS_TV  # noqa: E402
+from tomojax_torch.tv.cuda_tv_value import (  # noqa: E402
+    EPS_TV, tv_terms_ref, tv_value_ref,
+)
 from tomojax_torch.tv.cuda_tvgd import (  # noqa: E402
     tv_grad_ref, tv_step, tv_step_ref,
 )
@@ -50,33 +56,46 @@ def _rand(shape, seed, scale=1.0, offset=0.0):
 
 def test_tile_constants_match_the_source():
     text = (CSRC / "tv_march.cuh").read_text()
-    for name, value in (("TV_T1", T1), ("TV_T2", T2), ("TV_C", C)):
+    for name, value in (("TV_T1", T1), ("TV_T2", T2), ("TV_C", C),
+                        ("TV_H2", march.TV_H2)):
         m = re.search(rf"constexpr int {name} = (\d+);", text)
         assert m is not None and int(m.group(1)) == value, name
     # the emulated block sum takes a tile row as one warp
     assert T2 == 32
 
 
+@pytest.mark.parametrize("variant", range(len(march_sweep.VARIANTS)))
+def test_march_sweep_variants_name_the_constants(variant, tmp_path):
+    """Each tuning constant a sweep variant replaces occurs once in the
+    sources, and the copy holds the new value."""
+    name, subs = march_sweep.VARIANTS[variant]
+    src = march_sweep.variant_sources(subs, tmp_path / "csrc")
+    text = "".join(f.read_text() for f in sorted(src.iterdir()))
+    for const, value in subs.items():
+        assert f"constexpr int {const} = {value};" in text, (name, const)
+
+
 # ------------------------------------------------------------ the staging
 
 
-def _rows(n1, gy, periodic):
-    """Box row -> row of the plane, n1 (a zero row) where nothing is read."""
-    r = torch.arange(gy)[:, None] * T1 - 1 + torch.arange(T1 + 2)[None, :]
+def _rows(n1, gy, periodic, h=1):
+    """Box row -> row of the plane, n1 (a zero row) where nothing is read;
+    a halo of h rows."""
+    r = torch.arange(gy)[:, None] * T1 - h + torch.arange(T1 + 2 * h)[None, :]
     if periodic:
         r = torch.where(r == -1, n1 - 1, torch.where(r == n1, 0, r))
     return torch.where((r >= 0) & (r < n1), r, n1)
 
 
-def _cols(n2, gx, periodic, halo):
+def _cols(n2, gx, periodic, halo, h=1):
     """Box column -> column of the extended plane: 0..n2-1 the volume, n2
     the plane below slice 0, n2 + 1 the plane above slice n2 - 1, n2 + 2
-    zeros."""
-    c = torch.arange(gx)[:, None] * T2 - 1 + torch.arange(T2 + 2)[None, :]
+    zeros; a halo of h columns."""
+    c = torch.arange(gx)[:, None] * T2 - h + torch.arange(T2 + 2 * h)[None, :]
     lo = n2 if halo else (n2 - 1 if periodic else n2 + 2)
     hi = n2 + 1 if halo else (0 if periodic else n2 + 2)
     out = torch.where(c == -1, lo, torch.where(c == n2, hi, c))
-    return torch.where(c > n2, n2 + 2, out)
+    return torch.where((c > n2) | (c < -1), n2 + 2, out)
 
 
 def _stager(field, rows, cols, lo=None, hi=None, periodic=True):
@@ -154,16 +173,21 @@ def emulate_tv_grad(x, lo=None, hi=None):
             for j in range(T1 // TY):
                 acc = acc + sq[..., j * TY:(j + 1) * TY, :]
             x_jm, d_jm, cur = cv, d, nxt
-        # march_block_sum: the shuffle tree of each warp (a row of threads),
-        # then thread 0 adds the warps in order
-        for off in (16, 8, 4, 2, 1):
-            acc = torch.cat([acc[..., :off] + acc[..., off:2 * off],
-                             acc[..., 2 * off:]], dim=-1)
-        total = acc[..., 0, 0]
-        for w in range(1, TY):
-            total = total + acc[..., w, 0]
-        partials[z] = total
+        partials[z] = _block_sum(acc)
     return g, partials.reshape(-1)
+
+
+def _block_sum(acc):
+    """tj::march_block_sum of the (..., TY, T2) per-thread sums: the
+    shuffle tree of each warp (a row of threads), then thread 0 adds the
+    warps in order."""
+    for off in (16, 8, 4, 2, 1):
+        acc = torch.cat([acc[..., :off] + acc[..., off:2 * off],
+                         acc[..., 2 * off:]], dim=-1)
+    total = acc[..., 0, 0]
+    for w in range(1, TY):
+        total = total + acc[..., w, 0]
+    return total
 
 
 def _block_sums64(g):
@@ -298,6 +322,203 @@ def test_k3_chain_of_the_march():
                   for _ in range(3))
     for _ in range(10):
         p, q = emulate_fgp_iter(x, *p, 0.1), fgp_iter_ref(x, *q, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(p, q))
+
+
+# ------------------------------------------------------------------- K5
+
+
+def emulate_tv_value(x, hi=None):
+    """K5 as the kernel marches: (the per-voxel terms, the partials in the
+    kernel's layout: one a block, element by element)."""
+    if x.dim() == 4:
+        runs = [emulate_tv_value(xe, None if hi is None else hi[e])
+                for e, xe in enumerate(x)]
+        return (torch.stack([t for t, _ in runs]),
+                torch.cat([p for _, p in runs]))
+    n0, n1, n2 = x.shape
+    gx, gy, gz = march.march_grid(n0, n1, n2)
+    stage = _stager(x, _rows(n1, gy, True),
+                    _cols(n2, gx, True, hi is not None), None, hi)
+    valid = _valid(n1, n2, gy, gx)
+    t = torch.empty_like(x)
+    partials = torch.empty((gz, gy, gx), dtype=F32)
+    mid = (slice(1, -1), slice(1, -1))
+    for z in range(gz):
+        i_s, i_e = z * C, min(n0, z * C + C)
+        cur = stage(i_s)
+        acc = torch.zeros((gy, gx, TY, T2), dtype=F32)
+        for i0 in range(i_s, i_e):
+            nxt = stage(i0 + 1)  # the stager wraps plane n0 to 0
+            tv = _denom(cur[(...,) + mid], nxt[(...,) + mid],
+                        cur[..., 2:, 1:-1], cur[..., 1:-1, 2:])
+            t[i0] = _crop(tv, n1, n2)
+            tv = torch.where(valid, tv, 0.0)
+            for j in range(T1 // TY):
+                acc = acc + tv[..., j * TY:(j + 1) * TY, :]
+            cur = nxt
+        partials[z] = _block_sum(acc)
+    return t, partials.reshape(-1)
+
+
+def _sum_partials(partials, nt=1024):
+    """tj::sum_partials: thread i adds partials i, i + nt, ... in order,
+    then tj::block_sum's tree over the nt threads."""
+    n = -(-partials.numel() // nt) * nt
+    acc = torch.zeros(nt, dtype=F32)
+    cols = torch.zeros(n, dtype=F32)
+    cols[:partials.numel()] = partials
+    for row in cols.reshape(-1, nt):
+        acc = acc + row
+    while acc.numel() > 1:
+        half = acc.numel() // 2
+        acc = acc[:half] + acc[half:]
+    return acc[0]
+
+
+def _value_block_sums64(t):
+    """The float64 sum of the terms over each block's voxels, in the
+    partials' layout."""
+    n0, n1, n2 = t.shape
+    gx, gy, gz = march.march_grid(n0, n1, n2)
+    pad = torch.zeros((gz * C, gy * T1, gx * T2), dtype=torch.float64)
+    pad[:n0, :n1, :n2] = t.double()
+    return pad.reshape(gz, C, gy, T1, gx, T2).sum(dim=(1, 3, 5)).reshape(-1)
+
+
+@pytest.mark.parametrize("with_hi", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k5_march_equals_plain(shape, with_hi):
+    x = _rand(shape, 40, offset=0.5)
+    hi = _rand(shape[:2], 41) if with_hi else None
+    t, partials = emulate_tv_value(x, hi)
+    assert torch.equal(t, tv_terms_ref(x, hi))
+    assert partials.numel() == march.value_partials(1, *shape)
+    want = _value_block_sums64(t)
+    np.testing.assert_allclose(partials.double().numpy(), want.numpy(),
+                               rtol=1e-6)
+    total = float(_sum_partials(partials))
+    np.testing.assert_allclose(total, float(want.sum()), rtol=1e-6)
+    np.testing.assert_allclose(total, float(tv_value_ref(x, hi)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 11, 37), (2, 40, 16, 1),
+                                   (3, 70, 3, 40)])
+def test_k5_stack_in_one_grid(shape):
+    """A (nel, ...) stack: one grid over elements x chunks, the partials
+    element by element, one fixed-order total."""
+    x = _rand(shape, 42, offset=0.5)
+    t, partials = emulate_tv_value(x)
+    assert torch.equal(t, torch.stack([tv_terms_ref(xe) for xe in x]))
+    assert partials.numel() == march.value_partials(*shape)
+    np.testing.assert_allclose(
+        partials.double().numpy(),
+        torch.cat([_value_block_sums64(te) for te in t]).numpy(), rtol=1e-6)
+    np.testing.assert_allclose(float(_sum_partials(partials)),
+                               float(t.double().sum()), rtol=1e-6)
+
+
+def test_k5_wrap_seam():
+    """A sharp seam across every wrap, one chunk boundary included."""
+    x = torch.ones((40, 9, 33))
+    x[0], x[-1], x[:, 0], x[:, :, -1] = 4.0, -2.0, 3.0, -1.0
+    assert torch.equal(emulate_tv_value(x)[0], tv_terms_ref(x))
+
+
+# ------------------------------------------------------------------ K11
+
+
+def emulate_fgp_iter2(x, p1, p2, p3, lam):
+    """K11 as the kernel marches (a two-voxel halo, a chunk from two planes
+    below its first output plane to two past its last; d^1 on plane k,
+    P^1 on k - 1, zero below plane 0 and outside the volume, d^2 on k - 1,
+    P^2 on k - 2): the duals after two iterations in p1's dtype."""
+    n0, n1, n2 = x.shape
+    h = march.TV_H2
+    gx, gy, gz = march.march_grid(n0, n1, n2)
+    rows, cols = _rows(n1, gy, False, h), _cols(n2, gx, False, False, h)
+    stages = [_stager(f.to(F32), rows, cols, periodic=False)
+              for f in (x, p1, p2, p3)]
+    valid = _valid(n1, n2, gy, gx)
+    # the tile's frame: row u of the region below is row r0 + u - 1
+    rr = torch.arange(gy)[:, None, None, None] * T1 - 1 \
+        + torch.arange(T1 + 2)[:, None]
+    cc = torch.arange(gx)[None, :, None, None] * T2 - 1 + torch.arange(T2 + 2)
+    r_t = rr[..., 1:-1, :]  # the tile's rows
+    c_t = cc[..., 1:-1]
+    inside = (rr >= 0) & (rr < n1) & (cc >= 0) & (cc < n2)
+    multip = 1.0 / (26.0 * lam)
+    out = [torch.empty(x.shape, dtype=F32) for _ in range(3)]
+
+    def project(p, g):
+        q = [pk + multip * gk for pk, gk in zip(p, g)]
+        den = q[0] * q[0] + q[1] * q[1] + q[2] * q[2]
+        scale = torch.where(den > 1.0, torch.rsqrt(den), 1.0)
+        return [qk * scale for qk in q]
+
+    for z in range(gz):
+        i_s, i_e = z * C, min(n0, z * C + C)
+        d1, q, d2 = {}, {}, {}
+        for k in range(i_s - 1, i_e + 2):
+            xx, a1, a2, a3 = (s(k) for s in stages)
+            below = stages[1](k - 1)
+            # d^1 on rows and columns -1 .. T + 1 (box 1 ..)
+            div = a1[..., 1:, 1:] - below[..., 1:, 1:]
+            div = div + (a2[..., 1:, 1:] - a2[..., :-1, 1:])
+            div = div + (a3[..., 1:, 1:] - a3[..., 1:, :-1])
+            d1[k] = torch.clamp_min(xx[..., 1:, 1:] - lam * div, 0.0)
+            if k >= i_s:  # P^1 of plane k - 1 on -1 .. T
+                pl = k - 1
+                dd = d1[pl]
+                d = dd[..., :-1, :-1]
+                g1 = d - d1[k][..., :-1, :-1] if pl < n0 - 1 else \
+                    torch.zeros_like(d)
+                g2 = torch.where(rr < n1 - 1, d - dd[..., 1:, :-1], 0.0)
+                g3 = torch.where(cc < n2 - 1, d - dd[..., :-1, 1:], 0.0)
+                p = [s(pl)[..., 1:-1, 1:-1] for s in stages[1:]]
+                ok = inside & (0 <= pl < n0)
+                q[pl] = [torch.where(ok, v, 0.0)
+                         for v in project(p, (g1, g2, g3))]
+            if k > i_s:  # d^2 of plane k - 1 on 0 .. T
+                pl = k - 1
+                c1, c2, c3 = q[pl]
+                m1 = q[pl - 1][0]
+                div = c1[..., 1:, 1:] - m1[..., 1:, 1:]
+                div = div + (c2[..., 1:, 1:] - c2[..., :-1, 1:])
+                div = div + (c3[..., 1:, 1:] - c3[..., 1:, :-1])
+                xk = stages[0](pl)[..., 2:-1, 2:-1]
+                d2[pl] = torch.clamp_min(xk - lam * div, 0.0)
+            if k > i_s + 1:  # P^2 of plane k - 2 on the tile
+                pl = k - 2
+                dd = d2[pl]
+                d = dd[..., :-1, :-1]
+                g1 = d - d2[pl + 1][..., :-1, :-1] if pl < n0 - 1 else \
+                    torch.zeros_like(d)
+                g2 = torch.where(r_t < n1 - 1, d - dd[..., 1:, :-1], 0.0)
+                g3 = torch.where(c_t < n2 - 1, d - dd[..., :-1, 1:], 0.0)
+                p = [v[..., 1:-1, 1:-1] for v in q[pl]]
+                for o, v in zip(out, project(p, (g1, g2, g3))):
+                    o[pl] = _crop(torch.where(valid, v, 0.0), n1, n2)
+    return tuple(o.to(p1.dtype) for o in out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k11_march_equals_plain(shape, dtype):
+    x = _rand(shape, 50, offset=0.5)
+    p = _duals(shape, 51, dtype)
+    got = emulate_fgp_iter2(x, *p, 0.1)
+    for a, b in zip(got, fgp_iter2_ref(x, *p, 0.1)):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_k11_chain_of_the_march():
+    """Four emulated launches from P = 0 stay equal to the plain chain."""
+    x = _rand((40, 11, 37), 52, offset=0.5)
+    p = q = tuple(torch.zeros(x.shape, dtype=torch.bfloat16)
+                  for _ in range(3))
+    for _ in range(4):
+        p, q = emulate_fgp_iter2(x, *p, 0.1), fgp_iter2_ref(x, *q, 0.1)
     assert all(torch.equal(a, b) for a, b in zip(p, q))
 
 

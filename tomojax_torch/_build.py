@@ -55,8 +55,8 @@ _SIGNATURES = {
                    _F, _P],
     "tj_fgp_obj_halo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _P],
-    "tj_tv_value": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "tj_tv_value_partials": [_I, _I, _I],
+    "tj_tv_value": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tj_tv_value_partials": [_I, _I, _I, _I],
     "tj_tv_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tj_tv_grad_halo": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tj_tv_grad_partials": [_I, _I, _I],
@@ -96,20 +96,21 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> BuildInfo:
-    """Compile csrc/*.cu into one shared library unless it exists: one
-    nvcc per source, run in parallel, then one link."""
-    sources = sorted(CSRC.glob("*.cu"))
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> BuildInfo:
+    """Compile csrc/*.cu into one shared library in build_dir unless it
+    exists: one nvcc per source, run in parallel, then one link. (Another
+    csrc: a copy of the sources with other tuning constants.)"""
+    sources = sorted(csrc.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources + sorted(CSRC.glob("*.cuh")):
+    for p in sources + sorted(csrc.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    lib = BUILD_DIR / f"libtomojax_torch_{h.hexdigest()[:16]}.so"
+    lib = build_dir / f"libtomojax_torch_{h.hexdigest()[:16]}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():
         return BuildInfo(lib, 0.0,
                          log_path.read_text() if log_path.exists() else "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     objs = lib.with_name(f"{lib.stem}.{os.getpid()}.objs")
     objs.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -118,7 +119,7 @@ def build() -> BuildInfo:
     try:
         procs = [
             (src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+                [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(src), "-o",
                  str(objs / f"{src.stem}.o")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             for src in sources]
@@ -153,7 +154,12 @@ def build() -> BuildInfo:
 @functools.cache
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    cdll = ctypes.CDLL(str(build().path))
+    return load(build().path)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library with every C entry's argument types set."""
+    cdll = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(cdll, name)
         fn.argtypes = argtypes

@@ -315,127 +315,250 @@ fgp_iter_kernel(const float* __restrict__ x, const T* __restrict__ p1,
 // forward difference at the last index, the clamp d >= 0, the isotropic
 // projection.
 //
-// A block owns an output tile of K11_T0 x K11_T1 x K11_T2 voxels (axes 0,
-// 1, 2) with origin o. Iteration 2 at voxel v reads d^2 at v and v + e_k,
-// d^2 at w reads P^1 at w and w - e_k, and P^1 at u couples its three
-// components through the projection, so the block builds, in shared
-// memory and in four phases separated by barriers:
-//   A. d^1 on the box [o-1, o+T+2) from x and P (global, through L1/L2);
-//   B. P^1 on the box [o-1, o+T+1), 0 outside the volume (so the
-//      divergence of iteration 2 reads P^1 = 0 below index 0);
-//   C. d^2 on the box [o, o+T+1), into d^1's buffer;
-//   D. P^2 on the tile, stored as T.
-// Neighbours across threads go through shared memory behind the barriers,
-// never through registers. The arithmetic is K3's (tj objective,
-// dual_step), so one K11 launch equals its plain version (two K3 plain
-// iterations with P^1 in f32) bit for bit.
-//
 // Bound on the H100: device memory, as K3: x, P in and P out once per two
 // iterations, 256 MiB at 256^3 with bf16 duals (K3 moves that per
-// iteration). The halos cost recomputation: phase A evaluates d^1 on 2.6x
-// the tile's voxels, its reads served by L1/L2.
-constexpr int K11_T0 = 4, K11_T1 = 8, K11_T2 = 32;
-constexpr int K11_NT = 256;
-constexpr int K11_D0 = K11_T0 + 3, K11_D1 = K11_T1 + 3, K11_D2 = K11_T2 + 3;
-constexpr int K11_R0 = K11_T0 + 2, K11_R1 = K11_T1 + 2, K11_R2 = K11_T2 + 2;
-constexpr int K11_E0 = K11_T0 + 1, K11_E1 = K11_T1 + 1, K11_E2 = K11_T2 + 1;
-constexpr int K11_RN = K11_R0 * K11_R1 * K11_R2;
+// iteration). The kernel marches along axis 0 on K3's machinery with a
+// two-voxel halo (tv_march.cuh, H = TV_H2): each plane of x and P is
+// staged once over the tile and two voxels around it, and march step k
+// computes, into region buffers of two planes each in shared memory,
+//   d^1 on plane k over the tile + 1 row and column below, + 2 above;
+//   P^1 on plane k - 1 over the tile +- 1 (0 below plane 0 and outside
+//       the volume, so that the divergence of iteration 2 reads P^1 = 0
+//       below index 0);
+//   d^2 on plane k - 1 over the tile + 1 row and column above;
+//   P^2 on plane k - 2 over the tile, stored as T.
+// So each plane's d^1, P^1 and d^2 are computed once along axis 0; only
+// the in-plane halo is recomputed (1.50x, 1.33x and 1.16x the tile's
+// cells). A chunk starts staging two planes below its first output plane
+// (the lowest P1 only) and runs two planes past its last. The operations
+// are K3's (objective_at, dual_step) operand for operand, so one launch
+// equals two plain iterations with P^1 in f32 bit for bit.
+constexpr int H2 = tj::TV_H2;
+// K11's region buffers, row-major over rows x W columns of the tile's
+// frame: d^1 on rows and columns -1 .. T + 1, P^1 on -1 .. T, d^2 on 0 .. T
+constexpr int D1W = tj::TV_T2 + 3, D1N = (tj::TV_T1 + 3) * D1W;
+constexpr int QW = tj::TV_T2 + 2, QN = (tj::TV_T1 + 2) * QW;
+constexpr int D2W = tj::TV_T2 + 1, D2N = (tj::TV_T1 + 1) * D2W;
 
-template <typename T>
-__global__ void __launch_bounds__(K11_NT)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(tj::TV_NT, tj::TV2_MIN_BLOCKS)
 fgp_iter2_kernel(const float* __restrict__ x, const T* __restrict__ p1,
                  const T* __restrict__ p2, const T* __restrict__ p3,
                  T* __restrict__ o1, T* __restrict__ o2, T* __restrict__ o3,
                  Vol v, float lam, float multip) {
-  __shared__ float dbuf[K11_D0 * K11_D1 * K11_D2];  // d^1, then d^2
-  __shared__ float q[3 * K11_RN];                   // P^1, component-major
-  const int b0 = blockIdx.z * K11_T0;
-  const int b1 = blockIdx.y * K11_T1;
-  const int b2 = blockIdx.x * K11_T2;
-  const size_t s0 = static_cast<size_t>(v.n1) * v.n2;
-  auto inside = [&](int i0, int i1, int i2) {
-    return i0 >= 0 && i0 < v.n0 && i1 >= 0 && i1 < v.n1 && i2 >= 0 &&
-           i2 < v.n2;
+  using BXb = tj::TvBox<float, H2>;
+  using BPb = tj::TvBox<T, H2>;
+  using S = tj::PlaneSlot<T, 3, H2>;
+  // every box cell through registers, without VEC only (no halo column
+  // comes from elsewhere: with VEC the copies bring the whole box)
+  using Cells = tj::CellSet<false, false, false, H2>;
+  constexpr int NT = tj::TV_NT;
+  __shared__ __align__(16) unsigned char ring[tj::TV_RING * S::BYTES];
+  __shared__ float d1s[2][D1N];   // d^1 of planes k - 1 and k
+  __shared__ float qs[2][3][QN];  // P^1 of planes k - 2 and k - 1
+  __shared__ float d2s[2][D2N];   // d^2 of planes k - 2 and k - 1
+  const int tx = threadIdx.x % tj::TV_T2, ty = threadIdx.x / tj::TV_T2;
+  const int c0 = blockIdx.x * tj::TV_T2, r0 = blockIdx.y * tj::TV_T1;
+  const int i_s = blockIdx.z * tj::TV_C;
+  const int i_e = min(v.n0, i_s + tj::TV_C);
+  const int last = i_e + 1;  // the last plane staged
+  const size_t plane = static_cast<size_t>(v.n1) * v.n2;
+  const T* pv[3] = {p1, p2, p3};
+  Cells cells;
+  if (!VEC) cells.init(r0, c0, v.n1, v.n2);
+  // the cells of two planes in flight (tj::Set)
+  float vx[2][Cells::N];
+  T vp[2][3][Cells::N];
+  auto slot = [&](int p) { return (p - i_s + 2) % tj::TV_RING; };
+  auto X = [&](int b) {
+    return reinterpret_cast<float*>(ring + b * S::BYTES);
+  };
+  auto P = [&](int b, int k) {
+    return reinterpret_cast<T*>(ring + b * S::BYTES + S::XB + k * S::PB);
+  };
+  tj::PlaneCopy cps[S::COPIES];
+#pragma unroll
+  for (int j = 0; j < S::COPIES; ++j) {
+    cps[j] = tj::plane_copy<T, 3, false, H2>(threadIdx.x + j * NT, r0, c0,
+                                             v.n1, v.n2, 0, 0);
+  }
+  const void* const ops[4] = {x, p1, p2, p3};
+  // plane p (zeros outside [0, n0)); only P1 unless `all`
+  auto stage_async = [&](int p, bool all) {
+    if (VEC && p <= last) {
+      const bool ok = p >= 0 && p < v.n0;
+      tj::copy_plane<T, 3, H2>(ring + slot(p) * S::BYTES, cps, ops,
+                               ok ? p * plane : 0, ok, all ? -1 : 1);
+    }
+    tj::tv_commit();
+  };
+  auto fetch = [&](int p, bool all, auto set) {
+    constexpr int k_ = decltype(set)::value;
+    if (VEC) return;
+    const bool ok = p >= 0 && p < v.n0;
+    const size_t po = ok ? p * plane : 0;
+#pragma unroll
+    for (int s = 0; s < Cells::N; ++s) {
+      if (!cells.live[s]) continue;
+      tj::BoxCell cl = cells.cell[s];
+      if (!ok) cl.src = tj::BOX_ZERO;
+      if (all) {
+        vx[k_][s] = tj::cell_fetch<float>(cl, x, nullptr, nullptr, po, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (all || k == 0) {
+          vp[k_][k][s] =
+              tj::cell_fetch<T>(cl, pv[k], nullptr, nullptr, po, 0);
+        }
+      }
+    }
+  };
+  auto put = [&](int p, bool all, auto set) {
+    constexpr int k_ = decltype(set)::value;
+    if (VEC) return;
+    const int b = slot(p);
+#pragma unroll
+    for (int s = 0; s < Cells::N; ++s) {
+      if (!cells.live[s]) continue;
+      const int ax = BXb::at(cells.cell[s].a, cells.cell[s].b);
+      const int ap = BPb::at(cells.cell[s].a, cells.cell[s].b);
+      if (all) X(b)[ax] = vx[k_][s];
+      P(b, 0)[ap] = vp[k_][0][s];
+      if (all) P(b, 1)[ap] = vp[k_][1][s];
+      if (all) P(b, 2)[ap] = vp[k_][2][s];
+    }
+  };
+  // d^1 of plane k on its region; region cell (u, w) is the tile's row
+  // u - 1, column w - 1, box cell (u + 1, w + 1); P1 one plane below from
+  // plane k - 1's slot
+  auto region_d1 = [&](int k) {
+    const int b = slot(k);
+    const float* Xb = X(b);
+    const T* P1 = P(b, 0);
+    const T* P2 = P(b, 1);
+    const T* P3 = P(b, 2);
+    const T* P1m = P(slot(k - 1), 0);
+    float* out = d1s[k & 1];
+#pragma unroll
+    for (int m = 0; m < (D1N + NT - 1) / NT; ++m) {
+      const int e = threadIdx.x + m * NT;
+      if (e < D1N) {
+        const int u = e / D1W, w = e % D1W;
+        const int ox = BXb::at(u + 1, w + 1), op = BPb::at(u + 1, w + 1);
+        out[e] = objective_at(Xb[ox], tj::load(P1, op), tj::load(P1m, op),
+                              tj::load(P2, op), tj::load(P2, op - BPb::W),
+                              tj::load(P3, op), tj::load(P3, op - 1), lam);
+      }
+    }
+  };
+  // P^1 of plane k - 1 from d^1 of planes k - 1 and k; region cell (u, w)
+  // is the tile's row u - 1, column w - 1
+  auto region_q = [&](int k) {
+    const int pl = k - 1;
+    const bool in0 = pl >= 0 && pl < v.n0;
+    const int b = slot(pl);
+    const float* dd = d1s[pl & 1];
+    const float* dn = d1s[k & 1];
+    float* q1 = qs[pl & 1][0];
+    float* q2 = qs[pl & 1][1];
+    float* q3 = qs[pl & 1][2];
+#pragma unroll
+    for (int m = 0; m < (QN + NT - 1) / NT; ++m) {
+      const int e = threadIdx.x + m * NT;
+      if (e < QN) {
+        const int u = e / QW, w = e % QW;
+        const int r = r0 + u - 1, c = c0 + w - 1;
+        Dual q{0.f, 0.f, 0.f};
+        if (in0 && r >= 0 && r < v.n1 && c >= 0 && c < v.n2) {
+          const int di = u * D1W + w, op = BPb::at(u + 1, w + 1);
+          const float d = dd[di];
+          q = dual_step(tj::load(P(b, 0), op), tj::load(P(b, 1), op),
+                        tj::load(P(b, 2), op),
+                        pl < v.n0 - 1 ? d - dn[di] : 0.f,
+                        r < v.n1 - 1 ? d - dd[di + D1W] : 0.f,
+                        c < v.n2 - 1 ? d - dd[di + 1] : 0.f, multip);
+        }
+        q1[e] = q.q1;
+        q2[e] = q.q2;
+        q3[e] = q.q3;
+      }
+    }
+  };
+  // d^2 of plane k - 1 from P^1 of planes k - 1 and k - 2; region cell
+  // (u, w) is the tile's row u, column w, P^1's cell (u + 1, w + 1)
+  auto region_d2 = [&](int k) {
+    const int pl = k - 1;
+    const float* Xb = X(slot(pl));
+    const float* q1 = qs[pl & 1][0];
+    const float* q2 = qs[pl & 1][1];
+    const float* q3 = qs[pl & 1][2];
+    const float* q1m = qs[(pl - 1) & 1][0];
+    float* out = d2s[pl & 1];
+#pragma unroll
+    for (int m = 0; m < (D2N + NT - 1) / NT; ++m) {
+      const int e = threadIdx.x + m * NT;
+      if (e < D2N) {
+        const int u = e / D2W, w = e % D2W;
+        const int qi = (u + 1) * QW + w + 1;
+        out[e] = objective_at(Xb[BXb::at(u + 2, w + 2)], q1[qi], q1m[qi],
+                              q2[qi], q2[qi - QW], q3[qi], q3[qi - 1],
+                              lam);
+      }
+    }
+  };
+  // P^2 of plane k - 2 on the tile, from d^2 of planes k - 2 and k - 1
+  auto out_p2 = [&](int k) {
+    const int pl = k - 2;
+    const float* dd = d2s[pl & 1];
+    const float* dn = d2s[(pl + 1) & 1];
+    const float* q1 = qs[pl & 1][0];
+    const float* q2 = qs[pl & 1][1];
+    const float* q3 = qs[pl & 1][2];
+    const int c = c0 + tx;
+#pragma unroll
+    for (int j = 0; j < tj::TV_ROWS; ++j) {
+      const int u = ty + tj::TV_TY * j, r = r0 + u;
+      if (r >= v.n1 || c >= v.n2) continue;
+      const int di = u * D2W + tx, qi = (u + 1) * QW + tx + 1;
+      const float d = dd[di];
+      const Dual q = dual_step(q1[qi], q2[qi], q3[qi],
+                               pl < v.n0 - 1 ? d - dn[di] : 0.f,
+                               r < v.n1 - 1 ? d - dd[di + D2W] : 0.f,
+                               c < v.n2 - 1 ? d - dd[di + 1] : 0.f, multip);
+      const size_t o = pl * plane + static_cast<size_t>(r) * v.n2 + c;
+      o1[o] = tj::store<T>(q.q1);
+      o2[o] = tj::store<T>(q.q2);
+      o3[o] = tj::store<T>(q.q3);
+    }
   };
 
-  // A. d^1 at global (b - 1 + local)
-  for (int i = threadIdx.x; i < K11_D0 * K11_D1 * K11_D2; i += K11_NT) {
-    const int a = i / (K11_D1 * K11_D2);
-    const int bb = (i / K11_D2) % K11_D1;
-    const int c = i % K11_D2;
-    const int i0 = b0 + a - 1, i1 = b1 + bb - 1, i2 = b2 + c - 1;
-    float d = 0.f;
-    if (inside(i0, i1, i2)) {
-      const size_t o = v.at(i0, i1, i2);
-      d = objective(x, p1, p2, p3, o, s0, v.n2, i0 > 0, i1 > 0,
-                    i2 > 0 ? tj::load(p3, o - 1) : 0.f, lam);
-    }
-    dbuf[i] = d;
-  }
-  __syncthreads();
-
-  // B. P^1 at global (b - 1 + local); d^1 of the same voxel sits at the
-  // same local index of A's box
-  for (int i = threadIdx.x; i < K11_RN; i += K11_NT) {
-    const int a = i / (K11_R1 * K11_R2);
-    const int bb = (i / K11_R2) % K11_R1;
-    const int c = i % K11_R2;
-    const int i0 = b0 + a - 1, i1 = b1 + bb - 1, i2 = b2 + c - 1;
-    Dual r{0.f, 0.f, 0.f};
-    if (inside(i0, i1, i2)) {
-      const size_t o = v.at(i0, i1, i2);
-      const int di = (a * K11_D1 + bb) * K11_D2 + c;
-      const float d = dbuf[di];
-      r = dual_step(
-          tj::load(p1, o), tj::load(p2, o), tj::load(p3, o),
-          i0 < v.n0 - 1 ? d - dbuf[di + K11_D1 * K11_D2] : 0.f,
-          i1 < v.n1 - 1 ? d - dbuf[di + K11_D2] : 0.f,
-          i2 < v.n2 - 1 ? d - dbuf[di + 1] : 0.f, multip);
-    }
-    q[i] = r.q1;
-    q[K11_RN + i] = r.q2;
-    q[2 * K11_RN + i] = r.q3;
-  }
-  __syncthreads();
-
-  // C. d^2 at global (b + local), from P^1 at local + 1 of B's box and its
-  // predecessors (0 below index 0, as K3's objective reads P[-1] = 0)
-  for (int i = threadIdx.x; i < K11_E0 * K11_E1 * K11_E2; i += K11_NT) {
-    const int a = i / (K11_E1 * K11_E2);
-    const int bb = (i / K11_E2) % K11_E1;
-    const int c = i % K11_E2;
-    const int i0 = b0 + a, i1 = b1 + bb, i2 = b2 + c;
-    float d = 0.f;
-    if (inside(i0, i1, i2)) {
-      const int ri = ((a + 1) * K11_R1 + bb + 1) * K11_R2 + c + 1;
-      float div = q[ri] - q[ri - K11_R1 * K11_R2];
-      div += q[K11_RN + ri] - q[K11_RN + ri - K11_R2];
-      div += q[2 * K11_RN + ri] - q[2 * K11_RN + ri - 1];
-      d = fmaxf(__fsub_rn(x[v.at(i0, i1, i2)], __fmul_rn(lam, div)), 0.f);
-    }
-    dbuf[i] = d;  // d^1 is dead: phase B's barrier ended its last read
-  }
-  __syncthreads();
-
-  // D. P^2 on the tile
-  for (int i = threadIdx.x; i < K11_T0 * K11_T1 * K11_T2; i += K11_NT) {
-    const int a = i / (K11_T1 * K11_T2);
-    const int bb = (i / K11_T2) % K11_T1;
-    const int c = i % K11_T2;
-    const int i0 = b0 + a, i1 = b1 + bb, i2 = b2 + c;
-    if (!inside(i0, i1, i2)) continue;
-    const int ei = (a * K11_E1 + bb) * K11_E2 + c;
-    const int ri = ((a + 1) * K11_R1 + bb + 1) * K11_R2 + c + 1;
-    const float d = dbuf[ei];
-    const Dual r = dual_step(
-        q[ri], q[K11_RN + ri], q[2 * K11_RN + ri],
-        i0 < v.n0 - 1 ? d - dbuf[ei + K11_E1 * K11_E2] : 0.f,
-        i1 < v.n1 - 1 ? d - dbuf[ei + K11_E2] : 0.f,
-        i2 < v.n2 - 1 ? d - dbuf[ei + 1] : 0.f, multip);
-    const size_t o = v.at(i0, i1, i2);
-    o1[o] = tj::store<T>(r.q1);
-    o2[o] = tj::store<T>(r.q2);
-    o3[o] = tj::store<T>(r.q3);
+  // plane i_s - 2: P1 only, which d^1 of plane i_s - 1 reads
+  stage_async(i_s - 2, false);
+  stage_async(i_s - 1, true);
+  stage_async(i_s, true);
+  fetch(i_s - 2, false, tj::Set0{});
+  put(i_s - 2, false, tj::Set0{});
+  fetch(i_s - 1, true, tj::Set1{});  // the loop's steps take sets 1, 0, ...
+  fetch(i_s, true, tj::Set0{});
+  // march step k (plane k's cells in `set`, which then takes plane k + 2's)
+  auto step = [&](int k, auto set) {
+    tj::tv_wait<1>();
+    put(k, true, set);
+    __syncthreads();
+    stage_async(k + 2, true);
+    if (k + 2 <= last) fetch(k + 2, true, set);
+    region_d1(k);
+    __syncthreads();
+    if (k >= i_s) region_q(k);
+    __syncthreads();
+    if (k > i_s) region_d2(k);
+    __syncthreads();
+    if (k > i_s + 1) out_p2(k);
+  };
+  for (int k = i_s - 1; k <= last; k += 2) {
+    step(k, tj::Set1{});
+    if (k + 1 <= last) step(k + 1, tj::Set0{});
   }
 }
 
@@ -527,13 +650,17 @@ void launch_iter(const float* x, const void* p1, const void* p2,
       static_cast<T*>(o3), h, v, lam, multip);
 }
 
+// VEC where every operand's rows are 16-byte aligned.
 template <typename T>
 void launch_iter2(const float* x, const void* p1, const void* p2,
                   const void* p3, void* o1, void* o2, void* o3, Vol v,
                   float lam, float multip, cudaStream_t st) {
-  const dim3 grid((v.n2 + K11_T2 - 1) / K11_T2, (v.n1 + K11_T1 - 1) / K11_T1,
-                  (v.n0 + K11_T0 - 1) / K11_T0);
-  fgp_iter2_kernel<T><<<grid, K11_NT, 0, st>>>(
+  const bool vec =
+      v.n2 % tj::TvBox<T>::PAD == 0 &&
+      (reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(p1) |
+       reinterpret_cast<size_t>(p2) | reinterpret_cast<size_t>(p3)) % 16 == 0;
+  auto kernel = vec ? fgp_iter2_kernel<T, true> : fgp_iter2_kernel<T, false>;
+  kernel<<<tj::march_grid(v.n0, v.n1, v.n2), tj::TV_NT, 0, st>>>(
       x, static_cast<const T*>(p1), static_cast<const T*>(p2),
       static_cast<const T*>(p3), static_cast<T*>(o1), static_cast<T*>(o2),
       static_cast<T*>(o3), v, lam, multip);
@@ -594,11 +721,7 @@ TJ_API int tj_fgp_iter2(const float* x, const void* p1, const void* p2,
                         const void* p3, void* o1, void* o2, void* o3, int n0,
                         int n1, int n2, int bf16, float lam, float multip,
                         void* stream) {
-  if (n0 <= 0 || n1 <= 0 || n2 <= 0 ||
-      (n0 + K11_T0 - 1) / K11_T0 > 65535 ||
-      (n1 + K11_T1 - 1) / K11_T1 > 65535) {
-    return cudaErrorInvalidValue;
-  }
+  if (!tj::march_ok(n0, n1, n2)) return cudaErrorInvalidValue;
   const Vol v{n0, n1, n2};
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16) {

@@ -43,21 +43,7 @@ using tj::TV_NT;
 using tj::TV_R2;
 using tj::TV_REG;
 using tj::TV_T2;
-
-constexpr float EPS_TV = 1e-6f;
-
-__device__ __forceinline__ float sq_diff(float a, float b) {
-  const float d = __fsub_rn(a, b);
-  return __fmul_rn(d, d);
-}
-
-// D at a voxel with value c whose +i, +j, +k neighbours are pi, pj, pk.
-__device__ __forceinline__ float denom(float c, float pi, float pj,
-                                       float pk) {
-  return __fsqrt_rn(__fadd_rn(__fadd_rn(__fadd_rn(EPS_TV, sq_diff(c, pi)),
-                                        sq_diff(c, pj)),
-                              sq_diff(c, pk)));
-}
+using tj::denom;  // D at a voxel from its +i, +j, +k neighbours
 
 // lo, hi: (n0, n1) planes at slices -1 and n2 (HALO only). VEC: x's rows
 // are 16-byte aligned (n2 % 4 == 0), so planes arrive as 16-byte chunks.
@@ -143,7 +129,7 @@ tv_grad_kernel(const float* __restrict__ x, const float* __restrict__ lo,
   put(i_s - 1, tj::Set0{});
   put(i_s, tj::Set1{});
   fetch(i_s + 1, tj::Set1{});  // the loop's steps take sets 1, 0, 1, ...
-  fetch(i_s + 2, tj::Set0{});
+  if (i_s + 2 <= i_e) fetch(i_s + 2, tj::Set0{});  // n0 = 1: no plane 2
   __syncthreads();
   // x and D one plane below each voxel of this thread (rows ty + TY j)
   float x_jm[ROWS], d_jm[ROWS];

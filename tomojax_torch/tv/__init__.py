@@ -10,7 +10,8 @@ dual-ball projection. All dispatch by device inside their kernel wrappers
 (plain PyTorch on the CPU, the CUDA kernels on the card).
 
 A 4D (Nel, ...) stack is a batch of independent elements (the reference's
-4D TV runs the 3D kernels per element): ``tv`` sums their TV values,
+4D TV runs the 3D kernels per element): ``tv`` sums their TV values (one
+K5 launch for the stack),
 ``tv_fgp`` runs the 3D chain per element, and ``tv_gd`` with
 axis_norm=(1, 2, 3) runs K7 per element with each element's norm.
 
@@ -47,8 +48,6 @@ def tv(x: torch.Tensor, group: SlabGroup | None = None) -> torch.Tensor:
         _, hi = halo_exchange(x[:, :, 0].contiguous(), None, group,
                               ring=True)
         return all_reduce_sum(tv_value(x, hi), group)
-    if x.dim() == 4:
-        return torch.stack([tv_value(xe) for xe in x]).sum()
     return tv_value(x)
 
 
