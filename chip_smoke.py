@@ -92,20 +92,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       N 33, Na 7, Ns 5 and N 48, Na 13, Ns 37; batch ms beside K2's with
       the split FULL - NOHAT, FULL - NODOT) held against its plain
       version at 256^3 x 90 (bound 1e-5 max|out|, torch.sparse.mm beside
-      the forms that compute A x or A^T y), and of E3 (the SART modes
-      TAPS_F32, TAPS_BF16, TABLE_BF16, NOHAT, NOFP, NOUPD, two launches per
-      angle) and E4 (TAPS_F32, TAPS_BF16, TABLE_BF16, one launch per sweep)
-      over one sweep from zero on nanocube projections (bound 1e-4 max|x|);
+      the forms that compute A x or A^T y); E3 (the SART modes TAPS_F32,
+      TAPS_BF16, TABLE_BF16, NOHAT, NOFP, NOUPD on K8's route: resident at
+      256^3 x 90, one launch a sweep; TAPS_F32 and TAPS_BF16 streaming at
+      128 x 512^2 x 90) and E4 (TAPS_F32, TAPS_BF16, TABLE_BF16 at every
+      cluster shape of 8 or 16 blocks and 1, 2 or 4 slices that fits, at
+      both shapes) over one sweep from zero on nanocube projections, each
+      equal bit for bit to the plain version in its own band order and
+      within K8's bounds of the driving order (TAPS_F32: one step 1e-5,
+      one sweep 1e-4 max|x|; bf16: rmse after 10 sweeps within 2 % of
+      K8's), with ms a sweep beside K8's, each launch's clusters, active
+      clusters, waves and shared memory, the split of K8's step (hat, FP,
+      update, bf16 operands, tables) and E3's phase cycles per mode;
       cuobjdump -sass of the ablations (E1's and E2's NODOT keep their adds
       with no ring copy or shared load, their NOHAT the ring copies and
       shared loads), with registers and stack bytes per kernel; then the
       six drivers
       (hat_model, projector_variants, projector_variants2, pair_fp,
-      sart_pipeline, sart_ablate) at 256^3 x 90, each with the E launch
-      counts set to 0 before it and read after, their rows printed, the
-      SART variants' rmse after 10 sweeps held against K8's (rtol 1e-4 for
-      float32, 2e-2 for bf16) and the paired FP against the unpaired (rel
-      1e-5);
+      sart_pipeline, sart_ablate) at 256^3 x 90 and sart_pipeline at 128 x
+      512^2 x 90, each with the E launch counts set to 0 before it and
+      read after, their rows printed, the SART variants' rmse after 10
+      sweeps held against K8's (rtol 1e-4 for float32, 2e-2 for bf16) and
+      the paired FP against the unpaired (rel 1e-5);
    every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
@@ -1961,7 +1969,7 @@ def phase_variants(card: str, kernels: dict) -> dict:
 EXP_SRC = {"E1": "tomojax_torch/csrc/exp_projector.cu",
            "E2": "tomojax_torch/csrc/exp_projector.cu",
            "E3": "tomojax_torch/csrc/exp_sart.cu",
-           "E4": "tomojax_torch/csrc/exp_sart.cu"}
+           "E4": "tomojax_torch/csrc/exp_sart_shapes.cu"}
 EXP_ROWS = (
     ("E1_fp_hat", "fp_variant", "hat_model", "exp_hat_model.py:72",
      "E1 FULL ab8"),
@@ -1984,7 +1992,7 @@ EXP_ROWS = (
     ("E3_sart_whbm", "sart_variant", "sart_pipeline",
      "exp_sart_pipeline.py:248", "E3 TABLE_BF16"),
     ("E4_sart_resident", "sart_resident", "sart_pipeline",
-     "exp_sart_pipeline.py:314", "E4 TAPS_BF16"),
+     "exp_sart_pipeline.py:314", "E4 TAPS_BF16 (8, 4)"),
     ("E3_sart_ablate", "sart_variant", "sart_ablate",
      "exp_sart_ablate.py:35", "E3 TAPS_F32"),
     ("E3_sart_phase", "sart_variant", "sart_ablate",
@@ -1996,21 +2004,16 @@ EXP_DRIVERS = ("hat_model", "projector_variants", "projector_variants2",
 
 def _check_experiment_kernels(card: str) -> dict:
     """Every instantiation of E1 (six forms and PAIR, each at every angle
-    cap 1-32; device times beside K1's; also at the ragged shapes), E2
-    (five forms, APS 2), E3 (six modes) and E4 (three) against its plain
-    version at 256^3 x 90 with phase 3's bounds (projectors 1e-5 max|out|;
-    one SART sweep from zero on nanocube projections 1e-4 max|x|; 0.0
-    expected: the plain versions repeat the kernels' arithmetic), each
-    launched; its time, the plain version's, its bound and, for the forms
-    that compute A x or A^T y, torch.sparse.mm's."""
-    from tomojax_torch.experiments import (
-        cuda_projector_variants as cpv, cuda_sart_variants as csv,
-    )
+    cap 1-32; device times beside K1's; also at the ragged shapes) and E2
+    (five forms, APS 2) against its plain version at 256^3 x 90 with phase
+    3's bounds (1e-5 max|out|; 0.0 expected: the plain versions repeat the
+    kernels' arithmetic), each launched; its time, the plain version's,
+    its bound and, for the forms that compute A x or A^T y,
+    torch.sparse.mm's."""
+    from tomojax_torch.experiments import cuda_projector_variants as cpv
     from tomojax_torch.experiments.timing import batch_ms
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector.cuda_joseph import bp_sl, fp_sl
-    from tomojax_torch.sim import nanocube_phantom
-    from tomojax_torch.solvers import make_sart_weights, make_system, to_sl
 
     dev = torch.device("cuda")
     n, na, ns = 256, 90, 256
@@ -2091,27 +2094,192 @@ def _check_experiment_kernels(card: str) -> dict:
           f"{e2_ms['NOHAT'] - k2_ms:.4f}; torch.sparse.mm A^T y "
           f"{bp_lib:.4f} (one call) [{card}]")
 
-    # SART: K8's check (one sweep from zero on nanocube projections, real
-    # weights) and K8's work; the tables' bytes for TABLE_BF16; NOFP does
-    # no FP, NOUPD no update
-    sysd = make_system(geom, dev)
-    b = fp_sl(to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev)), geom)
-    args = (torch.zeros_like(x), b, geom, sysd.inv_row,
-            make_sart_weights(sysd), torch.tensor(1.0, device=dev),
-            torch.arange(na, dtype=torch.int32, device=dev))
-    tables = csv.sart_tables(geom, dev)
-    sart_bytes = 4 * (2 * V + na * n * (ns + 1) + na * n * n + na + 1)
-    sart_ops = {"NOFP": spmv + 4 * na * V, "NOUPD": spmv + 3 * S}
-    for kind, wrapper, modes in (("E3", csv.sart_variant, csv.MODES),
-                                 ("E4", csv.sart_resident,
-                                  csv.RESIDENT_MODES)):
-        for mode in modes:
-            held(f"{kind} {mode}", wrapper,
-                 lambda: wrapper(*args, mode, tables),
-                 lambda: csv.sart_variant_ref(*args, mode, tables), 1e-4,
-                 (sart_bytes + (tables.nbytes if mode == "TABLE_BF16"
-                                else 0),
-                  sart_ops.get(mode, 2 * spmv + 4 * na * V)))
+    return rows
+
+
+def _sart_work(geom, ns: int, nnz: int, mode: str, table_bytes: int):
+    """(bytes, operations) of one experiment SART sweep in `mode`: K8's
+    (`sart_work`), the tables' bytes for TABLE_BF16; NOFP does no FP,
+    NOUPD no update."""
+    n, na = geom.n, geom.nproj
+    v, s = n * n * ns, na * geom.nray * ns
+    bytes_ = sart_work(geom, ns, nnz)[0] + (
+        table_bytes if mode == "TABLE_BF16" else 0)
+    spmv = 2 * nnz * ns
+    ops = {"NOFP": spmv + 4 * na * v, "NOUPD": spmv + 3 * s}.get(
+        mode, 2 * spmv + 4 * na * v)
+    return bytes_, ops
+
+
+def _check_sart_experiments(card: str) -> dict:
+    """E3 in its six modes at 256^3 x 90 (the resident route) and in
+    TAPS_F32 and TAPS_BF16 at 128 x 512^2 x 90 (the streaming route), and
+    E4 in its three modes at every cluster shape that fits at both, over
+    one sweep from zero on nanocube projections (real SART weights): each
+    launched and equal to the plain version in its own order
+    (sart_variant_ref with bands = its blocks, 1 on the streaming route)
+    bit for bit, and within K8's bounds of the driving order (bands = 1):
+    TAPS_F32 one angle step from random x (a column- and a row-driven
+    angle) within 1e-5 max|x| and the sweep within 1e-4 max|x|; the bf16
+    modes by the rmse after 10 sweeps within 2 % of K8's float32 sweep's.
+    Prints each one's ms a sweep over 10 back-to-back sweeps (CUDA events)
+    beside K8's at the same shape, its launch (clusters, active clusters,
+    waves, shared memory a block), the split of E3's step and the phase
+    cycles of E3's timed instantiation per mode. Returns the kernels-line
+    rows of the 256^3 checks."""
+    from tomojax_torch import ops
+    from tomojax_torch.experiments import cuda_sart_variants as csv
+    from tomojax_torch.experiments.timing import batch_ms
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import (
+        cuda_sart, make_sart_weights, make_system, to_sl,
+    )
+
+    dev = torch.device("cuda")
+    rows = {}
+    for n, ns in ((256, 256), (512, 128)):
+        na = 90
+        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+        nt, nnz = geom.nray, joseph_nnz(geom)
+        sysd = make_system(geom, dev)
+        vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
+        base = (fp_sl(vol, geom), geom, sysd.inv_row,
+                make_sart_weights(sysd), torch.tensor(1.0, device=dev))
+        seq = torch.arange(na, dtype=torch.int32, device=dev)
+        x0 = torch.zeros_like(vol)
+        xr = torch.rand((n, n, ns), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        tables = csv.sart_tables(geom, dev)
+        route = cuda_sart.sart_route(n, nt)
+        shape_tag = f"{ns} x {n}^2 x {na}"
+        k8 = cuda_sart.sart_sweep_sl
+        k8_ms = batch_ms(lambda: k8(x0, *base, seq), 10, dev)
+        xk = x0
+        for _ in range(10):
+            xk = k8(xk, *base, seq)
+        r32 = float(ops.rmse(xk, vol))
+        print(f"K8 ({route}) at {shape_tag}: {k8_ms:.4f} ms/sweep over 10 "
+              f"back-to-back sweeps (CUDA events), rmse after 10 sweeps "
+              f"{r32:.6f} [{card}]")
+        refs = {}
+
+        def plain(mode, bands):
+            """The plain sweep from zero in `bands`' order, and its ms."""
+            if (mode, bands) not in refs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = csv.sart_variant_ref(x0, *base, seq, mode, tables,
+                                           bands)
+                torch.cuda.synchronize()
+                refs[mode, bands] = (out, 1e3 * (time.perf_counter() - t0))
+            return refs[mode, bands]
+
+        def held(key, wrapper, sweep, mode, bands, launch=""):
+            """sweep(x, b, geom, inv_row, inv_col_a, beta, order) in
+            `mode`, summed over `bands`; returns its batch ms."""
+            got = _launched(wrapper, lambda: sweep(x0, *base, seq))
+            ref, plain_ms = plain(mode, bands)
+            err = max_err(got, ref)
+            require(err == 0.0, f"{key} at {shape_tag}: max|kernel - plain "
+                                f"(bands {bands})| {err:.3e}, 0.0 required")
+            if mode == "TAPS_F32":
+                step = 0.0
+                for a in (0, na // 2):
+                    order = torch.tensor([a], dtype=torch.int32, device=dev)
+                    one = sweep(xr, *base, order)
+                    drive = csv.sart_variant_ref(xr, *base, order, mode,
+                                                 None, 1)
+                    e, tol = max_err(one, drive), 1e-5 * float(
+                        drive.abs().max())
+                    require(e <= tol, f"{key} at {shape_tag}, one step at "
+                                      f"angle {a} vs bands 1: {e:.3e} "
+                                      f"above {tol:.3e}")
+                    step = max(step, e / float(drive.abs().max()))
+                drive = plain(mode, 1)[0]
+                e = max_err(got, drive) / float(drive.abs().max())
+                require(e <= 1e-4, f"{key} at {shape_tag}: one sweep vs "
+                                   f"bands 1 {e:.3e} above 1e-4 max|x|")
+                k8_text = (f"vs bands 1: one step {step:.2e} <= 1e-5, "
+                           f"one sweep {e:.2e} <= 1e-4 (of max|x|)")
+            elif mode in ("TAPS_BF16", "TABLE_BF16"):
+                xb = x0
+                for _ in range(10):
+                    xb = sweep(xb, *base, seq)
+                r = float(ops.rmse(xb, vol))
+                require(abs(r - r32) <= 0.02 * r32,
+                        f"{key} at {shape_tag}: rmse after 10 sweeps "
+                        f"{r:.6f} vs K8's {r32:.6f} (rtol 2e-2)")
+                k8_text = (f"rmse after 10 sweeps {r:.6f} vs K8's "
+                           f"{r32:.6f}, |d| {abs(r - r32) / r32:.2e} <= 2e-2")
+            else:
+                k8_text = "an ablation: no bound against bands 1"
+            fn = lambda: sweep(x0, *base, seq)  # noqa: E731
+            ms = time_ms(fn, 5)
+            sweep_ms = batch_ms(fn, 10, dev)
+            bound_ms, bound_by = bound(*_sart_work(geom, ns, nnz, mode,
+                                                   tables.nbytes))
+            if n == 256:
+                rows[key] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": None}
+            print(f"{key} at {shape_tag}: max|kernel - plain (bands "
+                  f"{bands})| {err:.1e} (0.0 required); {k8_text}; "
+                  f"{sweep_ms:.4f} ms/sweep over 10 back-to-back sweeps "
+                  f"(K8 {route} {k8_ms:.4f}), one call {ms:.3f} ms, plain "
+                  f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                  f"{launch} [{card}]")
+            return sweep_ms
+
+        def launch_of(blocks, sb, mode):
+            c = csv.resident_clusters(n, nt, ns, blocks, sb, mode)
+            require(c["active"] > 0, f"({blocks}, {sb}) at {shape_tag}: "
+                                     f"the card holds no cluster")
+            return (f"; {c['clusters']} clusters of {blocks} blocks, "
+                    f"{c['active']} at once, {c['waves']} waves, "
+                    f"{c['smem']} B a block")
+
+        e3 = {}
+        for mode in (csv.MODES if route == "resident"
+                     else ("TAPS_F32", "TAPS_BF16")):
+            launch = launch_of(8, 4, mode) if route == "resident" else (
+                "; two launches a step")
+            e3[mode] = held(
+                f"E3 {mode}", csv.sart_variant,
+                lambda *a, m=mode: csv.sart_variant(*a, m, tables), mode,
+                csv.e3_bands(n, nt), launch)
+        if route == "resident":
+            f32 = e3["TAPS_F32"]
+            split = {"hat (TAPS_F32 - NOHAT)": f32 - e3["NOHAT"],
+                     "FP (TAPS_F32 - NOFP)": f32 - e3["NOFP"],
+                     "update (TAPS_F32 - NOUPD)": f32 - e3["NOUPD"],
+                     "bf16 operands (TAPS_BF16 - TAPS_F32)":
+                     e3["TAPS_BF16"] - f32,
+                     "tables (TABLE_BF16 - TAPS_BF16)":
+                     e3["TABLE_BF16"] - e3["TAPS_BF16"]}
+            print(f"split of K8's step on its design (E3 at {shape_tag}, "
+                  f"ms a sweep): " + ", ".join(
+                      f"{k} {v:+.4f}" for k, v in split.items())
+                  + f"; E3 TAPS_F32 {f32:.4f}, K8 {k8_ms:.4f} [{card}]")
+            for mode in csv.MODES:
+                ph = csv.resident_phases(x0, *base, seq, mode, tables)
+                print(f"E3 {mode} phases (the timed instantiation: clock64 "
+                      f"cycles a step, mean over blocks; SM clock after it, "
+                      f"max: {sm_clock()}): " + "; ".join(
+                          f"{kind} ({v['steps']} steps) " + ", ".join(
+                              f"{name} {v[name]:.0f}"
+                              for name in cuda_sart.PHASES)
+                          for kind, v in ph.items()))
+        for blocks, sb in csv.e4_shapes(n, nt):
+            for mode in csv.RESIDENT_MODES:
+                held(f"E4 {mode} ({blocks}, {sb})", csv.sart_resident,
+                     lambda *a, m=mode, bl=blocks, s=sb: csv.sart_resident(
+                         *a, m, tables, bl, s),
+                     mode, blocks, launch_of(blocks, sb, mode))
+        print(f"E4 at {shape_tag}: shapes {csv.e4_shapes(n, nt)} of "
+              f"{list(csv.E4_SHAPES)} fit; the others raise [{card}]")
+        del tables, refs
     return rows
 
 
@@ -2209,15 +2377,15 @@ def _check_ablation_sass() -> None:
               "bp_variant_kernelILi3E")
 
     # registers and stack (spills) per thread of E1's and E2's
-    # instantiations, of K2/K10's bp_kernel and of K8's resident kernel,
-    # from cuobjdump -res-usage
+    # instantiations, of K2/K10's bp_kernel and of the resident sweep in
+    # K8's and the experiment modes (E3, E4), from cuobjdump -res-usage
     usage = subprocess.run([str(tool), "-res-usage", str(_build.build().path)],
                            capture_output=True, text=True, timeout=300).stdout
     found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", usage)
     if not found:
         print("registers/stack bytes: not read (cuobjdump -res-usage)")
     forms = ("FULL", "HAT5", "BF16", "NOHAT", "NODOT", "W4")
-    e1, e2 = {}, []
+    e1, e2, e34 = {}, [], []
     for name, reg, stack in found:
         m = re.search(r"fp_variant_kernelILi(\d)ELb(\d)ELi(\d+)E", name)
         if m:
@@ -2231,14 +2399,24 @@ def _check_ablation_sass() -> None:
         if m and "variant" not in name:
             print(f"registers/stack bytes bp_kernel<{m[1] == '1'}> (K2, "
                   f"K10): {reg}/{stack}")
-        m = re.search(r"\d+sart_resident_kernelILb(\d)E", name)
-        if m and "exp_sart" not in name:
-            print(f"registers/stack bytes sart_resident_kernel<PROF="
-                  f"{m[1] == '1'}> (K8): {reg}/{stack}")
+        m = re.search(r"sart_resident_kernelI\S*?K8TapsELi(\d+)ELi(\d+)"
+                      r"ELb(\d)E", name)
+        if m:
+            print(f"registers/stack bytes sart_resident_kernel<K8Taps, "
+                  f"{m[1]}, {m[2]}, PROF={m[3] == '1'}> (K8): {reg}/{stack}")
+        m = re.search(r"sart_resident_kernelI\S*?SartTapsILi(\d)EEELi(\d+)"
+                      r"ELi(\d+)ELb(\d)E", name)
+        if m:
+            modes = ("TAPS_F32", "TAPS_BF16", "TABLE_BF16", "NOHAT", "NOFP",
+                     "NOUPD")
+            e34.append(f"{modes[int(m[1])]} ({m[2]}, {m[3]})"
+                       f"{' PROF' if m[4] == '1' else ''} {reg}/{stack}")
     for maxt in sorted(e1):
         print(f"registers/stack bytes fp_variant_kernel ({maxt} threads): "
               f"{', '.join(sorted(e1[maxt]))}")
     print(f"registers/stack bytes bp_variant_kernel: {', '.join(sorted(e2))}")
+    print(f"registers/stack bytes sart_resident_kernel<SartTaps> (E3, E4): "
+          f"{', '.join(sorted(e34))}")
 
 
 def phase_experiments(card: str) -> dict:
@@ -2253,30 +2431,36 @@ def phase_experiments(card: str) -> dict:
         sart_pipeline,
     )
 
-    checks = _check_experiment_kernels(card)
+    checks = {**_check_experiment_kernels(card),
+              **_check_sart_experiments(card)}
     _check_ablation_sass()
     wrappers = {"fp_variant": cpv.fp_variant, "bp_variant": cpv.bp_variant,
                 "sart_variant": csv.sart_variant,
                 "sart_resident": csv.sart_resident}
     dev = torch.device("cuda")
     launches, out = {}, {}
-    for name in EXP_DRIVERS:
-        mod = importlib.import_module(f"tomojax_torch.experiments.{name}")
+    # sart_pipeline also at 128 x 512^2 x 90 (E3 streams, E4 at the
+    # shapes that fit there)
+    for name, (n, ns) in [*((d, (256, 256)) for d in EXP_DRIVERS),
+                          ("sart_pipeline_512", (512, 128))]:
+        mod = importlib.import_module(
+            f"tomojax_torch.experiments.{name.removesuffix('_512')}")
         for w in wrappers.values():
             w.launches = 0
         with plain_versions_forbidden():
-            out[name] = mod.run(256, 256, dev, card)
+            out[name] = mod.run(n, ns, dev, card)
         torch.cuda.synchronize()
         launches[name] = {k: w.launches for k, w in wrappers.items()}
         print(f"{name} launches: {json.dumps(launches[name])}")
-    sp = out["sart_pipeline"]["rows"]
-    for v, r in sp.items():  # the script's criterion: rmse after 10 sweeps
-        r0 = sp["base"]["rmse10"]
-        tol = 1e-4 if v == "base" or sart_pipeline.VARIANTS[v][1] == \
-            "TAPS_F32" else 2e-2
-        require(np.isfinite(r["ms"]) and abs(r["rmse10"] - r0) <= tol * r0,
-                f"sart_pipeline {v}: rmse@10 {r['rmse10']:.6f} vs K8 "
-                f"{r0:.6f} (rtol {tol})")
+    for name in ("sart_pipeline", "sart_pipeline_512"):
+        sp = out[name]["rows"]
+        for v, r in sp.items():  # the script's criterion: rmse after 10
+            r0 = sp["base"]["rmse10"]
+            tol = 1e-4 if v == "base" or sart_pipeline.VARIANTS[v][1] == \
+                "TAPS_F32" else 2e-2
+            require(np.isfinite(r["ms"]) and abs(r["rmse10"] - r0)
+                    <= tol * r0, f"{name} {v}: rmse@10 {r['rmse10']:.6f} "
+                                 f"vs K8 {r0:.6f} (rtol {tol})")
     # the -theta rays add the same products in the reverse order of steps
     pr = out["pair_fp"]["rel"]
     require(max(pr.values()) <= 1e-5, f"pair_fp: rel|d| {pr}")

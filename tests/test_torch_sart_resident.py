@@ -9,11 +9,15 @@ outside the band. The blocks' partials are added in block order, scaled by
 1/D into the residual, and every pixel takes K8's update.
 
 These tests show, on the host, that every in-volume tap of every (angle,
-bin, step) falls in exactly one band (so the partials add up to the ray),
+bin, step) falls in exactly one band, for clusters of 8 and 16 blocks (so
+the partials add up to the ray),
 hold a torch emulation of the sweep against the plain version
 `sart_sweep_sl_ref` within the bounds `chip_smoke.py` applies to the
 kernel, and check the route helper.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -69,7 +73,7 @@ def _taps_counted(geom, a, blocks):
     return counted, inside
 
 
-@pytest.mark.parametrize("blocks", [8, 3])
+@pytest.mark.parametrize("blocks", [8, 3, 16])
 @pytest.mark.parametrize("name", sorted(ANGLE_SETS))
 @pytest.mark.parametrize("n,extra", [(16, 0), (33, 7), (48, 0)])
 def test_every_tap_falls_in_exactly_one_band(n, extra, name, blocks):
@@ -220,3 +224,57 @@ def test_route_depends_on_the_shape_alone():
         assert cs.sart_route(n, n) == "streaming", n
     assert cs.sart_route(256, 256 + 7) == "resident"
     assert cs.band_rows(256) == 32 and cs.band_rows(33) == 5
+
+
+# the generalised resident_smem_bytes(n, nt, blocks, sb) at N = Nt: the
+# shapes of E4 (csrc/exp_sart_shapes.cu) against the 232,448 B limit
+SMEM_TABLE = {
+    256: {(8, 4): 183296, (8, 2): 108544, (8, 1): 71168, (16, 4): 100352},
+    512: {(8, 1): 273408, (16, 4): 364544, (16, 2): 216064,
+          (16, 1): 141824},
+}  # (16, 4) at 512: a band of 32 rows alone is 264,192 B
+
+
+@pytest.mark.parametrize("n", sorted(SMEM_TABLE))
+def test_resident_smem_of_every_cluster_shape(n):
+    fits = {256: {(8, 4), (8, 2), (8, 1), (16, 4), (16, 2), (16, 1)},
+            512: {(16, 2), (16, 1)}}[n]
+    for shape, smem in SMEM_TABLE[n].items():
+        assert cs.resident_smem_bytes(n, n, *shape) == smem, shape
+    for blocks in (8, 16):
+        for sb in (1, 2, 4):
+            rows = cs.band_rows(n, blocks)
+            want = (rows * (n + 4) * 4 * sb + rows * n * 4
+                    + n * (16 * sb + 4))
+            assert cs.resident_smem_bytes(n, n, blocks, sb) == want
+            assert ((blocks, sb) in fits) == (
+                want <= cs.RESIDENT_SMEM_MAX), (blocks, sb)
+    # K8's shape is the default, and its route turns at N = 288
+    assert cs.resident_smem_bytes(n, n) == cs.resident_smem_bytes(n, n, 8, 4)
+
+
+def test_resident_constants_match_the_source():
+    """The Python mirrors of the resident sweep's constants equal the
+    sources' (sart_resident.cuh for the sweep, sart.cu for K8's shape,
+    exp_sart.cu for E3's, exp_sart_shapes.cu for E4's)."""
+    from tomojax_torch.experiments import cuda_sart_variants as csv
+
+    csrc = Path(cs.__file__).resolve().parents[1] / "csrc"
+    text = (csrc / "sart_resident.cuh").read_text()
+    for name, value in (("RESIDENT_SMEM_MAX", cs.RESIDENT_SMEM_MAX),
+                        ("R_PAD", cs.BAND_PAD),
+                        ("R_PHASES", len(cs.PHASES))):
+        m = re.search(rf"constexpr \w+ {name} = (\d+);", text)
+        assert m is not None and int(m.group(1)) == value, name
+    m = re.search(r"constexpr float STEP_SLACK = ([0-9.e+-]+)f;", text)
+    assert m is not None and float(m.group(1)) == cs.STEP_SLACK
+    for src, prefix in (("sart.cu", "R"), ("exp_sart.cu", "E")):
+        body = (csrc / src).read_text()
+        for name, value in ((f"{prefix}_BLOCKS", cs.BAND_BLOCKS),
+                            (f"{prefix}_SLICES", cs.CLUSTER_SLICES)):
+            m = re.search(rf"constexpr int {name} = (\d+);", body)
+            assert m is not None and int(m.group(1)) == value, (src, name)
+    shapes = (csrc / "exp_sart_shapes.cu").read_text()
+    found = set(map(tuple, re.findall(
+        r"if \(blocks == (\d+) && sb == (\d+)\) return", shapes)))
+    assert {(int(b), int(s)) for b, s in found} == set(csv.E4_SHAPES)

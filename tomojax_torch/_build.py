@@ -73,7 +73,11 @@ _SIGNATURES = {
     "tj_exp_sart_sweep": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                           _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tj_exp_sart_resident": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tj_exp_sart_resident_phases": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                    _P],
+    "tj_exp_sart_active_clusters": [_I, _I, _I, _I, _I, _I, _IP],
 }
 
 

@@ -1,7 +1,7 @@
-// Experiment SART sweeps E3 (two launches per angle, as K8) and E4 (one
-// launch per sweep), the counterparts of the TPU kernels of
-// scripts/exp_sart_pipeline.py and exp_sart_ablate.py. One ordered SART
-// step at angle a = order[k] (exp_hat.cuh for the modes and weights):
+// Experiment SART sweep E3, the counterpart of the TPU kernels of
+// scripts/exp_sart_pipeline.py and exp_sart_ablate.py, and the instrument
+// that splits K8's step. One ordered SART step at angle a = order[k]
+// (exp_hat.cuh for the modes and weights):
 //   acc   = sum over the taps of w x                        (FP walk)
 //   resid = (b_a - invd acc) inv_row[a]                      (Nt, Ns)
 //   x     = max(x + (beta invd) inv_col_a[a] sum_taps w resid, 0)
@@ -11,17 +11,30 @@
 //
 // The TPU variants only restructure this step for Mosaic (double-buffered
 // W, W kept in VMEM per angle, W streamed from HBM, the volume resident in
-// VMEM, the chunk loop as a grid axis); on Hopper each is one of the modes
-// below, and the W tensor becomes two tables of taps and bf16 weights (8
-// bytes per tap pair, built once per geometry by
+// VMEM, the chunk loop as a grid axis); on Hopper each is one of the modes,
+// and the W tensor becomes two tables of taps and bf16 weights (8 bytes per
+// tap pair, built once per geometry by
 // experiments/cuda_sart_variants.py:sart_tables).
 //
-// Bound on the H100: E3 as K8, device memory (each angle's FP reads the
-// volume and its update reads and writes it, ~17 GB per sweep at 256^3 x
-// 90 when nothing stays in the 50 MB L2). E4 reads each block's slab from
-// L2 instead, but a volume of Ns slices gives only Ns / sb blocks: with
-// 256 slices and sb = 4, 64 blocks for 132 SMs.
-#include "exp_hat.cuh"
+// E3 takes K8's routes, chosen by the shape alone as K8 chooses
+// (cuda_sart.sart_route):
+//   resident   (N <= 288 at Nt = N) K8's cluster-resident sweep of
+//              sart_resident.cuh at K8's shape, 8 blocks a cluster and 4
+//              slices a pixel, in the mode's arithmetic (exp_sart.cuh
+//              SartTaps): one launch a sweep. So TAPS_F32 - NOHAT is the
+//              hat's share of K8's step, TAPS_F32 - NOFP the FP's,
+//              TAPS_F32 - NOUPD the update's, TAPS_BF16 - TAPS_F32 what bf16
+//              operands cost and TABLE_BF16 - TAPS_BF16 what tables cost.
+//              Bound as K8's: the FP's and the update's shared-memory reads
+//              and a cluster barrier a step; device memory sees the volume
+//              once a sweep (and the tables, 94.4 MB at 256^3 x 90).
+//   streaming  (above: 512^2 for one) K8's two launches per angle,
+//              exp_sart_fp_kernel and exp_sart_update_kernel below; bound by
+//              device memory (the volume read by the FP and read and written
+//              by the update at every step, ~17 GB a sweep at 256^3 x 90
+//              when nothing stays in the 50 MB L2).
+// E4 (exp_sart_shapes.cu) is the resident route at other cluster shapes.
+#include "exp_sart.cuh"
 
 namespace {
 
@@ -29,22 +42,16 @@ using namespace tj::xp;
 
 constexpr int S_BS = 32;  // slices per block (threadIdx.x)
 constexpr int S_BY = 8;   // bins (FP) or columns (update) per block
-constexpr int RES_THREADS = 1024;  // E4 block
+constexpr int E_BLOCKS = 8;  // the resident route's cluster: K8's shape
+constexpr int E_SLICES = 4;
 
-struct Tables {  // TABLE_BF16 operands (null otherwise)
-  const int* fp_i0;               // (Na, Nt, N) first tap of each step
-  const __nv_bfloat162* fp_w;     // (Na, Nt, N) its two weights
-  const int* bp_j0;               // (Na, N, N) first bin of each pixel
-  const __nv_bfloat162* bp_w;     // (Na, N, N) its two weights
-};
-
-// E3 FP -- replaces the FP passes of scripts/exp_sart_pipeline.py
-// _dbuf_kernel (TAPS_F32), _wvmem_kernel (TAPS_BF16; TAPS_F32 as wv_f32),
-// _whbm_kernel (TABLE_BF16) and exp_sart_ablate.py _kernel (TAPS_F32,
-// NOHAT, NOFP, NOUPD; rot = TAPS_F32) and _phase_kernel (TAPS_F32).
+// E3 replaces scripts/exp_sart_pipeline.py _dbuf_kernel (TAPS_F32),
+// _wvmem_kernel (TAPS_BF16; TAPS_F32 as wv_f32), _whbm_kernel (TABLE_BF16)
+// and exp_sart_ablate.py _kernel (TAPS_F32, NOHAT, NOFP, NOUPD; rot =
+// TAPS_F32) and _phase_kernel (TAPS_F32), on either route.
 //
-// One thread per (bin j, slice s) as K8's sart_fp_kernel; the residual goes
-// to an (Nt, Ns) scratch plane.
+// Streaming FP: one thread per (bin j, slice s) as K8's sart_fp_kernel; the
+// residual goes to an (Nt, Ns) scratch plane.
 template <int MODE>
 __global__ void __launch_bounds__(S_BS * S_BY)
 exp_sart_fp_kernel(const float* __restrict__ x,
@@ -78,8 +85,8 @@ __device__ __forceinline__ float sart_step(float xv, float beta, float invd,
   return fmaxf(__fadd_rn(xv, __fmul_rn(scale, upd)), 0.f);
 }
 
-// E3 update -- the update passes of the same kernels: one thread per voxel
-// as K8's sart_update_kernel, reading the scratch plane.
+// Streaming update: one thread per voxel as K8's sart_update_kernel,
+// reading the scratch plane.
 template <int MODE>
 __global__ void __launch_bounds__(S_BS * S_BY)
 exp_sart_update_kernel(const float* src, float* dst,  // alias after step 0
@@ -110,89 +117,6 @@ exp_sart_update_kernel(const float* src, float* dst,  // alias after step 0
   dst[o] = sart_step(src[o], beta[0], bt.z, inv_col_a[pix], upd);
 }
 
-// E4 -- replaces scripts/exp_sart_pipeline.py:_resident_kernel (res:
-// TAPS_BF16, reshbm: TABLE_BF16; TAPS_F32 for comparison with E3 and K8).
-//
-// One launch per sweep. SART's slices are independent, so block b owns
-// slices [b sb, (b+1) sb) for every angle and no grid-wide barrier is
-// needed: it copies its slab of x into out, then per angle walks the FP of
-// its Nt x sb rays into a residual in shared memory, waits at a block
-// barrier, updates its N x N x sb voxels in place and waits again. The slab
-// (N^2 sb floats) is re-read from L2 between the passes; a 256^3 volume
-// (64 MiB) fits neither one SM's shared memory nor the 50 MB L2 whole. A
-// block has 1024 threads, the most a block may have, to keep many of the
-// latency-bound walks in flight. It computes E3's step in E3's arithmetic,
-// so E4 equals E3 of its mode bit for bit.
-template <int MODE>
-__global__ void __launch_bounds__(RES_THREADS)
-exp_sart_resident_kernel(const float* __restrict__ x,
-                         const float4* __restrict__ ftab,
-                         const float4* __restrict__ btab,
-                         const float* __restrict__ b,
-                         const float* __restrict__ inv_row,
-                         const float* __restrict__ inv_col_a,
-                         const float* __restrict__ beta,
-                         const int* __restrict__ order, int steps, Tables tb,
-                         float* out, int n, int nt, int na, int ns, int sb) {
-  extern __shared__ float res[];  // [Nt][nsl]
-  const int s0 = blockIdx.x * sb;
-  const int nsl = min(sb, ns - s0);
-  const int tid = threadIdx.x;
-  const int nvox = n * n * nsl;
-  for (int v = tid; v < nvox; v += RES_THREADS) {
-    const size_t o = static_cast<size_t>(v / nsl) * ns + s0 + v % nsl;
-    out[o] = x[o];
-  }
-  __syncthreads();
-  const float ctr = 0.5f * static_cast<float>(n - 1);
-  const float off = 0.5f * static_cast<float>(nt - 1);
-  for (int k = 0; k < steps; ++k) {
-    const int a = order[k];
-    if (a < 0 || a >= na) continue;  // the same for the whole block
-    const float4 ft = ftab[a], bt = btab[a];
-    for (int i = tid; i < nt * nsl; i += RES_THREADS) {
-      const int j = i / nsl, sl = i - j * nsl;
-      const size_t aj = static_cast<size_t>(a) * nt + j;
-      const float acc = sart_fp_ray<MODE>(
-          out, ft, bt, MODE == TABLE_BF16 ? tb.fp_i0 + aj * n : nullptr,
-          MODE == TABLE_BF16 ? tb.fp_w + aj * n : nullptr, n, nt, ns, j,
-          s0 + sl);
-      res[i] = sart_resid<MODE>(b[aj * ns + s0 + sl], acc, bt.z,
-                                inv_row[aj]);
-    }
-    __syncthreads();
-    const float bb = beta[0];
-    for (int v = tid; v < nvox; v += RES_THREADS) {
-      const int p = v / nsl, sl = v - p * nsl;
-      const int r = p / n, c = p - r * n;
-      const size_t pix = static_cast<size_t>(a) * n * n + p;
-      const float upd = sart_bp_voxel<MODE>(
-          res + sl, nsl, bt, MODE == TABLE_BF16 ? tb.bp_j0 + pix : nullptr,
-          MODE == TABLE_BF16 ? tb.bp_w + pix : nullptr,
-          static_cast<float>(c) - ctr, ctr - static_cast<float>(r), off, nt);
-      const size_t o = static_cast<size_t>(p) * ns + s0 + sl;
-      out[o] = sart_step(out[o], bb, bt.z, inv_col_a[pix], upd);
-    }
-    __syncthreads();
-  }
-}
-
-struct SweepArgs {
-  const float* x;
-  const float4* ft;
-  const float4* bt;
-  const float* b;
-  const float* inv_row;
-  const float* inv_col_a;
-  const float* beta;
-  const int* order;
-  int steps;
-  Tables tb;
-  float* out;
-  int n, nt, na, ns;
-  cudaStream_t st;
-};
-
 template <int MODE>
 int run_sweep(const SweepArgs& g, float* resid) {
   const dim3 block(S_BS, S_BY);
@@ -221,16 +145,6 @@ int run_sweep(const SweepArgs& g, float* resid) {
   return 0;
 }
 
-template <int MODE>
-int run_resident(const SweepArgs& g, int sb) {
-  const size_t smem = sizeof(float) * g.nt * sb;
-  exp_sart_resident_kernel<MODE>
-      <<<(g.ns + sb - 1) / sb, RES_THREADS, smem, g.st>>>(
-          g.x, g.ft, g.bt, g.b, g.inv_row, g.inv_col_a, g.beta, g.order,
-          g.steps, g.tb, g.out, g.n, g.nt, g.na, g.ns, sb);
-  return tj::launch_error();
-}
-
 bool args_ok(const SweepArgs& g, int mode) {
   return g.n > 0 && g.nt > 0 && g.na > 0 && g.ns > 0 && g.steps > 0 &&
          g.n <= 65535 && (g.nt + S_BY - 1) / S_BY <= 65535 &&
@@ -254,14 +168,60 @@ SweepArgs make_args(const float* x, const float* fp_tab, const float* bp_tab,
           out, n, nt, na, ns, static_cast<cudaStream_t>(stream)};
 }
 
+template <int MODE, bool PROF>
+int run_resident(const SweepArgs& g, long long* prof) {
+  return tj::sr::resident_sweep<SartTaps<MODE>, E_BLOCKS, E_SLICES, PROF>(
+      g.x, g.ft, g.bt, g.b, g.inv_row, g.inv_col_a, g.beta, g.order,
+      g.steps, g.out, g.n, g.nt, g.na, g.ns, prof, g.tb, g.st);
+}
+
+template <bool PROF>
+int resident_mode(int mode, const SweepArgs& g, long long* prof) {
+  switch (mode) {
+    case TAPS_F32: return run_resident<TAPS_F32, PROF>(g, prof);
+    case TAPS_BF16: return run_resident<TAPS_BF16, PROF>(g, prof);
+    case TABLE_BF16: return run_resident<TABLE_BF16, PROF>(g, prof);
+    case S_NOHAT: return run_resident<S_NOHAT, PROF>(g, prof);
+    case NOFP: return run_resident<NOFP, PROF>(g, prof);
+    case NOUPD: return run_resident<NOUPD, PROF>(g, prof);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int MODE>
+int clusters_of(int n, int nt, int ns, int* clusters) {
+  return tj::sr::active_clusters<SartTaps<MODE>, E_BLOCKS, E_SLICES>(
+      n, nt, ns, clusters);
+}
+
 }  // namespace
 
-// E3: one sweep over order[0 .. steps) in `mode` (a Mode); x (N, N, Ns)
-// input, out (N, N, Ns) result (may not alias x); fp_tab / bp_tab the
-// (Na, 4) tables of cuda_joseph.angle_tables; b (Na, Nt, Ns); inv_row
-// (Na, Nt); inv_col_a (Na, N, N); beta 1 float and order `steps` ints on
-// the device; resid (Nt, Ns) floats of scratch; the four tables for
-// TABLE_BF16, else null.
+int tj::xp::e3_active_clusters(int mode, int n, int nt, int ns,
+                               int* clusters) {
+  switch (mode) {
+    case TAPS_F32: return clusters_of<TAPS_F32>(n, nt, ns, clusters);
+    case TAPS_BF16: return clusters_of<TAPS_BF16>(n, nt, ns, clusters);
+    case TABLE_BF16: return clusters_of<TABLE_BF16>(n, nt, ns, clusters);
+    case S_NOHAT: return clusters_of<S_NOHAT>(n, nt, ns, clusters);
+    case NOFP: return clusters_of<NOFP>(n, nt, ns, clusters);
+    case NOUPD: return clusters_of<NOUPD>(n, nt, ns, clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int tj::xp::e3_resident(int mode, const SweepArgs& g, long long* prof) {
+  return prof == nullptr ? resident_mode<false>(mode, g, nullptr)
+                         : resident_mode<true>(mode, g, prof);
+}
+
+// E3: one sweep over order[0 .. steps) in `mode` (a Mode) on K8's route at
+// this shape (tj_sart_route); x (N, N, Ns) input, out (N, N, Ns) result
+// (may not alias x); fp_tab / bp_tab the (Na, 4) tables of
+// cuda_joseph.angle_tables; b (Na, Nt, Ns); inv_row (Na, Nt); inv_col_a
+// (Na, N, N); beta 1 float and order `steps` ints on the device; resid
+// (Nt, Ns) floats of scratch for the streaming route (may be null on the
+// resident one); the four tables for TABLE_BF16, else null. A launch that
+// fails returns its error and never takes the other route.
 TJ_API int tj_exp_sart_sweep(int mode, const float* x, const float* fp_tab,
                              const float* bp_tab, const float* b,
                              const float* inv_row, const float* inv_col_a,
@@ -274,6 +234,10 @@ TJ_API int tj_exp_sart_sweep(int mode, const float* x, const float* fp_tab,
                                 beta, order, steps, out, fp_i0, fp_w, bp_j0,
                                 bp_w, n, nt, na, ns, stream);
   if (!args_ok(g, mode)) return cudaErrorInvalidValue;
+  if (tj::sr::resident_fits(n, nt, E_BLOCKS, E_SLICES)) {
+    return tj::xp::e3_resident(mode, g, nullptr);
+  }
+  if (resid == nullptr) return cudaErrorInvalidValue;
   switch (mode) {
     case TAPS_F32: return run_sweep<TAPS_F32>(g, resid);
     case TAPS_BF16: return run_sweep<TAPS_BF16>(g, resid);
@@ -285,29 +249,22 @@ TJ_API int tj_exp_sart_sweep(int mode, const float* x, const float* fp_tab,
   }
 }
 
-// E4: the same sweep in one launch, sb slices per block (Nt sb floats of
-// shared memory, at most 48 KB); mode TAPS_F32, TAPS_BF16 or TABLE_BF16.
-TJ_API int tj_exp_sart_resident(int mode, const float* x,
-                                const float* fp_tab, const float* bp_tab,
-                                const float* b, const float* inv_row,
-                                const float* inv_col_a, const float* beta,
-                                const int* order, int steps, float* out,
-                                const int* fp_i0, const void* fp_w,
-                                const int* bp_j0, const void* bp_w, int n,
-                                int nt, int na, int ns, int sb,
-                                void* stream) {
+// E3's resident route with its phases timed, as tj_sart_resident_phases
+// times K8's: prof holds, per block (8 a cluster, a cluster per 4 slices),
+// {row-driven, column-driven} x {copy issue, FP, copy wait + cluster
+// barrier, residual, update, steps} int64s. Refused where E3 streams.
+TJ_API int tj_exp_sart_resident_phases(
+    int mode, const float* x, const float* fp_tab, const float* bp_tab,
+    const float* b, const float* inv_row, const float* inv_col_a,
+    const float* beta, const int* order, int steps, float* out,
+    const int* fp_i0, const void* fp_w, const int* bp_j0, const void* bp_w,
+    int n, int nt, int na, int ns, long long* prof, void* stream) {
   const SweepArgs g = make_args(x, fp_tab, bp_tab, b, inv_row, inv_col_a,
                                 beta, order, steps, out, fp_i0, fp_w, bp_j0,
                                 bp_w, n, nt, na, ns, stream);
-  if (!args_ok(g, mode) || sb < 1 ||
-      sizeof(float) * static_cast<size_t>(nt) * sb > 48 * 1024 ||
-      static_cast<size_t>(n) * n * sb > (1u << 30)) {
+  if (!args_ok(g, mode) || prof == nullptr ||
+      !tj::sr::resident_fits(n, nt, E_BLOCKS, E_SLICES)) {
     return cudaErrorInvalidValue;
   }
-  switch (mode) {
-    case TAPS_F32: return run_resident<TAPS_F32>(g, sb);
-    case TAPS_BF16: return run_resident<TAPS_BF16>(g, sb);
-    case TABLE_BF16: return run_resident<TABLE_BF16>(g, sb);
-    default: return cudaErrorInvalidValue;
-  }
+  return tj::xp::e3_resident(mode, g, prof);
 }

@@ -16,13 +16,20 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 (or 4) bytes from src into shared dst, or zeros when !ok (src is then
-// not read; `safe` is any valid address).
+// 16 (or 8, or 4) bytes from src into shared dst, or zeros when !ok (src
+// is then not read; `safe` is any valid address).
 __device__ __forceinline__ void copy16(float* dst, const float* src,
                                        const float* safe, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(ok ? src : safe), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void copy8(float* dst, const float* src,
+                                      const float* safe, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(ok ? src : safe), "r"(ok ? 8 : 0));
 }
 
 __device__ __forceinline__ void copy4(float* dst, const float* src,
@@ -81,9 +88,11 @@ __device__ __forceinline__ void store4(float* p, float4 v, int valid,
   }
 }
 
-inline bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<size_t>(p) % 16 == 0;
+inline bool aligned_to(const void* p, size_t bytes) {
+  return p == nullptr || reinterpret_cast<size_t>(p) % bytes == 0;
 }
+
+inline bool aligned16(const void* p) { return aligned_to(p, 16); }
 
 // The most dynamic shared memory one block may have on the current card
 // (227 KB on an H100), or -1 when the card cannot be asked.

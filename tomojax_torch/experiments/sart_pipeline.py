@@ -1,30 +1,40 @@
-"""SART sweep structures on the card: tap tables, bf16 operands and a
-sweep in one launch, against the production K8.
+"""SART sweep structures on the card: tap tables, bf16 operands and the
+resident sweep's cluster shapes, against the production K8.
 
     python -m tomojax_torch.experiments.sart_pipeline [n] [ns] [--device cpu]
 
 The port of scripts/exp_sart_pipeline.py (n = ns = 256, 90 angles over
-+-76 deg by default). Each of the script's TPU variants is a mode of E3
-(K8's two launches per angle) or E4 (one launch per sweep, a slab of
-slices per block for every angle), named in its row:
++-76 deg by default; also run at 512 128). Each of the script's TPU
+variants is a mode of E3 (K8's route at this shape: K8's cluster-resident
+sweep, 8 blocks a cluster and 4 slices a pixel, up to N = 288; K8's two
+launches per angle above) or E4 (the resident sweep at a cluster shape of
+(blocks, slices a pixel)), named in its row:
 
   dbuf, wv_f32           E3 TAPS_F32    (the TPU's pipelining of one step)
   wvmem, wv_rebuild,     E3 TAPS_BF16   (W, x and the residual in bf16)
   wv_reread, wv_fold
   whbm                   E3 TABLE_BF16  (taps and bf16 weights from tables
                                          built once per geometry)
-  res / reshbm           E4 TAPS_BF16 / TABLE_BF16 (the resident sweep)
-  res_f32, res_f32_sbS   E4 TAPS_F32    (the port's rows: E4 at K8's
-                                         precision, 4 and S = 1, 2, 8
-                                         slices per block)
+  res / reshbm           E4 TAPS_BF16 / TABLE_BF16 at (8, 4) (the resident
+                                         sweep)
+  res_f32, res_f32_bBsS  E4 TAPS_F32    (the port's rows: E4 at K8's
+                                         precision at (8, 4) and at every
+                                         other shape, B = 8 or 16 blocks,
+                                         S = 1, 2 or 4 slices)
 
-Per row: the time of one sweep (a batch of sweeps between CUDA events), the
-rmse against the phantom after 10 sweeps on the consistent nanocube problem
+An E4 row whose shape does not fit at this N is printed as such and left
+out; E4 never runs another shape in its place. Per row: the time of one
+sweep (a batch of sweeps between CUDA events) beside K8's, the rmse
+against the phantom after 10 sweeps on the consistent nanocube problem
 (b = A phantom, real SART weights), and rel|d| of one sweep of random data
 (the scripts' default_rng(0) volume and sinogram, default_rng(1) weights)
-against K8. One-sweep differences on random data are not a measure of
-error (ordered SART amplifies roundings there); the rmse is. Every number
-carries the card's name and power limit; the last line is JSON.
+against K8; on the card the E4 rows also give their clusters, the clusters
+the card holds at once, the waves and the shared memory a block. Then the
+split of E3's step: bf16 operands (TAPS_BF16 - TAPS_F32) and tables
+(TABLE_BF16 - TAPS_BF16). One-sweep differences on random data are not a
+measure of error (ordered SART amplifies roundings there); the rmse is.
+Every number carries the card's name and power limit; the last line is
+JSON.
 """
 
 from __future__ import annotations
@@ -42,28 +52,29 @@ from tomojax_torch.experiments import timing
 from tomojax_torch.geometry import Geometry
 
 NA = 90
-VARIANTS = {  # the script's variant: (the port's sweep, mode, E4's sb)
+K8_SHAPE = (csv.BAND_BLOCKS, csv.CLUSTER_SLICES)
+VARIANTS = {  # the script's variant: (the port's sweep, mode, E4's shape)
     "dbuf": ("E3", "TAPS_F32", None), "wvmem": ("E3", "TAPS_BF16", None),
     "wv_rebuild": ("E3", "TAPS_BF16", None),
     "wv_reread": ("E3", "TAPS_BF16", None),
     "wv_f32": ("E3", "TAPS_F32", None), "wv_fold": ("E3", "TAPS_BF16", None),
-    "whbm": ("E3", "TABLE_BF16", None), "res": ("E4", "TAPS_BF16", 4),
-    "reshbm": ("E4", "TABLE_BF16", 4), "res_f32": ("E4", "TAPS_F32", 4),
-    "res_f32_sb1": ("E4", "TAPS_F32", 1),
-    "res_f32_sb2": ("E4", "TAPS_F32", 2),
-    "res_f32_sb8": ("E4", "TAPS_F32", 8),
+    "whbm": ("E3", "TABLE_BF16", None), "res": ("E4", "TAPS_BF16", K8_SHAPE),
+    "reshbm": ("E4", "TABLE_BF16", K8_SHAPE),
+    "res_f32": ("E4", "TAPS_F32", K8_SHAPE),
+    **{f"res_f32_b{blk}s{sb}": ("E4", "TAPS_F32", (blk, sb))
+       for blk, sb in csv.E4_SHAPES if (blk, sb) != K8_SHAPE},
 }
 
 
-def sweep_of(kernel: str, mode: str, tables, sb: int = 4):
+def sweep_of(kernel: str, mode: str, tables, shape=K8_SHAPE):
     """One sweep as fn(x, b, geom, inv_row, inv_col_a, beta, order): K8
-    ("K8"), E3 or E4 (sb slices per block) in `mode`."""
+    ("K8"), E3 or E4 (at cluster shape (blocks, sb)) in `mode`."""
     if kernel == "K8":
         from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
         return sart_sweep_sl
     if kernel == "E3":
         return lambda *a: csv.sart_variant(*a, mode, tables)
-    return lambda *a: csv.sart_resident(*a, mode, tables, sb)
+    return lambda *a: csv.sart_resident(*a, mode, tables, *shape)
 
 
 class Problems:
@@ -109,9 +120,13 @@ class Problems:
 
 
 def run(n: int, ns: int, device, card: str, reps: int | None = None) -> dict:
+    from tomojax_torch.solvers.cuda_sart import sart_route
+
     reps = reps or (3 if device.type == "cuda" else 1)
     pb = Problems(n, ns, NA, device)
-    print(f"device: {card}  {n}^2x{ns}, {NA} angles", flush=True)
+    route = sart_route(n, pb.geom.nray)
+    print(f"device: {card}  {n}^2x{ns}, {NA} angles; K8 and E3 on the "
+          f"{route} route", flush=True)
     t0 = time.perf_counter()
     tables = csv.sart_tables(pb.geom, device)
     if device.type == "cuda":
@@ -124,23 +139,42 @@ def run(n: int, ns: int, device, card: str, reps: int | None = None) -> dict:
     rows = {}
     base = sweep_of("K8", None, None)
     ref = pb.random_sweep(base)
-    rows["base"] = {"ms": timing.batch_ms(lambda: pb.random_sweep(base),
-                                          reps, device),
-                    "rmse10": pb.rmse10(base)}
-    print(f"base        (K8)           : {rows['base']['ms']:8.3f} ms  "
+    k8_ms = timing.batch_ms(lambda: pb.random_sweep(base), reps, device)
+    rows["base"] = {"ms": k8_ms, "rmse10": pb.rmse10(base)}
+    print(f"base          (K8 {route}): {k8_ms:8.3f} ms  "
           f"rmse@10={rows['base']['rmse10']:.5f} [{card}]", flush=True)
-    for name, (kernel, mode, sb) in VARIANTS.items():
-        sweep = sweep_of(kernel, mode, tables, sb)
+    for name, (kernel, mode, shape) in VARIANTS.items():
+        launch = ""
+        if kernel == "E4":
+            if not csv.shape_fits(n, pb.geom.nray, *shape):
+                smem = csv.resident_smem_bytes(n, pb.geom.nray, *shape)
+                print(f"{name:13s} (E4 {mode:10s} {shape}): does not fit "
+                      f"at {n}^2 ({smem} B a block), not run [{card}]",
+                      flush=True)
+                continue
+            if device.type == "cuda":
+                c = csv.resident_clusters(n, pb.geom.nray, ns, *shape, mode)
+                launch = (f"  {c['clusters']} clusters, {c['active']} at "
+                          f"once, {c['waves']} waves, {c['smem']} B a block")
+        sweep = sweep_of(kernel, mode, tables, shape)
         ms = timing.batch_ms(lambda: pb.random_sweep(sweep), reps, device)
         rel = timing.rel_max(pb.random_sweep(sweep), ref)
         r10 = pb.rmse10(sweep)
         rows[name] = {"ms": ms, "rmse10": r10, "rel": rel}
-        print(f"{name:11s} ({kernel} {mode:10s}): {ms:8.3f} ms  rmse@10="
+        tag = f"{kernel} {mode:10s}" + (f" {shape}" if shape else "")
+        print(f"{name:13s} ({tag}): {ms:8.3f} ms (K8 {k8_ms:.3f})  rmse@10="
               f"{r10:.5f} (d={abs(r10 - rows['base']['rmse10']):.2e})  "
-              f"1-sweep rel|d|={rel:.2e} [{card}]", flush=True)
-    return {"device": card, "n": n, "ns": ns, "na": NA,
+              f"1-sweep rel|d|={rel:.2e}{launch} [{card}]", flush=True)
+    split = {"bf16 operands (TAPS_BF16 - TAPS_F32)":
+             rows["wvmem"]["ms"] - rows["dbuf"]["ms"],
+             "tables (TABLE_BF16 - TAPS_BF16)":
+             rows["whbm"]["ms"] - rows["wvmem"]["ms"]}
+    print(f"split of E3's step ({route}): " + ", ".join(
+        f"{k} {v:+.3f} ms" for k, v in split.items())
+        + f"; K8 {k8_ms:.3f} ms [{card}]", flush=True)
+    return {"device": card, "n": n, "ns": ns, "na": NA, "route": route,
             "table_bytes": tables.nbytes, "reference_w_bytes": w_bytes,
-            "rows": rows}
+            "rows": rows, "split": split}
 
 
 def main(argv=None) -> None:

@@ -26,7 +26,8 @@ which ``tj_sart_route`` mirrors):
   sweep, block r the rows [r R, (r + 1) R), R = `band_rows` (N); per step
   each block sums every ray's taps in its own rows (column-driven angles
   over the steps of `column_steps`), the partials are added in block
-  order through distributed shared memory, and each block updates its rows;
+  order through distributed shared memory, and each block updates its rows
+  (``csrc/sart_resident.cuh``, which the experiment sweeps E3/E4 share);
 * streaming otherwise (N = 512 for one): two launches a step, the volume
   in device memory.
 
@@ -53,30 +54,34 @@ from tomojax_torch.projector.cuda_joseph import (
 )
 
 F32 = torch.float32
-# the resident route's tiling (csrc/sart.cu R_BLOCKS, R_SLICES,
-# RESIDENT_SMEM_MAX, STEP_SLACK): blocks of a cluster, slices of a cluster,
-# the shared memory of one block on an H100 (opt-in), and the margin of the
-# column-driven step range (2^-20 positions per unit of 2N + Nt + 8)
+# the resident route's tiling (csrc/sart.cu R_BLOCKS, R_SLICES;
+# csrc/sart_resident.cuh RESIDENT_SMEM_MAX, STEP_SLACK, R_PAD): blocks of a
+# cluster, slices of a cluster, the shared memory of one block on an H100
+# (opt-in), the margin of the column-driven step range (2^-20 positions per
+# unit of 2N + Nt + 8), and the pixels after each band row
 BAND_BLOCKS, CLUSTER_SLICES = 8, 4
 RESIDENT_SMEM_MAX = 232448
 STEP_SLACK = 2.0 ** -20
+BAND_PAD = 4
 
 
-def band_rows(n: int) -> int:
-    """Rows of the volume each block of a resident cluster holds."""
-    return -(-n // BAND_BLOCKS)
+def band_rows(n: int, blocks: int = BAND_BLOCKS) -> int:
+    """Rows of the volume each block of a resident cluster of `blocks`
+    holds."""
+    return -(-n // blocks)
 
 
-BAND_PAD = 4  # float4 after each band row (csrc/sart.cu R_PAD)
-
-
-def resident_smem_bytes(n: int, nt: int) -> int:
-    """Shared memory of one resident block (csrc/sart.cu resident_smem):
-    its rows of x as float4 (rows of N + `BAND_PAD`) and of inv_col_a[a]
-    as floats, the double-buffered partials, the residual plane and b[a]
-    (4 float4 a bin) and inv_row[a] (a float a bin)."""
-    rows = band_rows(n)
-    return rows * (n + BAND_PAD) * 16 + rows * n * 4 + nt * 68
+def resident_smem_bytes(n: int, nt: int, blocks: int = BAND_BLOCKS,
+                        sb: int = CLUSTER_SLICES) -> int:
+    """Shared memory of one block of the resident sweep with `blocks`
+    blocks a cluster and `sb` slices a pixel (csrc/sart_resident.cuh
+    resident_smem; K8 takes the defaults): its rows of x (rows of N +
+    `BAND_PAD` pixels of sb floats) and of inv_col_a[a] (floats), the
+    double-buffered partials, the residual plane and b[a] (4 pixels a bin)
+    and inv_row[a] (a float a bin)."""
+    rows = band_rows(n, blocks)
+    return (rows * (n + BAND_PAD) * 4 * sb + rows * n * 4
+            + nt * (16 * sb + 4))
 
 
 def sart_route(n: int, nt: int) -> str:
@@ -90,8 +95,8 @@ def column_steps(u, shear: float, n: int, nt: int, r0: int, r1: int):
     """The steps [k0, k1) in which a resident block with rows [r0, r1)
     walks a column-driven ray, for rays of ``u = (N-1)/2 - base`` (a
     float32 array) and the angle's shear: the closed form of
-    csrc/sart.cu column_steps, each float32 operation rounded alone in the
-    kernel's order. pos(k) = u + (k - (N-1)/2) shear is monotone in k and a
+    csrc/sart_resident.cuh column_steps, each float32 operation rounded
+    alone in the kernel's order. pos(k) = u + (k - (N-1)/2) shear is monotone in k and a
     tap row lies in the band when pos lies in [r0 - 1, r1); the ends are
     widened by 2 steps plus the rounding of pos over |shear|. Returns two
     int64 arrays of u's shape."""
@@ -151,7 +156,7 @@ def _checked_on_cpu(x, b, geom: Geometry, inv_row, inv_col_a, beta,
 
 
 PHASES = ("copy issue", "FP", "copy wait + cluster barrier", "residual",
-          "update")  # csrc/sart.cu R_PHASES
+          "update")  # csrc/sart_resident.cuh R_PHASES
 
 
 def resident_phases(x, b, geom: Geometry, inv_row, inv_col_a, beta,
@@ -175,6 +180,13 @@ def resident_phases(x, b, geom: Geometry, inv_row, inv_col_a, beta,
         p(x), p(tabs.fp), p(tabs.bp), p(b), p(inv_row), p(inv_col_a),
         p(beta), p(order), order.numel(), p(out), n, nt, na, ns, p(prof),
         _build.stream()), "tj_sart_resident_phases")
+    return phase_cycles(prof)
+
+
+def phase_cycles(prof: torch.Tensor) -> dict:
+    """The (blocks, 2, len(PHASES) + 1) int64 counters of a timed resident
+    sweep as {row-driven, column-driven: {steps, mean cycles a step of
+    each phase over the blocks}}."""
     cycles = prof.cpu().double()
     res = {}
     for i, kind in enumerate(("row-driven", "column-driven")):
