@@ -52,6 +52,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (256^3, and the 3 x 128 x 256^2 stack in one launch beside the
    per-element loop) and K11 beside two K3 launches, with the
    device-memory rate each reaches;
+   the ART sweep (A1) in each of its slices-a-block instantiations against
+   its plain version at 256^3 x 90 and at N 33, Na 7, Ns 5 (three single
+   ray steps from random x, 1e-6 max|x|; one sweep from zero on nanocube
+   projections, 1e-4 max|x|; two sweeps identical; out-of-range rays
+   leave x), and its ms a sweep at 256^3 x 90 angle-major and in a random
+   order (CUDA events) beside its bound;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, and with every plain version made to raise:
    a. FISTA-TV: TomoTorch on the 256 x 256^2 x 90 nanocube problem (one
@@ -114,6 +120,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       read after, their rows printed, the SART variants' rmse after 10
       sweeps held against K8's (rtol 1e-4 for float32, 2e-2 for bf16) and
       the paired FP against the unpaired (rel 1e-5);
+   g. the simulation study (examples/demo.py's): Simulator at 256 x 256^2
+      x 90 over +-76 deg, nanocube seed 0, snr 200 (its set-up split into
+      K1's time and the host's Poisson draw), then wbp (ram-lak, hann),
+      cgls(30), art(1) angle-major and random, sirt(10), each called
+      twice and timed by CUDA events, with its rmse against the
+      background-filled phantom
+      (the iterative ones below x = 0's); then pytvlib.run over every
+      alias at 64 slices;
    every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
@@ -121,9 +135,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    tests/golden/asd_pocs_jax_cpu.json and the 2 x 8 x 64^2 ChemicalTomo
    trace of tests/golden/fusion_jax_cpu.json (float32 FGP duals; the
    lambda_chem decay iterations first, as a branch check) replayed within
-   the bounds stored in them;
-6. result: a JSON line of the kernels (K1-K12, then E1-E4 as one row per
-   TPU kernel of scripts/exp_*.py), then the device line last.
+   the bounds stored in them; the reference's CPU SIRT trace
+   (GOLDEN_SIRT_DD of tests/test_golden_traces.py, 1 x 32^2 x 20, 10
+   iterations) within its rtol 2e-3;
+6. result: a JSON line of the kernels (K1-K12, A1, then E1-E4 as one row
+   per TPU kernel of scripts/exp_*.py), then the device line last.
 
     python3 chip_smoke.py --projector-times
 
@@ -152,7 +168,6 @@ import statistics
 import subprocess
 import sys
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -258,7 +273,7 @@ def phase_build() -> None:
 
 def _kernel_table():
     from tomojax_torch.projector import cuda_joseph as cj
-    from tomojax_torch.solvers import cuda_sart
+    from tomojax_torch.solvers import cuda_art, cuda_sart
     from tomojax_torch.tv import (
         cuda_fgp, cuda_fgp_sharded, cuda_tv_value, cuda_tvgd,
         cuda_tvgd_sharded,
@@ -303,6 +318,9 @@ def _kernel_table():
         # the TV-GD step, which XLA fused around the TPU kernel
         "tv_step": (cuda_tvgd.tv_step, "tomojax_torch/csrc/tvgd.cu",
                     "tomojax/tv/pallas_tvgd.py:96"),
+        # the ART sweep, an XLA scan of one ray a step in the reference
+        "A1_art_sweep": (cuda_art.art_sweep_sl, "tomojax_torch/csrc/art.cu",
+                         "tomojax/solvers/iterative.py:296"),
     }
 
 
@@ -327,58 +345,6 @@ def fgp_iter_work(v: int, dual_bytes: int, iters: int = 1):
     return v * (4 + 6 * dual_bytes), 51 * v * iters
 
 
-def _joseph_taps(geom, dev):
-    """Both taps of every (angle, pixel), (Na, N, N) each, from the Joseph
-    closed form that K2 gathers with (the tables of
-    cuda_joseph.angle_tables): the bin j, the weight w and where it is a
-    nonzero of A (j in [0, Nt), w != 0)."""
-    from tomojax_torch.projector.cuda_joseph import angle_tables
-
-    n, nt = geom.n, geom.nray
-    t = angle_tables(geom, dev).bp
-    c, s, invd = (t[:, i, None, None] for i in range(3))
-    ctr = (n - 1) / 2.0
-    xc = torch.arange(n, dtype=torch.float32, device=dev) - ctr
-    yr = ctr - torch.arange(n, dtype=torch.float32, device=dev)
-    jstar = c * xc[None, None, :] + s * yr[None, :, None] + (nt - 1) / 2.0
-    f = torch.floor(jstar)
-    j0 = f.long()
-    for j, fj in ((j0, f), (j0 + 1, f + 1.0)):
-        w = torch.clamp_min(1.0 - torch.abs(fj - jstar) * invd, 0.0) * invd
-        yield j, w, (j >= 0) & (j < nt) & (w != 0)
-
-
-def joseph_nnz(geom) -> int:
-    """The nonzeros of A at this geometry, as joseph_csr counts them."""
-    return sum(int(keep.sum()) for _, _, keep in
-               _joseph_taps(geom, torch.device("cuda")))
-
-
-def joseph_csr(geom, dev):
-    """A (Na Nt x N^2) and A^T as CSR on the card, from the Joseph closed
-    form that K2 gathers with (the tables of cuda_joseph.angle_tables), and
-    the number of nonzeros: the yardstick `torch.sparse.mm` multiplies with
-    (cuSPARSE SpMM), built once and not timed."""
-    n, nt, na = geom.n, geom.nray, geom.nproj
-    pix = torch.arange(n * n, device=dev).reshape(1, n, n).expand(na, n, n)
-    ang = torch.arange(na, device=dev).reshape(na, 1, 1).expand(na, n, n)
-    rows, cols, vals = [], [], []
-    for j, w, keep in _joseph_taps(geom, dev):
-        rows.append((ang * nt + j)[keep])
-        cols.append(pix[keep])
-        vals.append(w[keep])
-    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
-    with warnings.catch_warnings():  # CSR support is marked beta
-        warnings.simplefilter("ignore", UserWarning)
-        a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
-                                    (na * nt, n * n),
-                                    check_invariants=False).coalesce()
-        at = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals,
-                                     (n * n, na * nt),
-                                     check_invariants=False).coalesce()
-        return a.to_sparse_csr(), at.to_sparse_csr(), int(a.values().numel())
-
-
 def _launched(wrapper, fn):
     before = wrapper.launches
     out = fn()
@@ -390,6 +356,7 @@ def _launched(wrapper, fn):
 def phase_kernels(card: str) -> dict:
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector import cuda_joseph as cj
+    from tomojax_torch.projector.oracle import joseph_csr
     from tomojax_torch.tv import cuda_fgp, cuda_tv_value, cuda_tvgd
     from tomojax_torch.tv.cuda_fgp import tv_fgp_fused
 
@@ -563,6 +530,7 @@ def phase_kernels(card: str) -> dict:
     _check_halo_kernels(x, uni, report, card)
     tv_times(uni2, card, "tv")
     _check_slab_chains(x, x_old, beta)
+    _check_art(geom, uni, report, card)
     return rows
 
 
@@ -902,6 +870,7 @@ def _check_projector_tiles(uni, card: str) -> None:
     and A^T (rel 1e-5) and timed beside it."""
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector import cuda_joseph as cj
+    from tomojax_torch.projector.oracle import joseph_csr
 
     for n, na, ns in RAGGED_SHAPES:
         geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
@@ -1111,6 +1080,7 @@ def _check_sart(geom, ns: int, uni, report, nnz: int, card: str) -> None:
     last band empty), streaming at 128 x 512^2 x 90; each with its launch
     and ms a sweep beside its bound."""
     from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector.oracle import joseph_nnz
     from tomojax_torch.solvers import cuda_sart
 
     n = geom.n
@@ -1127,7 +1097,119 @@ def _check_sart(geom, ns: int, uni, report, nnz: int, card: str) -> None:
         g2 = Geometry.make(n2, np.deg2rad(np.linspace(-76, 76, na2)))
         lv2 = _sart_levels(g2, ns2, uni(n2, n2, ns2))
         require(lv2["route"] == want, f"K8 at {n2}^2: route {lv2['route']}")
-        _sart_route_line(g2, ns2, lv2, joseph_nnz(g2), card)
+        _sart_route_line(g2, ns2, lv2, joseph_nnz(g2, "cuda"), card)
+
+
+def art_work(geom, ns: int, rays: int):
+    """(bytes, operations) of one A1 sweep over `rays` rays: x in and out
+    once, b, the order and the angle table read once; per ray and step the
+    position and the two weights with their squares (12 operations), per
+    ray, step and slice the dot's and the update's 8, per ray and slice the
+    coefficient's 3."""
+    n, na = geom.n, geom.nproj
+    return (4 * (2 * n * n * ns + na * geom.nray * ns + rays) + 16 * na,
+            rays * (8 * n * ns + 12 * n + 3 * ns))
+
+
+def _art_levels(geom, ns: int, uni) -> dict:
+    """A1 against its plain version at two levels, for each slices-a-block
+    instantiation (cuda_art.SLICES), each required: three single ray steps (a
+    row-driven ray, a column-driven one, the detector's last bin) from
+    random x within 1e-6 max|x|; one angle-major sweep from zero on
+    nanocube projections within 1e-4 max|x|. Also: two sweeps agree bit
+    for bit and out-of-range rays leave x. Returns the sweep's error and
+    bound, the plain sweep's ms (host clock) and a line of text."""
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import cuda_art, to_sl
+
+    dev = torch.device("cuda")
+    n, na, nt = geom.n, geom.nproj, geom.nray
+    tag = f"A1 at {ns} x {n}^2 x {na}"
+    sweep, plain = cuda_art.art_sweep_sl, cuda_art.art_sweep_sl_ref
+    vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
+    b = fp_sl(vol, geom)
+    x, x0 = uni(n, n, ns), torch.zeros_like(vol)
+    seq = torch.arange(na * nt, dtype=torch.int32, device=dev)
+    steps = [(seq[r:r + 1], plain(x, b, geom, 1.0, seq[r:r + 1]))
+             for r in (nt // 2, (na // 2) * nt + nt // 3, nt - 1)]
+    t0 = time.perf_counter()
+    ref = plain(x0, b, geom, 1.0, seq)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    skip = torch.tensor([na * nt, -1], dtype=torch.int32, device=dev)
+    out = {"plain_ms": plain_ms, "tol": 1e-4 * float(ref.abs().max()),
+           "b": b, "x0": x0, "seq": seq}
+    texts = []
+    for sl in cuda_art.SLICES:
+        step_err = step_tol = 0.0
+        for one, want in steps:
+            got = _launched(sweep, lambda: sweep(x, b, geom, 1.0, one, sl))
+            err, tol = max_err(got, want), 1e-6 * float(want.abs().max())
+            require(err <= tol, f"{tag} ({sl} slices a block), ray "
+                                f"{int(one)}: error {err:.3e} above "
+                                f"{tol:.3e}")
+            step_err, step_tol = max(step_err, err), max(step_tol, tol)
+        require(torch.equal(sweep(x, b, geom, 1.0, skip, sl), x),
+                f"{tag} ({sl} slices a block): out-of-range rays changed x")
+        got = sweep(x0, b, geom, 1.0, seq, sl)
+        err = max_err(got, ref)
+        require(err <= out["tol"], f"{tag} ({sl} slices a block), one "
+                                   f"sweep: error {err:.3e} above "
+                                   f"{out['tol']:.3e}")
+        require(torch.equal(sweep(x0, b, geom, 1.0, seq, sl), got),
+                f"{tag} ({sl} slices a block): two sweeps differ")
+        if sl == cuda_art.ART_SLICES:
+            out["err"] = err
+        texts.append(f"{sl} slices a block: one ray step {step_err:.2e} <= "
+                     f"{step_tol:.2e} (1e-6 max|x|), one sweep from zero "
+                     f"{err:.2e} <= {out['tol']:.2e} (1e-4 max|x|)")
+    out["text"] = (f"{tag} against the plain version on nanocube "
+                   f"projections: " + "; ".join(texts) + "; two sweeps "
+                   f"identical; out-of-range rays leave x; plain sweep "
+                   f"{plain_ms:.0f} ms")
+    return out
+
+
+def _check_art(geom, uni, report, card: str) -> None:
+    """A1 (the ART sweep) against its plain version (_art_levels) at 256^3
+    x 90 (the plain sweep, 23,040 rays of about 15 PyTorch launches each,
+    takes 4-5 s on the H100) and at N 33, Na 7, Ns 5; then A1's ms a sweep
+    at 256^3 x 90 (CUDA events over back-to-back sweeps) for each
+    slices-a-block instantiation, angle-major and in a random order,
+    beside its bound and the traffic of re-reading each ray's pixels from
+    device memory (16 N Ns bytes a ray)."""
+    from tomojax_torch.experiments.timing import batch_ms
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.solvers import cuda_art
+
+    small = Geometry.make(33, np.deg2rad(np.linspace(-76, 76, 7)))
+    print(_art_levels(small, 5, uni)["text"])
+    n, na, ns = geom.n, geom.nproj, 256
+    lv = _art_levels(geom, ns, uni)
+    print(lv["text"])
+    rays = na * geom.nray
+    perm = torch.randperm(rays, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(device=lv["seq"].device, dtype=torch.int32)
+    sweep, b, x0 = cuda_art.art_sweep_sl, lv["b"], lv["x0"]
+    times = {(sl, kind): batch_ms(
+        lambda: sweep(x0, b, geom, 1.0, order, sl), 3, x0.device)
+        for sl in cuda_art.SLICES
+        for kind, order in (("angle-major", lv["seq"]), ("random", perm))}
+    bound_ms, bound_by = bound(*art_work(geom, ns, rays))
+    traffic_ms = 1e3 * 16 * n * ns * rays / HBM_BYTES_PER_S
+    print(f"A1 at {ns} x {n}^2 x {na} ({rays} rays), ms a sweep over 3 "
+          f"back-to-back sweeps (CUDA events), angle-major / random order: "
+          + "; ".join(f"{sl} slices a block {times[sl, 'angle-major']:.3f} "
+                      f"/ {times[sl, 'random']:.3f}"
+                      for sl in cuda_art.SLICES)
+          + f"; bound {bound_ms:.4f} ms ({bound_by}); each ray's 2N pixels "
+          f"from device memory {traffic_ms:.2f} ms; SM clock after it, max: "
+          f"{sm_clock()} [{card}]")
+    report("A1_art_sweep", lv["err"], lv["tol"],
+           times[cuda_art.ART_SLICES, "angle-major"], lv["plain_ms"],
+           f" ({cuda_art.ART_SLICES} slices a block, angle-major; plain ms "
+           f"one sweep, host clock)", work=art_work(geom, ns, rays))
 
 
 SLABS = 4  # phase 3's emulated ranks: 256^3 as 4 slabs of 64 slices
@@ -1347,7 +1429,7 @@ def plain_versions_forbidden():
         cuda_projector_variants, cuda_sart_variants,
     )
     from tomojax_torch.projector import cuda_joseph
-    from tomojax_torch.solvers import cuda_sart
+    from tomojax_torch.solvers import cuda_art, cuda_sart
     from tomojax_torch.tv import (
         cuda_fgp, cuda_fgp_sharded, cuda_tv_value, cuda_tvgd,
         cuda_tvgd_sharded,
@@ -1363,7 +1445,8 @@ def plain_versions_forbidden():
              cuda_tv_value: ["tv_value_ref"],
              cuda_tvgd: ["tv_grad_ref", "tv_step_ref"],
              cuda_tvgd_sharded: ["tv_grad_halo_ref"],
-             cuda_sart: ["sart_sweep_sl_ref"]}
+             cuda_sart: ["sart_sweep_sl_ref"],
+             cuda_art: ["art_sweep_sl_ref"]}
     saved = {(m, k): getattr(m, k) for m, ks in names.items() for k in ks}
 
     def forbidden(name):
@@ -1390,6 +1473,8 @@ SHARDED_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp",
 FUSION_KERNELS = ("K1_fp", "K2_bp_sirt", "K2_bp", "K3_fgp_iter",
                   "K4_fgp_obj_mom", "K5_tv_value")
 VARIANT_KERNELS = ("K10_bp_ab", "K11_fgp_iter2", "K12_fgp_grad")
+SIM_KERNELS = ("K1_fp", "K2_bp", "K2_bp_sirt", "A1_art_sweep",
+               "K8_sart_sweep")
 
 
 def _reset(kernels: dict) -> None:
@@ -1963,6 +2048,88 @@ def phase_variants(card: str, kernels: dict) -> dict:
     return counts
 
 
+SIM_SHAPE = (256, 256, 90)  # (Ns, N, Na): bench.py's problem
+SIM_SNR = 200  # the count level of examples/demo.py
+PYTVLIB_SLICES = 64
+
+
+def phase_sim_path(card: str, kernels: dict) -> dict:
+    """Phase 4g: the simulation study of examples/demo.py and sim_tomo.py
+    at bench.py's shape (nanocube seed 0, +-76 degrees, snr 200): the
+    Simulator's set-up (K1, then the host's Poisson draw), then wbp
+    (ram-lak, hann), cgls(30), art(1) angle-major and random, sirt(10),
+    each called twice and timed by CUDA events, with its rmse against the
+    background-filled phantom; then pytvlib.run over every alias at 64
+    slices. The launch
+    counts are set to 0 before and read after; every plain version
+    raises."""
+    from tomojax_torch import Simulator, ops, pytvlib
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+
+    ns, n, na = SIM_SHAPE
+    angles = np.linspace(-76, 76, na)
+    dev = torch.device("cuda")
+    vol = nanocube_phantom(ns, n)
+    _reset(kernels)
+    with plain_versions_forbidden():
+        filled = torch.from_numpy(np.where(vol == 0, np.float32(1.0), vol))
+        vol_sl = filled.to(dev).permute(1, 2, 0).contiguous()
+        geom = Geometry.make(n, np.deg2rad(angles))
+        b_sl, k1_ms = _events_ms(lambda: fp_sl(vol_sl, geom))
+        t0 = time.perf_counter()
+        ops.poisson_noise(b_sl, SIM_SNR, 0)
+        poisson_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sim = Simulator(vol, angles, snr=SIM_SNR)
+        torch.cuda.synchronize()
+        setup_ms = 1e3 * (time.perf_counter() - t0)
+        zero_rmse = sim.rmse()
+        runs = {}
+        for name, call in (
+                ("wbp ram-lak", lambda: sim.wbp()),
+                ("wbp hann", lambda: sim.wbp("hann")),
+                ("cgls(30)", lambda: sim.cgls(30)),
+                ("art(1)", lambda: sim.art(1)),
+                ("art(1, random_order)", lambda: sim.art(1,
+                                                         random_order=True)),
+                ("sirt(10)", lambda: sim.sirt(10))):
+            _, cold = _events_ms(call)  # the first call (plans, tables)
+            _, ms = _events_ms(call)
+            x = sim.x
+            require(tuple(x.shape) == (ns, n, n)
+                    and bool(torch.isfinite(x).all()),
+                    f"Simulator.{name}: not finite or of the wrong shape")
+            runs[name] = (ms, cold, sim.rmse())
+        small = Simulator(nanocube_phantom(PYTVLIB_SLICES, n), angles,
+                          snr=SIM_SNR)
+        aliases = {}
+        for alias in sorted(pytvlib._ALG_ALIASES):
+            pytvlib.initialize_algorithm(small, alias)
+            _, ms = _events_ms(lambda: pytvlib.run(small, alias, niter=2))
+            require(bool(torch.isfinite(small.x).all()),
+                    f"pytvlib.run({alias!r}) is not finite")
+            aliases[alias] = (ms, small.rmse())
+    counts = _read(kernels, "simulation-study path", SIM_KERNELS)
+    print(f"simulation-study path {ns}x{n}^2x{na} +-76 deg, nanocube seed "
+          f"0, snr {SIM_SNR}: Simulator set-up {setup_ms:.1f} ms wall (K1 "
+          f"{k1_ms:.3f} ms by events, host Poisson draw {poisson_ms:.1f} ms)"
+          f"; rmse of x = 0 {zero_rmse:.6f} [{card}]")
+    for name, (ms, cold, rmse) in runs.items():
+        # the iterative solvers must come closer to the phantom than x = 0;
+        # FBP of noisy, limited-angle data need not
+        require(name.startswith("wbp") or rmse < zero_rmse,
+                f"Simulator.{name}: rmse {rmse:.6f} not below x = 0's "
+                f"{zero_rmse:.6f}")
+        print(f"  {name}: {ms:.3f} ms (CUDA events, the second call; "
+              f"first {cold:.3f}), rmse {rmse:.6f}")
+    print(f"  pytvlib.run at {PYTVLIB_SLICES} slices, niter 2 (ms by CUDA "
+          f"events, rmse): " + "; ".join(
+              f"{a} {ms:.3f} / {r:.6f}" for a, (ms, r) in aliases.items()))
+    return counts
+
+
 # The experiment kernels, one row per TPU kernel of scripts/exp_*.py: (row,
 # wrapper, the driver whose run counts its launches, the TPU kernel, the
 # instantiation whose check at 256^3 gives the row's numbers).
@@ -2014,6 +2181,7 @@ def _check_experiment_kernels(card: str) -> dict:
     from tomojax_torch.experiments.timing import batch_ms
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector.cuda_joseph import bp_sl, fp_sl
+    from tomojax_torch.projector.oracle import joseph_csr
 
     dev = torch.device("cuda")
     n, na, ns = 256, 90, 256
@@ -2132,6 +2300,7 @@ def _check_sart_experiments(card: str) -> dict:
     from tomojax_torch.experiments.timing import batch_ms
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.projector.oracle import joseph_nnz
     from tomojax_torch.sim import nanocube_phantom
     from tomojax_torch.solvers import (
         cuda_sart, make_sart_weights, make_system, to_sl,
@@ -2142,7 +2311,7 @@ def _check_sart_experiments(card: str) -> dict:
     for n, ns in ((256, 256), (512, 128)):
         na = 90
         geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
-        nt, nnz = geom.nray, joseph_nnz(geom)
+        nt, nnz = geom.nray, joseph_nnz(geom, "cuda")
         sysd = make_system(geom, dev)
         vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
         base = (fp_sl(vol, geom), geom, sysd.inv_row,
@@ -2605,6 +2774,51 @@ def phase_golden_fusion(card: str) -> None:
             "fusion golden trace outside its bounds")
 
 
+def _golden_sirt_dd() -> list:
+    """GOLDEN_SIRT_DD of tests/test_golden_traces.py, read from the file's
+    text (importing it would import JAX)."""
+    import ast
+
+    tree = ast.parse((ROOT / "tests/test_golden_traces.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", "") == "GOLDEN_SIRT_DD"):
+            return ast.literal_eval(node.value)
+    raise PhaseFailed("GOLDEN_SIRT_DD not found in "
+                      "tests/test_golden_traces.py")
+
+
+def phase_golden_sirt(card: str) -> None:
+    """The reference's CPU golden SIRT trace (tests/test_golden_traces.py:
+    32^2 Shepp-Logan, 20 angles over +-70 degrees, 5 points of 2
+    ASTRA-SIRT iterations) replayed by the port on the card (K1, K2's
+    fused update) within its rtol 2e-3."""
+    from tomojax_torch import ops
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import create_projections, shepp_logan
+    from tomojax_torch.solvers import make_system, sirt_sweep_sl, to_sl
+
+    golden = _golden_sirt_dd()
+    dev = torch.device("cuda")
+    n = 32
+    geom = Geometry.make(n, np.deg2rad(np.linspace(-70, 70, 20)))
+    sysd = make_system(geom, dev)
+    b_sl = to_sl(create_projections(
+        torch.from_numpy(shepp_logan(n)[None]).to(dev), geom))
+    x = torch.zeros((n, n, 1), device=dev)
+    trace = []
+    for _ in range(len(golden)):
+        x = sirt_sweep_sl(x, b_sl, sysd, 2)
+        trace.append(float(ops.data_distance(fp_sl(x, geom), b_sl)))
+    dev_dd = float(np.max(np.abs(np.asarray(trace) - golden)
+                          / np.abs(golden)))
+    print(f"golden SIRT 1x{n}^2x20, {2 * len(golden)} iterations vs the "
+          f"reference's CPU trace: max rel dev dd {dev_dd:.3e} (<= 2e-3) "
+          f"[{card}]")
+    require(dev_dd <= 2e-3, "SIRT golden trace outside rtol 2e-3")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2663,15 +2877,17 @@ def main() -> int:
                  phase_asd_path(card, kernels),
                  phase_sharded_path(card, kernels),
                  phase_fusion_path(card, kernels),
-                 phase_variants(card, kernels)]
+                 phase_variants(card, kernels),
+                 phase_sim_path(card, kernels)]
         exp_rows = phase_experiments(card)
         phase_golden(card)
         phase_golden_asd(card)
         phase_golden_fusion(card)
+        phase_golden_sirt(card)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: the kernel's count over the main paths' runs (phase 4a-e),
+    # launches: the kernel's count over the main paths' runs (phase 4a-e, g),
     # an experiment kernel's over its driver's run (phase 4f)
     report = [{"name": name, "route": "cuda", "source": src,
                "replaces": rep,

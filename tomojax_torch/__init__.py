@@ -8,9 +8,10 @@ PyTorch version; on a CUDA device it runs the hand-written kernels in
 ``build/tomojax_torch/`` (see ``_build.py``).
 """
 
-from tomojax_torch.api import ChemicalTomo, TomoTorch
+from tomojax_torch.api import ChemicalTomo, Simulator, TomoTorch
 from tomojax_torch.geometry import Geometry
 
 __version__ = "0.1.0"
 
-__all__ = ["ChemicalTomo", "Geometry", "TomoTorch", "__version__"]
+__all__ = ["ChemicalTomo", "Geometry", "Simulator", "TomoTorch",
+           "__version__"]

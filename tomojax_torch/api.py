@@ -5,7 +5,12 @@
     tomo = TomoTorch(tilt_angles_deg, tilt_series)   # device="cuda"
     tomo.fista(Niter=50, lambda_param=0.1)
     recon = tomo.get_recon()                         # (Nslice, Nray, Nray)
-    tomo.asd_pocs(Niter=20)     # or .sart, .sirt, .kl_divergence
+    tomo.asd_pocs(Niter=20)     # or .sart, .sirt, .kl_divergence,
+                                # .cgls, .art, .wbp
+
+    from tomojax_torch import Simulator
+    sim = Simulator(volume, tilt_angles_deg, snr=200)  # noisy projections
+    sim.sirt(Niter=10).rmse()                  # against the phantom
 
     from tomojax_torch import ChemicalTomo
     chem = ChemicalTomo(haadf, haadf_angles_deg, {"c": c_series, ...},
@@ -39,7 +44,8 @@ import torch
 from tomojax_torch import ops
 from tomojax_torch import tv as tvmod
 from tomojax_torch.dist import (
-    SlabGroup, gather_slabs, pad_slices, shard_global, unpad_slices,
+    SlabGroup, all_reduce_sum, gather_slabs, pad_slices, shard_global,
+    unpad_slices,
 )
 from tomojax_torch.fusion import (
     data_fusion_run,
@@ -51,11 +57,17 @@ from tomojax_torch.fusion import (
     weights_for_elements,
 )
 from tomojax_torch.geometry import Geometry
+from tomojax_torch.projector.cuda_joseph import fp_sl
+from tomojax_torch.projector.filters import FILTERS
+from tomojax_torch.sim import create_projections
 from tomojax_torch.solvers import (
     AsdPocsParams,
+    art_sweep_sl,
     asd_pocs_host_loop,
     asd_pocs_run,
+    cgls_run_sl,
     data_distance_sl,
+    fbp_sl,
     fista_init_sl,
     fista_run_sl,
     from_sl,
@@ -139,6 +151,30 @@ class TomoTorch:
                              dtype=torch.float32, device=self.device)
         self.recon = None
 
+    def update_projection_angles(self, tilt_angles_deg, tilt_series):
+        """Rebind the angles and the data (dynamic acquisition: the
+        reference's tomoengine.cpp:130-149 grows its geometry). The current
+        reconstruction is kept as the warm start when the number of slices
+        is unchanged."""
+        x_prev = getattr(self, "x", None)
+        ns_prev = getattr(self, "Nslice", None)
+        self.tilt_angles = np.asarray(tilt_angles_deg, np.float64)
+        self.set_tilt_series(tilt_series)
+        if x_prev is not None and ns_prev == self.Nslice:
+            self.x = x_prev
+        return self
+
+    def wbp(self, filter: str = "ram-lak", apply_positivity: bool = True):
+        """Filtered backprojection (solvers/wbp.py); an unknown filter name
+        is reported and replaced by ram-lak, as the reference does."""
+        if filter not in FILTERS:
+            print(f"{filter} filter not supported. Defaulting to ram-lak.")
+            filter = "ram-lak"
+        self.x = from_sl(fbp_sl(self.b_sl, self.geom, filter,
+                                apply_positivity))
+        self.recon = None
+        return self
+
     def fista(self, Niter: int = 100, momentum: bool = True,
               lambda_param: float = 0.1, nTViter: int = 10,
               show_convergence: bool = True, compat: str = "correct"):
@@ -175,6 +211,45 @@ class TomoTorch:
                                             self.group))
         self.cost = (torch.stack(dds).cpu().numpy() if dds
                      else np.zeros(Niter, np.float32))
+        self.x = from_sl(x)
+        return self
+
+    def art(self, Niter: int = 1, beta: float = 1.0,
+            random_order: bool = False, show_convergence: bool = True):
+        """Ray-by-ray Kaczmarz sweeps from zero (A1), rays angle-major or,
+        with random_order (randART), a permutation of the Na Nt rays drawn
+        each sweep from the instance's generator (the reference draws from
+        jax.random.PRNGKey(0): the seed is the same, the stream differs).
+        With show_convergence, ``self.cost`` holds ||A x - b|| after each
+        sweep, read from the device once at the end."""
+        self.restart_recon()
+        rays = self.geom.nproj * self.geom.nray
+        x = to_sl(self.x)
+        dds = []
+        for _ in range(Niter):
+            order = (torch.randperm(rays, generator=self._order_gen)
+                     if random_order else torch.arange(rays))
+            order = order.to(device=self.device, dtype=torch.int32)
+            x = art_sweep_sl(x, self.b_sl, self.geom, beta, order)
+            if show_convergence:
+                dds.append(data_distance_sl(x, self.b_sl, self.sys,
+                                            self.group))
+        self.cost = (torch.stack(dds).cpu().numpy() if dds
+                     else np.zeros(Niter, np.float32))
+        self.x = from_sl(x)
+        return self
+
+    def cgls(self, Niter: int = 100, show_convergence: bool = True):
+        """CGLS from zero (per-slice scalars, K1 and K2), positivity after
+        the run; with show_convergence ``self.cost`` holds the one data
+        distance after it."""
+        self.restart_recon()
+        x = torch.clamp_min(cgls_run_sl(to_sl(self.x), self.b_sl, self.sys,
+                                        Niter), 0.0)
+        if show_convergence:
+            self.cost = np.asarray(
+                [float(data_distance_sl(x, self.b_sl, self.sys,
+                                        self.group))])
         self.x = from_sl(x)
         return self
 
@@ -259,15 +334,35 @@ class TomoTorch:
         """Periodic isotropic TV of the current reconstruction (K5)."""
         return float(tvmod.tv(to_sl(self.x), self.group))
 
+    def lipschitz(self) -> float:
+        return float(self.sys.lipschitz)
+
+    def _whole(self, a: torch.Tensor, axis: int) -> torch.Tensor:
+        """`a`, sliced on `axis`, as the whole array without the padding:
+        with a group the slabs gathered on every rank (a collective)."""
+        if self.group is None:
+            return a
+        return unpad_slices(gather_slabs(a, self.group, axis), self.Nslice,
+                            axis)
+
     def get_recon(self) -> np.ndarray:
         """The reconstruction, (Nslice, Nray, Nray) float32 numpy; with a
         group the gathered slabs without the padding, on every rank."""
         if self.recon is None:
-            x = self.x
-            if self.group is not None:
-                x = unpad_slices(gather_slabs(x, self.group), self.Nslice)
-            self.recon = x.cpu().numpy()
+            self.recon = self._whole(self.x, 0).cpu().numpy()
         return self.recon
+
+    def get_projections(self) -> np.ndarray:
+        """The measured sinogram (Nslice, Nangles, Nray) (the reference's
+        sinogram layout, not the tilt series'); a collective with a
+        group."""
+        return from_sl(self._whole(self.b_sl, 2)).cpu().numpy()
+
+    def get_model_projections(self) -> np.ndarray:
+        """A x of the current reconstruction (K1), (Nslice, Nangles, Nray);
+        a collective with a group."""
+        return from_sl(self._whole(fp_sl(to_sl(self.x), self.geom),
+                                   2)).cpu().numpy()
 
     @staticmethod
     def _check_init(init: str) -> str:
@@ -292,6 +387,49 @@ class TomoTorch:
         else:
             orders = torch.arange(na, dtype=torch.int32).expand(count, -1)
         return orders.to(self.device).contiguous()
+
+
+class Simulator(TomoTorch):
+    """Simulation-study driver (counterpart of ``tomojax.api.Simulator``,
+    the reference's gpu/simulator.py): projects a ground-truth volume
+    (Nslice, N, N) with K1 on the device, with Poisson noise at count
+    level `snr` (drawn on the host from seed 0) where snr != 0, and
+    reconstructs from those projections with every TomoTorch method.
+
+    With snr, `original` becomes the background-filled volume (zero voxels
+    set to 1) and `rmse` compares against it, as the reference does. With
+    a group every rank projects the whole volume and TomoTorch then keeps
+    its slab of the sinogram, as the reference builds the sinogram
+    unsharded."""
+
+    def __init__(self, volume, tilt_angles, snr: int = 0, device=None,
+                 group: SlabGroup | None = None):
+        self.original = np.asarray(volume, np.float32)
+        if snr:
+            self.original = np.where(self.original == 0, np.float32(1.0),
+                                     self.original).astype(np.float32)
+        n = self.original.shape[1]
+        dev = _device(device if group is None else group.device,
+                      "Simulator")
+        geom = Geometry.make(n, np.deg2rad(np.asarray(tilt_angles,
+                                                      np.float64)))
+        self._truth = torch.from_numpy(self.original).to(dev)
+        b = create_projections(self._truth, geom, snr=snr)
+        super().__init__(tilt_angles, b.permute(0, 2, 1).cpu().numpy(),
+                         device=device, group=group)
+
+    def rmse(self) -> float:
+        """Root-mean-square error of the reconstruction against
+        `original` (with a group over all ranks' real slices, an
+        all-reduce)."""
+        if self.group is None:
+            return float(ops.rmse(self.x, self._truth))
+        n_loc = self.x.shape[0]
+        lo = self.group.rank * n_loc
+        hi = min(lo + n_loc, self.Nslice)
+        d = self.x[:max(hi - lo, 0)] - self._truth[lo:hi]
+        sq = all_reduce_sum(torch.sum(d * d), self.group)
+        return float(torch.sqrt(sq / self._truth.numel()))
 
 
 class ChemicalTomo:

@@ -84,3 +84,26 @@ class Geometry:
     @property
     def img_center(self) -> float:
         return (self.n - 1) / 2.0
+
+    @cached_property
+    def perm(self) -> np.ndarray:
+        """Permutation putting row-driven angles first."""
+        return np.concatenate(
+            [np.nonzero(self.row_driven)[0], np.nonzero(~self.row_driven)[0]]
+        )
+
+    @cached_property
+    def inv_perm(self) -> np.ndarray:
+        inv = np.empty(self.nproj, dtype=np.int64)
+        inv[self.perm] = np.arange(self.nproj)
+        return inv
+
+    def with_angles(self, angles_rad) -> "Geometry":
+        """New geometry with a different angle set (streaming mode)."""
+        return Geometry.make(self.n, angles_rad, self.nray)
+
+    def extended(self, new_angles_rad) -> "Geometry":
+        """Append angles (the reference's tomoengine.cpp:130-149 grows
+        Nproj)."""
+        allang = np.concatenate([self.angles, np.atleast_1d(new_angles_rad)])
+        return Geometry.make(self.n, allang, self.nray)

@@ -2,7 +2,9 @@
 
 The phantoms are the reference's numpy code, so the same seed gives the
 same volume in both packages. ``create_projections`` forward-projects a
-volume without noise; Poisson noise (snr != 0) is not ported yet.
+volume (K1) and, with snr != 0, fills its zero voxels with a background
+of 1 first and applies Poisson noise at count level snr
+(``ops.poisson_noise``), as the reference's simulation path does.
 """
 
 from __future__ import annotations
@@ -10,8 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tomojax_torch import ops
 from tomojax_torch.geometry import Geometry
-from tomojax_torch.projector.joseph import fp
+from tomojax_torch.projector.cuda_joseph import fp_sl
 
 
 def shepp_logan(n: int) -> np.ndarray:
@@ -60,11 +63,16 @@ def nanocube_phantom(nslice: int, n: int, seed: int = 0) -> np.ndarray:
     return vol
 
 
-def create_projections(volume: torch.Tensor, geom: Geometry,
-                       snr: int = 0) -> torch.Tensor:
-    """Forward-project a ground-truth (Ns, N, N) volume, on its own
-    device, into a noiseless (Ns, Na, Nt) float32 sinogram."""
+def create_projections(volume: torch.Tensor, geom: Geometry, snr: int = 0,
+                       seed: int = 0) -> torch.Tensor:
+    """Forward-project a ground-truth (Ns, N, N) volume, on its own device,
+    into an (Ns, Na, Nt) float32 sinogram. With snr != 0, zero voxels are
+    first set to a background of 1 and Poisson noise at count level snr is
+    drawn on the host from `seed` (``ops.poisson_noise``)."""
+    vol = volume.to(torch.float32)
     if snr:
-        raise NotImplementedError("Poisson noise (snr != 0) is not ported "
-                                  "yet; pass snr=0")
-    return fp(volume.to(torch.float32).contiguous(), geom)
+        vol = ops.set_background(vol, 1.0)
+    b = fp_sl(vol.permute(1, 2, 0).contiguous(), geom)
+    if snr:
+        b = ops.poisson_noise(b, snr, seed)
+    return b.permute(2, 0, 1).contiguous()

@@ -1,6 +1,6 @@
-"""Reconstruction solvers (counterpart of ``tomojax.solvers``); the port
-holds so far the system weights, slice-last FISTA-TV, SIRT, the SART
-sweep, Poisson-ML, the least-squares step and ASD-POCS."""
+"""Reconstruction solvers (counterpart of ``tomojax.solvers``): the system
+weights, slice-last FISTA-TV, SIRT, the SART and ART sweeps, CGLS,
+Poisson-ML, the least-squares step, FBP and ASD-POCS."""
 
 from tomojax_torch.solvers.asd_pocs import (
     AsdPocsParams,
@@ -12,6 +12,7 @@ from tomojax_torch.solvers.asd_pocs import (
 from tomojax_torch.solvers.base import (
     System, bp_single_angle, make_system, row_norms_sq,
 )
+from tomojax_torch.solvers.cuda_art import art_sweep_sl
 from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
 from tomojax_torch.solvers.fista import (
     FistaStateSL,
@@ -23,6 +24,9 @@ from tomojax_torch.solvers.fista import (
 )
 from tomojax_torch.solvers.iterative import (
     POISSON_EPS,
+    art_sweep,
+    cgls_run,
+    cgls_run_sl,
     least_squares_step,
     make_sart_weights,
     poisson_ml_step,
@@ -31,6 +35,7 @@ from tomojax_torch.solvers.iterative import (
     sirt_sweep,
     sirt_sweep_sl,
 )
+from tomojax_torch.solvers.wbp import fbp, fbp_sl
 
 __all__ = [
     "System",
@@ -48,6 +53,12 @@ __all__ = [
     "sart_sweep_sl",
     "sirt_sweep",
     "sirt_sweep_sl",
+    "art_sweep",
+    "art_sweep_sl",
+    "cgls_run",
+    "cgls_run_sl",
+    "fbp",
+    "fbp_sl",
     "POISSON_EPS",
     "poisson_ml_step",
     "poisson_ml_step_sl",

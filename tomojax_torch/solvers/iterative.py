@@ -1,10 +1,11 @@
-"""SIRT, SART, Poisson-ML and least-squares iterations (counterpart of
-``tomojax/solvers/iterative.py``).
+"""SIRT, SART, ART, CGLS, Poisson-ML and least-squares iterations
+(counterpart of ``tomojax/solvers/iterative.py``).
 
 The work runs slice-last, x (N, N, Ns) and b (Na, Nt, Ns), in the
-``*_sl`` functions; ``sirt_sweep``, ``sart_sweep``, ``poisson_ml_step`` and
-``least_squares_step`` take the reference's layout, x (Ns, N, N) and b
-(Ns, Na, Nt), and convert at the boundary.
+``*_sl`` functions; ``sirt_sweep``, ``sart_sweep``, ``art_sweep``,
+``cgls_run``, ``poisson_ml_step`` and ``least_squares_step`` take the
+reference's layout, x (Ns, N, N) and b (Ns, Na, Nt), and convert at the
+boundary.
 
 * SIRT, variant 'astra' with the nonnegativity clamp: per iteration K1
   (epilogue off), the inv_row-weighted residual, then K2 with its fused
@@ -15,6 +16,11 @@ The work runs slice-last, x (N, N, Ns) and b (Na, Nt, Ns), in the
   0.1, cost = sum(Ax - b log(Ax + eps)); the update is K2's epilogue with
   y = x and the constant C = -lam/L, as the reference's fast path runs it.
 * SART: the ordered sweep K8 (``solvers/cuda_sart.py``).
+* ART: the ray-by-ray Kaczmarz sweep A1 (``solvers/cuda_art.py``).
+* CGLS: conjugate gradients on the normal equations with per-slice scalars
+  (sums over the image or sinogram plane, dims (0, 1)), on K1 and K2 with
+  their epilogues off. The guards on the denominators are ``where``s on
+  the device: no host read per iteration.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from tomojax_torch.projector.cuda_joseph import bp_sirt_sl, bp_sl, fp_sl
 from tomojax_torch.solvers.base import System, _safe_inv, bp_single_angle
+from tomojax_torch.solvers.cuda_art import art_sweep_sl
 from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
 from tomojax_torch.solvers.fista import from_sl, to_sl
 
@@ -127,6 +134,65 @@ def sart_sweep(x: torch.Tensor, b: torch.Tensor, sys: System,
     out = sart_sweep_sl(to_sl(x.to(torch.float32)), to_sl(b), sys.geom,
                         sys.inv_row, inv_col_a, beta, order)
     return from_sl(out)
+
+
+# ------------------------------------------------------------------ ART
+
+
+def art_sweep(x: torch.Tensor, b: torch.Tensor, sys: System, beta=1.0,
+              ray_order=None) -> torch.Tensor:
+    """One Kaczmarz sweep over single rays (A1) in the reference's layout:
+    x (Ns, N, N), b (Ns, Na, Nt). Rays are visited angle-major (ray a * Nt
+    + j) unless `ray_order` (an integer sequence of rays) permutes them,
+    as randART does. beta is a float."""
+    geom = sys.geom
+    dev = x.device
+    if ray_order is None:
+        ray_order = torch.arange(geom.nproj * geom.nray, dtype=torch.int32,
+                                 device=dev)
+    order = torch.as_tensor(ray_order, device=dev).to(torch.int32)
+    return from_sl(art_sweep_sl(to_sl(x.to(torch.float32)), to_sl(b), geom,
+                                float(beta), order.contiguous()))
+
+
+# ----------------------------------------------------------------- CGLS
+
+
+def cgls_run_sl(x: torch.Tensor, b: torch.Tensor, sys: System,
+                n_iter: int) -> torch.Tensor:
+    """`n_iter` CGLS steps from x, slice-last, with per-slice (Ns,) scalars:
+    each slice is its own least-squares problem. The CG state starts anew
+    each call, as the reference's does; positivity is left to the caller."""
+    geom = sys.geom
+
+    def dots(v):
+        return torch.sum(v * v, dim=(0, 1))
+
+    r = b - fp_sl(x, geom)
+    s = bp_sl(r, geom)
+    p = s
+    gamma = dots(s)
+    for _ in range(n_iter):
+        q = fp_sl(p, geom)
+        denom = dots(q)
+        alpha = torch.where(denom > 0,
+                            gamma / torch.clamp_min(denom, 1e-30), 0.0)
+        x = x + alpha * p
+        r = r - alpha * q
+        s = bp_sl(r, geom)
+        gamma_new = dots(s)
+        beta = torch.where(gamma > 0,
+                           gamma_new / torch.clamp_min(gamma, 1e-30), 0.0)
+        p = s + beta * p
+        gamma = gamma_new
+    return x
+
+
+def cgls_run(x: torch.Tensor, b: torch.Tensor, sys: System,
+             n_iter: int) -> torch.Tensor:
+    """`cgls_run_sl` in the reference's layout."""
+    return from_sl(cgls_run_sl(to_sl(x.to(torch.float32)), to_sl(b), sys,
+                               n_iter))
 
 
 # ----------------------------------------------------------- Poisson-ML
