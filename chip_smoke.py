@@ -128,6 +128,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       background-filled phantom
       (the iterative ones below x = 0's); then pytvlib.run over every
       alias at 64 slices;
+   h. streaming acquisition: the projections of phase 4a's problem as
+      files under build/, a TiltWatcher revealing 8 a poll and
+      DynamicReconstructor.run (10 iterations a round) with masked SIRT
+      and with the CS rounds (dd must fall over the last three rounds,
+      the rmse end below x = 0's); ms a SIRT sweep, a CS iteration and a
+      CS round (CUDA events), the set-up per new angle set and a poll of
+      8 files (host clock), the sweep with the angles in arrival order
+      against sorted, a profiler window of each round; both runs through an NCCL group of world size 1
+      (the unsharded dd at rtol 1e-5, K9c launched) and save_sharded /
+      load_sharded of its CUDA slab bit for bit; the schedule at 8 x
+      64^2 x 30 angles in 4 arrivals on the card against the CPU's plain
+      versions (SIRT: dd rtol 1e-5, the volume 1e-5 max|x|; CS, whose
+      trajectory amplifies last digits: every iteration from the plain
+      run's state, dd rtol 1e-3, dPOCS 1e-5); iterate after iterate_cs equal to a fresh reconstructor's
+      on the same x; K1 and K2 (both epilogues) at 1, 2 and 3 angles (N
+      64, Ns 8) against their plain versions with phase 3's bounds;
    every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
@@ -862,6 +878,47 @@ def projector_times(geom, ns: int, uni, card: str, tag: str) -> dict:
     return out
 
 
+def _check_projector_shape(n: int, ns: int, angles_deg, uni) -> None:
+    """K1 (both epilogues) and K2 (both) at one shape and angle set
+    against their plain versions: 1e-5 max|out|, ddsq rel 2e-5, and the
+    adjointness of the pair within 1e-5."""
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector import cuda_joseph as cj
+
+    na = len(angles_deg)
+    geom = Geometry.make(n, np.deg2rad(angles_deg))
+    x, b, ax_old = uni(n, n, ns), uni(na, n, ns), uni(na, n, ns)
+    inv_row, beta = uni(na, n, lo=0.1), torch.tensor(0.3, device=x.device)
+    got = cj.fp_resid_sl(x, geom, b, ax_old, inv_row, beta)
+    ref = cj.fp_resid_sl_ref(x, geom, b, ax_old, inv_row, beta)
+    errs = {"K1 resid": max(
+        max_err(got[0], ref[0]) / float(ref[0].abs().max()),
+        max_err(got[1], ref[1]) / float(ref[1].abs().max()))}
+    dd = abs(float(got[2]) - float(ref[2])) / float(ref[2])
+    ax = cj.fp_sl(x, geom)
+    errs["K1"] = max_err(ax, ref[0]) / float(ref[0].abs().max())
+    y_vol, inv_col = uni(n, n, ns), uni(n, n, hi=0.05)
+    ref = cj.bp_sirt_sl_ref(b, geom, y_vol, inv_col)
+    errs["K2 fused"] = max_err(cj.bp_sirt_sl(b, geom, y_vol, inv_col),
+                               ref) / float(ref.abs().max())
+    ref = cj.bp_sl_ref(b, geom)
+    got = cj.bp_sl(b, geom)
+    errs["K2"] = max_err(got, ref) / float(ref.abs().max())
+    lhs = float(torch.sum(ax.double() * b.double()))
+    rhs = float(torch.sum(x.double() * got.double()))
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    torch.cuda.synchronize()
+    where = f"N {n}, Na {na}, Ns {ns}" + (
+        f" (angles {list(angles_deg)} deg)" if na <= 3 else "")
+    require(all(e <= 1e-5 for e in errs.values()) and dd <= 2e-5
+            and adj <= 1e-5,
+            f"K1/K2 at {where}: {errs}, ddsq rel {dd:.3e}, adjointness "
+            f"{adj:.3e}")
+    print(f"K1/K2 at {where}: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()) + " <= 1e-5 max|out|; "
+        f"ddsq rel {dd:.2e} <= 2e-5; adjointness {adj:.2e} <= 1e-5")
+
+
 def _check_projector_tiles(uni, card: str) -> None:
     """K1 (both epilogues) and K2 (both) against their plain versions at
     ragged shapes (N not a multiple of the tiles, Ns % 4 != 0: the scalar
@@ -873,36 +930,7 @@ def _check_projector_tiles(uni, card: str) -> None:
     from tomojax_torch.projector.oracle import joseph_csr
 
     for n, na, ns in RAGGED_SHAPES:
-        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
-        x, b, ax_old = uni(n, n, ns), uni(na, n, ns), uni(na, n, ns)
-        inv_row, beta = uni(na, n, lo=0.1), torch.tensor(0.3, device=x.device)
-        got = cj.fp_resid_sl(x, geom, b, ax_old, inv_row, beta)
-        ref = cj.fp_resid_sl_ref(x, geom, b, ax_old, inv_row, beta)
-        errs = {"K1 resid": max(
-            max_err(got[0], ref[0]) / float(ref[0].abs().max()),
-            max_err(got[1], ref[1]) / float(ref[1].abs().max()))}
-        dd = abs(float(got[2]) - float(ref[2])) / float(ref[2])
-        ax = cj.fp_sl(x, geom)
-        errs["K1"] = max_err(ax, ref[0]) / float(ref[0].abs().max())
-        y_vol, inv_col = uni(n, n, ns), uni(n, n, hi=0.05)
-        ref = cj.bp_sirt_sl_ref(b, geom, y_vol, inv_col)
-        errs["K2 fused"] = max_err(cj.bp_sirt_sl(b, geom, y_vol, inv_col),
-                                   ref) / float(ref.abs().max())
-        ref = cj.bp_sl_ref(b, geom)
-        got = cj.bp_sl(b, geom)
-        errs["K2"] = max_err(got, ref) / float(ref.abs().max())
-        lhs = float(torch.sum(ax.double() * b.double()))
-        rhs = float(torch.sum(x.double() * got.double()))
-        adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
-        torch.cuda.synchronize()
-        require(all(e <= 1e-5 for e in errs.values()) and dd <= 2e-5
-                and adj <= 1e-5,
-                f"K1/K2 at ragged shape {(n, na, ns)}: {errs}, ddsq rel "
-                f"{dd:.3e}, adjointness {adj:.3e}")
-        print(f"K1/K2 at N {n}, Na {na}, Ns {ns}: " + ", ".join(
-            f"{k} {v:.2e}" for k, v in errs.items()) + " <= 1e-5 max|out|; "
-            f"ddsq rel {dd:.2e} <= 2e-5; adjointness {adj:.2e} <= 1e-5")
-
+        _check_projector_shape(n, ns, np.linspace(-76, 76, na), uni)
     n, na, ns = 512, 90, 128
     geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
     A, At, nnz = joseph_csr(geom, torch.device("cuda"))
@@ -1475,6 +1503,10 @@ FUSION_KERNELS = ("K1_fp", "K2_bp_sirt", "K2_bp", "K3_fgp_iter",
 VARIANT_KERNELS = ("K10_bp_ab", "K11_fgp_iter2", "K12_fgp_grad")
 SIM_KERNELS = ("K1_fp", "K2_bp", "K2_bp_sirt", "A1_art_sweep",
                "K8_sart_sweep")
+# the streaming runs: K1/K2 fused every sweep, unfused for each new angle
+# set's System; the CS rounds also K7 and the step (K9c with a group)
+STREAM_KERNELS = ("K1_fp_resid", "K1_fp", "K2_bp_sirt", "K2_bp")
+STREAM_CS_KERNELS = STREAM_KERNELS + ("K7_tv_grad", "tv_step")
 
 
 def _reset(kernels: dict) -> None:
@@ -2128,6 +2160,307 @@ def phase_sim_path(card: str, kernels: dict) -> dict:
           f"events, rmse): " + "; ".join(
               f"{a} {ms:.3f} / {r:.6f}" for a, (ms, r) in aliases.items()))
     return counts
+
+
+STREAM_SHAPE = (256, 256, 90)  # (Ns, N, Na): phase 4a's problem
+STREAM_PER_POLL, STREAM_ITERS, STREAM_BUCKET = 8, 10, 8
+STREAM_SMALL = (8, 64, 30, 4)  # (Ns, N, Na, arrivals): kernels vs plain
+FEW_ANGLES = ((0.0,), (0.0, 45.0), (0.0, 7.5, -7.5))  # N 64, Ns 8
+
+
+class _Reveal:
+    """A TiltWatcher list_fn revealing `per_poll` more of `paths` (in
+    acquisition order) at each call."""
+
+    def __init__(self, paths, per_poll: int):
+        self.paths, self.per_poll, self.shown = paths, per_poll, 0
+
+    def __call__(self):
+        self.shown = min(self.shown + self.per_poll, len(self.paths))
+        return self.paths[:self.shown]
+
+
+def _stream_files(ns: int, n: int, angles):
+    """The nanocube phantom (seed 0) on the card, projected with K1, and
+    its projections written as proj_<angle>.npy (Ns, Nt) into a fresh
+    directory under build/. Returns (phantom, paths in acquisition
+    order, the projections (Ns, Na, Nt) on the host)."""
+    import shutil
+
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+
+    vol = torch.from_numpy(nanocube_phantom(ns, n)).to("cuda")
+    b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
+    b = b.cpu().numpy()  # (Ns, Na, Nt)
+    d = ROOT / "build" / f"chip_smoke_stream_{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    paths = []
+    for i, a in enumerate(angles):
+        paths.append(str(d / f"proj_{float(a)!r}.npy"))
+        np.save(paths[-1], np.ascontiguousarray(b[:, i, :]))
+    return vol, paths, b
+
+
+def _stream_schedule(device, alg: str, b, angles, arrivals: int,
+                     iters: int, group=None):
+    """The streaming schedule without files: the angles in `arrivals`
+    batches, `iters` iterations of `alg` after each."""
+    from tomojax_torch.stream import DynamicReconstructor
+
+    rec = DynamicReconstructor(b.shape[2], len(angles), STREAM_BUCKET,
+                               alg=alg, device=device, group=group)
+    edges = np.linspace(0, len(angles), arrivals + 1).round().astype(int)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        rec.add_projections([(float(angles[i]), b[:, i])
+                             for i in range(lo, hi)])
+        (rec.iterate_cs if alg == "cs" else rec.iterate)(iters)
+    return rec
+
+
+def _check_stream_small(card: str) -> None:
+    """The streaming schedule at 8 x 64^2 x 30 angles (4 arrivals, 10
+    iterations each) on the card and on the CPU (plain versions).
+
+    SIRT: the dd histories at rtol 1e-5, the volume within 1e-5 max|x|.
+    CS: the rounds' adaptive TV steps amplify last-digit differences (a
+    one-ulp change of the data moves the plain run's dd history by up to
+    12 % here and changes its decay iterations), so the card takes every
+    iteration from the plain run's state (x and dPOCS): each dd at rtol
+    1e-3 (the ASD-POCS bound), each dPOCS after the decision at rtol 1e-5
+    (the same decay iterations); the free-running trajectories' distance
+    is printed, not held. Then the defect guard: after iterate_cs,
+    iterate equals a fresh reconstructor's given the same x (which must
+    seed its residual), bit for bit."""
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+    from tomojax_torch.stream import DynamicReconstructor
+
+    ns, n, na, arrivals = STREAM_SMALL
+    angles = np.linspace(-76, 76, na)
+    vol = torch.from_numpy(nanocube_phantom(ns, n))
+    b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
+    b = b.numpy()
+
+    def rel(a, b_):
+        a, b_ = np.asarray(a), np.asarray(b_)
+        return float(np.max(np.abs(a - b_) / np.abs(b_)))
+
+    out = []
+    for alg in ("sirt", "cs"):
+        card_rec, cpu_rec = (_stream_schedule(dev, alg, b, angles, arrivals,
+                                              STREAM_ITERS)
+                             for dev in ("cuda", "cpu"))
+        dev_dd = rel(card_rec.dd_history, cpu_rec.dd_history)
+        x_k, x_p = card_rec.get_recon(), cpu_rec.get_recon()
+        dev_x = float(np.abs(x_k - x_p).max() / np.abs(x_p).max())
+        if alg == "sirt":
+            require(dev_dd <= 1e-5 and dev_x <= 1e-5,
+                    f"streaming SIRT at {ns} x {n}^2 x {na}: dd rel "
+                    f"{dev_dd:.3e}, x {dev_x:.3e} max|x| (bounds 1e-5)")
+            out.append(f"SIRT dd rel {dev_dd:.2e}, x {dev_x:.2e} max|x| "
+                       f"(<= 1e-5)")
+        else:
+            out.append(f"CS free-running dd rel {dev_dd:.2e}, x "
+                       f"{dev_x:.2e} max|x| (not held)")
+    card_rec, cpu_rec = (DynamicReconstructor(n, na, STREAM_BUCKET,
+                                              alg="cs", device=dev)
+                         for dev in ("cuda", "cpu"))
+    edges = np.linspace(0, na, arrivals + 1).round().astype(int)
+    dd_k, dd_p, dpocs_k, dpocs_p = [], [], [], []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        new = [(float(angles[i]), b[:, i]) for i in range(lo, hi)]
+        card_rec.add_projections(new)
+        cpu_rec.add_projections(new)
+        for _ in range(STREAM_ITERS):
+            card_rec.x = cpu_rec.x
+            card_rec._dpocs = cpu_rec._dpocs
+            dd_k.append(card_rec.iterate_cs(1))
+            dd_p.append(cpu_rec.iterate_cs(1))
+            dpocs_k.append(card_rec._dpocs)
+            dpocs_p.append(cpu_rec._dpocs)
+    dev_dd, dev_dpocs = rel(dd_k, dd_p), rel(dpocs_k, dpocs_p)
+    require(dev_dd <= 1e-3 and dev_dpocs <= 1e-5,
+            f"streaming CS iterations from the plain run's states: dd rel "
+            f"{dev_dd:.3e} (bound 1e-3), dPOCS rel {dev_dpocs:.3e} (1e-5)")
+    out.append(f"CS {len(dd_k)} iterations from the plain run's states: dd "
+               f"rel {dev_dd:.2e} <= 1e-3, dPOCS rel {dev_dpocs:.2e} <= "
+               f"1e-5")
+    # the defect guard, on the card with the plain versions forbidden
+    with plain_versions_forbidden():
+        rec = _stream_schedule("cuda", "cs", b, angles, arrivals, 3)
+        fresh = DynamicReconstructor(n, na, STREAM_BUCKET, device="cuda")
+        fresh.add_projections(list(zip(rec.angles, rec.projections)))
+        fresh.x = rec.x.clone()
+        dd_rec, dd_fresh = rec.iterate(5), fresh.iterate(5)
+    require(dd_rec == dd_fresh and torch.equal(rec.x, fresh.x),
+            f"iterate after iterate_cs ({dd_rec}) differs from a fresh "
+            f"reconstructor's on the same x ({dd_fresh})")
+    print(f"streaming at {ns} x {n}^2 x {na} in {arrivals} arrivals, card "
+          f"vs plain: " + "; ".join(out) + f"; iterate after iterate_cs "
+          f"equals a fresh reconstructor's (dd {dd_rec:.6f}) [{card}]")
+
+
+def _check_few_angles(card: str) -> None:
+    """K1 (both epilogues) and K2 (both) at 1, 2 and 3 angles, N 64, Ns
+    8, against their plain versions with phase 3's bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def uni(*shape, lo=0.0, hi=1.0):
+        return (torch.rand(shape, generator=gen, device="cuda") * (hi - lo)
+                + lo)
+
+    for angles in FEW_ANGLES:
+        _check_projector_shape(64, 8, angles, uni)
+
+
+def phase_stream_path(card: str, kernels: dict) -> dict:
+    """Phase 4h: streaming acquisition at phase 4a's 256 x 256^2 x 90
+    (nanocube seed 0, +-76 deg): the projections as files under build/, a
+    TiltWatcher revealing 8 new files a poll (the acquisition order; each
+    poll yields them sorted by name), DynamicReconstructor.run with
+    iters_per_round 10, once masked SIRT and once the CS rounds, each with
+    the launch counts set to 0 before and read after and every plain
+    version raising; dd must fall over the last three rounds and the rmse
+    against the phantom end below x = 0's. Then the times (CUDA events;
+    set-up and polls by the host clock after a synchronize), the sorted
+    against the arrival order, a profiler window of a SIRT and of a CS
+    round, the same runs through an NCCL group of
+    world size 1 (the unsharded dd at rtol 1e-5; K9c must launch; the
+    slab saved and loaded bit for bit), and the checks at small size."""
+    import torch.distributed as dist
+
+    from tomojax_torch import TomoTorch, ops
+    from tomojax_torch import io as tio
+    from tomojax_torch.dist import init_distributed
+    from tomojax_torch.stream import DynamicReconstructor, TiltWatcher
+
+    ns, n, na = STREAM_SHAPE
+    acq = np.linspace(-76, 76, na)
+    vol, paths, b = _stream_files(ns, n, acq)
+    zero_rmse = float(ops.rmse(torch.zeros_like(vol), vol))
+
+    def run(alg, group=None):
+        watcher = TiltWatcher(str(Path(paths[0]).parent), preprocess=False,
+                              list_fn=_Reveal(paths, STREAM_PER_POLL))
+        rec = DynamicReconstructor(
+            nray=n, max_angles=na, angle_bucket=STREAM_BUCKET, alg=alg,
+            device=None if group is None else None, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.run(watcher, iters_per_round=STREAM_ITERS, expected_angles=na)
+        torch.cuda.synchronize()
+        return rec, time.perf_counter() - t0
+
+    recs, walls, counts = {}, {}, {}
+    for alg, required in (("sirt", STREAM_KERNELS),
+                          ("cs", STREAM_CS_KERNELS)):
+        _reset(kernels)
+        with plain_versions_forbidden():
+            recs[alg], walls[alg] = run(alg)
+        counts[alg] = _read(kernels, f"streaming {alg} path", required)
+        dd = recs[alg].dd_history
+        rmse = float(ops.rmse(recs[alg].x, vol))
+        require(len(recs[alg].angles) == na and bool(np.isfinite(dd).all())
+                and dd[-3] > dd[-2] > dd[-1],
+                f"streaming {alg}: dd does not fall over the last three "
+                f"rounds: {dd}")
+        require(rmse < zero_rmse, f"streaming {alg}: rmse {rmse:.6f} not "
+                                  f"below x = 0's {zero_rmse:.6f}")
+        print(f"streaming {alg} path {ns}x{n}^2x{na} +-76 deg, "
+              f"{STREAM_PER_POLL} files a poll, {STREAM_ITERS} iterations "
+              f"a round: run {walls[alg]:.3f} s wall, {len(dd)} rounds, dd "
+              f"{dd[0]:.2f} -> {dd[-1]:.2f}, rmse {rmse:.6f} (x = 0: "
+              f"{zero_rmse:.6f}) [{card}]")
+    sirt, cs = recs["sirt"], recs["cs"]
+    with plain_versions_forbidden():
+        _, sirt_ms = _events_ms(lambda: sirt.iterate(STREAM_ITERS))
+        _, cs_ms = _events_ms(lambda: cs.iterate_cs(STREAM_ITERS))
+        prof_sirt = _profiled(lambda: sirt.iterate(STREAM_ITERS))
+        prof_cs = _profiled(lambda: cs.iterate_cs(STREAM_ITERS))
+        tomo = TomoTorch(acq, b.transpose(0, 2, 1))  # phase 4g's sirt
+        tomo.sirt(1)
+        _, tomo_ms = _events_ms(lambda: tomo.sirt(STREAM_ITERS))
+        # the 90 angles in arrival order against sorted, in turns
+        arrival = list(zip(sirt.angles, sirt.projections))
+        order = {"arrival": arrival, "sorted": sorted(arrival,
+                                                      key=lambda p: p[0])}
+        times = {"arrival": [], "sorted": []}
+        for key in ("arrival", "sorted", "sorted", "arrival"):
+            rec = DynamicReconstructor(n, na, STREAM_BUCKET)
+            rec.add_projections(order[key])
+            rec.iterate(1)
+            times[key].append(_events_ms(
+                lambda: rec.iterate(STREAM_ITERS))[1] / STREAM_ITERS)
+        # set-up per new angle set and the host's poll of 8 files
+        rec = DynamicReconstructor(n, na, STREAM_BUCKET)
+        watcher = TiltWatcher(str(Path(paths[0]).parent), preprocess=False,
+                              list_fn=_Reveal(paths, STREAM_PER_POLL))
+        setup_ms, poll_ms = [], []
+        while len(rec.angles) < na:
+            t0 = time.perf_counter()
+            new = watcher.poll()
+            poll_ms.append(1e3 * (time.perf_counter() - t0))
+            rec.add_projections(new)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec._system()
+            torch.cuda.synchronize()
+            setup_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"  masked SIRT {sirt_ms / STREAM_ITERS:.4f} ms a sweep at {na} "
+          f"angles over {STREAM_ITERS} sweeps (CUDA events, one dd read; "
+          f"TomoTorch.sirt {tomo_ms / STREAM_ITERS:.4f} with a data "
+          f"distance a sweep, as phase 4g runs it); CS {cs_ms / STREAM_ITERS:.4f} ms an "
+          f"iteration, {cs_ms:.3f} ms a round of {STREAM_ITERS} (one host "
+          f"read an iteration); arrival order "
+          f"{statistics.mean(times['arrival']):.4f} ms a sweep, sorted "
+          f"{statistics.mean(times['sorted']):.4f} (each the mean of 2, in "
+          f"turns); set-up per new angle set {statistics.mean(setup_ms):.3f}"
+          f" ms mean, {max(setup_ms):.3f} max over {len(setup_ms)} "
+          f"(System and the copy of 8 projections); a poll of "
+          f"{STREAM_PER_POLL} files {statistics.mean(poll_ms):.3f} ms host "
+          f"[{card}]")
+    print(f"  profile of a SIRT round ({STREAM_ITERS} sweeps): "
+          + _profile_summary(prof_sirt, STREAM_ITERS))
+    print(f"  profile of a CS round ({STREAM_ITERS} iterations): "
+          + _profile_summary(prof_cs, STREAM_ITERS))
+    # the same runs through an NCCL group of world size 1
+    store = ROOT / "build" / f"chip_smoke_stream_store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    group = init_distributed(f"file://{store}", 1, 0, device="cuda")
+    try:
+        sh = {}
+        for alg, required in (("sirt", STREAM_KERNELS),
+                              ("cs", STREAM_CS_KERNELS[:-2]
+                               + ("K9c_tv_grad_halo", "tv_step"))):
+            _reset(kernels)
+            with plain_versions_forbidden():
+                sh[alg], _ = run(alg, group)
+            counts["sharded " + alg] = _read(
+                kernels, f"streaming {alg} path (NCCL, world size 1)",
+                required)
+            want = np.asarray(recs[alg].dd_history[:len(sh[alg].dd_history)])
+            dev = float(np.max(np.abs(np.asarray(sh[alg].dd_history) - want)
+                               / want))
+            require(dev <= 1e-5, f"sharded streaming {alg}: dd rel "
+                                 f"{dev:.3e} against unsharded (rtol 1e-5)")
+            print(f"  sharded streaming {alg} (NCCL, world size 1): dd rel "
+                  f"{dev:.2e} <= 1e-5 against the unsharded run")
+        d = ROOT / "build" / f"chip_smoke_shards_{os.getpid()}"
+        x = sh["sirt"].x
+        tio.save_sharded(str(d), {"x": x}, group)
+        back = tio.load_sharded(str(d), group)["x"]
+        require(back.device == x.device and torch.equal(back, x),
+                "save_sharded / load_sharded of a CUDA slab is not exact")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    print(f"  save_sharded / load_sharded of the {tuple(x.shape)} CUDA slab: "
+          f"bit for bit")
+    _check_stream_small(card)
+    _check_few_angles(card)
+    return {name: sum(c[name] for c in counts.values()) for name in kernels}
 
 
 # The experiment kernels, one row per TPU kernel of scripts/exp_*.py: (row,
@@ -2878,7 +3211,8 @@ def main() -> int:
                  phase_sharded_path(card, kernels),
                  phase_fusion_path(card, kernels),
                  phase_variants(card, kernels),
-                 phase_sim_path(card, kernels)]
+                 phase_sim_path(card, kernels),
+                 phase_stream_path(card, kernels)]
         exp_rows = phase_experiments(card)
         phase_golden(card)
         phase_golden_asd(card)
@@ -2887,7 +3221,8 @@ def main() -> int:
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: the kernel's count over the main paths' runs (phase 4a-e, g),
+    # launches: the kernel's count over the main paths' runs (phase 4a-e,
+    # g, h),
     # an experiment kernel's over its driver's run (phase 4f)
     report = [{"name": name, "route": "cuda", "source": src,
                "replaces": rep,

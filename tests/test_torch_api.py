@@ -85,3 +85,16 @@ def test_device_and_group_together_raise():
     with pytest.raises(ValueError, match="device or a group"):
         TomoTorch(ANGLES, device="cpu", group=group)
     assert TomoTorch(ANGLES, group=group).device == torch.device("cpu")
+
+
+def test_fista_fused_runs_the_same_loop(monkeypatch):
+    """fused=True (the reference's one-program scan) runs the slice-last
+    loop of fused=False: the same cost and volume, bit for bit."""
+    monkeypatch.setattr(tomojax_torch.config, "fgp_dual_dtype",
+                        torch.float32)
+    ts = _series(2)
+    a, b = (TomoTorch(ANGLES, ts, device="cpu").fista(
+        Niter=3, lambda_param=0.05, nTViter=3, fused=fused)
+        for fused in (False, True))
+    np.testing.assert_array_equal(a.cost, b.cost)
+    np.testing.assert_array_equal(a.get_recon(), b.get_recon())

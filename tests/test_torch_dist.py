@@ -48,6 +48,8 @@ from tomojax.tv.pallas_tvgd_sharded import tv_gd_sharded  # noqa: E402
 import tomojax_torch.config  # noqa: E402
 import test_torch_dist_ranks as rank_body  # noqa: E402
 from tomojax_torch import TomoTorch  # noqa: E402
+from tomojax_torch import io as tio  # noqa: E402
+from tomojax_torch.stream import DynamicReconstructor  # noqa: E402
 from tomojax_torch.tv import tv_fgp  # noqa: E402
 
 WORLDS = (1, 2, 4)
@@ -58,6 +60,11 @@ FGP_ITERS, FGP_LAM, GD_NG, GD_DPOCS = 5, 0.2, 5, 0.07
 FISTA_LAM, FISTA_NTV, ASD_NG = 0.1, 4, 4
 TOMO_NS = 6  # not a multiple of 4: padded to 8, as TomoTPU pads it
 ANGLES_DEG = np.linspace(-70, 70, NA)
+KL_NS, KL_LAM = 5, 0.5  # 5 slices over 2 ranks: one pad slice
+# the streaming reconstructor (2 ranks): 16 angles in a dose-symmetric order
+STREAM_ANGLES = np.asarray([0.0] + [s * k * 7.5 for k in range(1, 9)
+                                     for s in (1, -1)][:15])
+SHARD_ARRAY = np.arange(4 * 2 * 3, dtype=np.float32).reshape(4, 2, 3)
 
 
 def _sl(a):
@@ -76,7 +83,15 @@ def _problem() -> dict:
     ph = np.stack([shepp_logan(N) * (0.5 + i / NS) for i in range(NS)])
     b = np.asarray(j_fp(jnp.asarray(ph, jnp.float32), jgeom, mode="gather"))
     series = np.transpose(b[:TOMO_NS], (0, 2, 1))
+    sgeom = JGeometry.make(N, np.deg2rad(STREAM_ANGLES))
+    sb = np.asarray(j_fp(jnp.asarray(ph[:4], jnp.float32), sgeom,
+                         mode="gather"))
     return {
+        "stream_angles": STREAM_ANGLES, "stream_b3": sb[:3],
+        "stream_b4": sb, "poll_angles": np.asarray([-12.5, 3.0, 30.0]),
+        "poll_images": rng.random((3, 4, 5)).astype(np.float32),
+        "shard_array": SHARD_ARRAY, "kl_lam": KL_LAM,
+        "kl_series": np.ascontiguousarray(series[:KL_NS], np.float32),
         "tv_x": tv_x, "tv_x_sl": _sl(tv_x), "fgp_iters": FGP_ITERS,
         "fgp_lam": FGP_LAM, "gd_ng": GD_NG, "gd_dpocs": GD_DPOCS,
         "angles_rad": np.deg2rad(ANGLES_DEG),
@@ -100,7 +115,9 @@ def ranks(problem, tmp_path_factory):
     the test past JOIN_S from the start) and loads rank 0's results."""
     tmp = tmp_path_factory.mktemp("torch_dist")
     problem_file = tmp / "problem.npz"
-    np.savez(problem_file, **problem)
+    w1 = tmp / "shards_w1"  # a world of one rank saves, two ranks load
+    tio.save_sharded(str(w1), {"a": torch.from_numpy(SHARD_ARRAY)})
+    np.savez(problem_file, shard_w1_dir=str(w1), **problem)
     start = time.monotonic()
     ctxs = {k: mp.start_processes(
         rank_body.run,
@@ -307,3 +324,96 @@ def test_world_size_one_group_matches_unsharded_tomotorch(problem, ranks,
     np.testing.assert_allclose(got["tomo_asd_dd"], ref.dd_vec, rtol=1e-5)
     np.testing.assert_allclose(got["tomo_asd_recon"], ref.get_recon(),
                                atol=1e-5)
+
+
+def _stream_rounds(b, alg):
+    """The rank body's schedule (`_stream`), unsharded on the CPU."""
+    rec = DynamicReconstructor(N, len(STREAM_ANGLES), 8, alg=alg,
+                               device="cpu")
+    for lo, hi in ((0, 8), (8, len(STREAM_ANGLES))):
+        rec.add_projections([(float(STREAM_ANGLES[i]), b[:, i])
+                             for i in range(lo, hi)])
+        (rec.iterate_cs if alg == "cs" else rec.iterate)(4)
+    return rec
+
+
+def test_stream_with_group_matches_unsharded(problem, ranks):
+    """Two ranks against the unsharded port: masked SIRT at Ns 3 (one pad
+    slice) and the CS rounds at Ns 4 within rtol 2e-4 (the bound of
+    tests/test_stream.py for the sharded reconstructor); at Ns 3 the CS rounds
+    keep the pad slice exactly 0 (the periodic TV wrap then meets it, so
+    their values are not compared)."""
+    got = ranks(2)
+    sirt = _stream_rounds(problem["stream_b3"], "sirt")
+    np.testing.assert_allclose(got["stream_sirt_dd"], sirt.dd_history,
+                               rtol=2e-4)
+    np.testing.assert_allclose(got["stream_sirt_x"], sirt.get_recon(),
+                               rtol=2e-4, atol=2e-5)
+    assert got["stream_sirt_x"].shape == (3, N, N)
+    cs = _stream_rounds(problem["stream_b4"], "cs")
+    np.testing.assert_allclose(got["stream_cs4_dd"], cs.dd_history,
+                               rtol=2e-4)
+    np.testing.assert_allclose(got["stream_cs4_x"], cs.get_recon(),
+                               atol=2e-3)
+    padded = got["stream_cs3_padded"]
+    assert padded.shape == (4, N, N)
+    assert np.all(padded[3] == 0.0) and np.any(padded[:3] != 0.0)
+    assert np.all(np.isfinite(got["stream_cs3_dd"]))
+
+
+def test_stream_sharded_checkpoint_resumes_in_place(ranks):
+    got = ranks(2)
+    np.testing.assert_array_equal(got["stream_resumed_x"],
+                                  got["stream_sirt_x"])
+    np.testing.assert_array_equal(got["stream_resumed_dd"],
+                                  np.float32(got["stream_sirt_dd"]))
+    assert int(got["stream_resume_raised"]) == 1  # without a group
+
+
+def test_poll_multihost_gives_every_rank_rank_zeros_list(problem, ranks):
+    got = ranks(2)
+    for r in range(2):
+        np.testing.assert_array_equal(got["poll_angles"][r],
+                                      problem["poll_angles"])
+        np.testing.assert_array_equal(got["poll_images"][r],
+                                      problem["poll_images"])
+    np.testing.assert_array_equal(got["poll_second"], [0, 0])
+
+
+def test_save_load_sharded_across_world_sizes(ranks, tmp_path):
+    got = ranks(2)
+    for key in ("shard_same", "shard_whole", "shard_w1"):
+        np.testing.assert_array_equal(got[key], SHARD_ARRAY, err_msg=key)
+    np.testing.assert_array_equal(got["shard_len6"][:4], SHARD_ARRAY)
+    assert got["shard_len6"].shape == (6, 2, 3)
+    assert np.all(got["shard_len6"][4:] == 0.0)
+    np.testing.assert_array_equal(got["shard_w1_cut"], SHARD_ARRAY[:2])
+    assert int(got["shard_len3_raised"]) == 1
+    # the 2-rank save, loaded here whole and as a world of one
+    d = str(tmp_path / "one")
+    tio.save_sharded(d, {"a": torch.from_numpy(SHARD_ARRAY), "b":
+                         torch.ones(3, 2, dtype=torch.float64)})
+    back = tio.load_sharded(d, length=5)
+    assert back["b"].dtype == torch.float64 and back["b"].shape == (5, 2)
+    assert torch.equal(back["b"][3:], torch.zeros(2, 2, dtype=torch.float64))
+    np.testing.assert_array_equal(back["a"][:4], SHARD_ARRAY)
+
+
+def test_kl_divergence_with_group(problem, ranks):
+    """Nslice 5 over 2 ranks (one pad slice): the cost and the volume
+    against the unsharded port and TomoTPU at test_torch_sirt.py's
+    bounds (cost rtol 1e-4; the volume at rtol 1e-4 and 1e-4 of its
+    maximum); the pad slice stays exactly 0."""
+    got = ranks(2)
+    series = problem["kl_series"]
+    one = TomoTorch(ANGLES_DEG, series, device="cpu")
+    one.kl_divergence(Niter=3, lambda_param=KL_LAM)
+    ref = TomoTPU(ANGLES_DEG, series).kl_divergence(Niter=3,
+                                                    lambda_param=KL_LAM)
+    for want_cost, want_x in ((one.cost, one.get_recon()),
+                              (ref.cost, ref.get_recon())):
+        np.testing.assert_allclose(got["kl_cost"], want_cost, rtol=1e-4)
+        np.testing.assert_allclose(got["kl_recon"], want_x, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want_x).max())
+    assert got["kl_padded"].shape == (6, N, N)
+    assert np.all(got["kl_padded"][5] == 0.0)

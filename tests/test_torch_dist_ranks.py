@@ -8,6 +8,8 @@ only: the parent computes the JAX side, so no rank imports jax.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -22,7 +24,9 @@ def run(rank: int, world: int, init_file: str, problem_file: str,
                              device="cpu")
     try:
         with np.load(problem_file) as problem:
-            out = _compute(group, dict(problem))
+            out = _compute(group, dict(problem),
+                           os.path.join(os.path.dirname(out_file),
+                                        f"work{world}"))
         if rank == 0:
             np.savez(out_file, **out)
     finally:
@@ -129,7 +133,104 @@ def _tomo(group, p: dict) -> dict:
     return out
 
 
-def _compute(group, p: dict) -> dict:
+def _stream(group, p: dict, work: str) -> dict:
+    """The streaming reconstructor with a group: SIRT rounds at Ns 3 (padded to
+    4) with a sharded checkpoint after each, resumed with and without the
+    group; CS rounds at Ns 4 and 3 (the padded slab gathered whole)."""
+    from tomojax_torch.dist import gather_slabs
+    from tomojax_torch.stream import DynamicReconstructor
+
+    ang, n = p["stream_angles"], p["stream_b3"].shape[2]
+
+    def rounds(b, alg, ckpt=None):
+        rec = DynamicReconstructor(n, len(ang), 8, alg=alg, group=group,
+                                   checkpoint_path=ckpt)
+        for lo, hi in ((0, 8), (8, len(ang))):
+            rec.add_projections([(float(ang[i]), b[:, i])
+                                 for i in range(lo, hi)])
+            (rec.iterate_cs if alg == "cs" else rec.iterate)(4)
+            rec.checkpoint()
+        return rec
+
+    ckpt = os.path.join(work, "sirt.h5")
+    sirt = rounds(p["stream_b3"], "sirt", ckpt)
+    out = {"stream_sirt_dd": sirt.dd_history,
+           "stream_sirt_x": sirt.get_recon()}
+    back = DynamicReconstructor(n, len(ang), group=group,
+                                checkpoint_path=ckpt)
+    back.resume()
+    out.update(stream_resumed_x=back.get_recon(),
+               stream_resumed_dd=back.dd_history)
+    try:
+        DynamicReconstructor(n, len(ang), device="cpu",
+                             checkpoint_path=ckpt).resume()
+        out["stream_resume_raised"] = 0
+    except ValueError:
+        out["stream_resume_raised"] = 1
+    cs4 = rounds(p["stream_b4"], "cs")
+    out.update(stream_cs4_dd=cs4.dd_history, stream_cs4_x=cs4.get_recon())
+    cs3 = rounds(p["stream_b3"], "cs")
+    out.update(stream_cs3_dd=cs3.dd_history,
+               stream_cs3_padded=gather_slabs(cs3.x, group, 0).numpy())
+    return out
+
+
+def _poll(group, p: dict, work: str) -> dict:
+    """poll_multihost twice: rank 0 watches a directory of three files
+    (the other ranks an empty one); every rank's lists gathered."""
+    from tomojax_torch.stream import TiltWatcher, poll_multihost
+
+    src = os.path.join(work, f"poll{group.rank}")
+    os.makedirs(src, exist_ok=True)
+    if group.rank == 0:
+        for a, img in zip(p["poll_angles"], p["poll_images"]):
+            np.save(os.path.join(src, f"proj_{a}.npy"), img)
+    watcher = TiltWatcher(src, preprocess=False)
+    first, second = (poll_multihost(watcher, group) for _ in range(2))
+    angles = torch.tensor([[a for a, _ in first]], dtype=torch.float64)
+    images = torch.from_numpy(np.stack([im for _, im in first]))[None]
+    return {"poll_angles": _gather(angles, group, 0),
+            "poll_images": _gather(images, group, 0),
+            "poll_second": _gather(torch.tensor([len(second)]), group, 0)}
+
+
+def _sharded_io(group, p: dict, work: str) -> dict:
+    """save_sharded of one slab a rank, loaded by this group, without one
+    and with another length; the parent's world-of-one save loaded in
+    slabs, whole and cut."""
+    from tomojax_torch import io as tio
+    from tomojax_torch.dist import shard_global
+
+    whole = torch.from_numpy(p["shard_array"])
+    d = os.path.join(work, "shards")
+    tio.save_sharded(d, {"a": shard_global(whole, group)}, group)
+    out = {"shard_same": _gather(tio.load_sharded(d, group)["a"], group, 0),
+           "shard_whole": tio.load_sharded(d)["a"].numpy(),
+           "shard_len6": _gather(tio.load_sharded(d, group, 6)["a"], group,
+                                 0)}
+    w1 = str(p["shard_w1_dir"])
+    out["shard_w1"] = _gather(tio.load_sharded(w1, group)["a"], group, 0)
+    out["shard_w1_cut"] = _gather(tio.load_sharded(w1, group, 2)["a"],
+                                  group, 0)
+    try:
+        tio.load_sharded(w1, group, 3)
+        out["shard_len3_raised"] = 0
+    except ValueError:
+        out["shard_len3_raised"] = 1
+    return out
+
+
+def _kl(group, p: dict) -> dict:
+    from tomojax_torch import TomoTorch
+    from tomojax_torch.dist import gather_slabs
+
+    tomo = TomoTorch(p["tomo_angles_deg"], p["kl_series"], group=group)
+    tomo.kl_divergence(Niter=3, lambda_param=float(p["kl_lam"]))
+    return {"kl_cost": tomo.cost, "kl_recon": tomo.get_recon(),
+            "kl_padded": gather_slabs(tomo.x, group, 0).numpy()}
+
+
+def _compute(group, p: dict, work: str) -> dict:
     from tomojax_torch import config
 
     config.fgp_dual_dtype = torch.float32  # the solvers' FGP, as the parent
@@ -137,4 +238,10 @@ def _compute(group, p: dict) -> dict:
     out.update(_tv(group, p))
     out.update(_solvers(group, p))
     out.update(_tomo(group, p))
+    if group.size == 2:  # the streaming cases run in the 2-rank spawn only
+        os.makedirs(work, exist_ok=True)
+        out.update(_stream(group, p, work))
+        out.update(_poll(group, p, work))
+        out.update(_sharded_io(group, p, work))
+        out.update(_kl(group, p))
     return out

@@ -20,8 +20,9 @@ from tomojax import ops as j_ops  # noqa: E402
 from tomojax.geometry import Geometry as JGeometry  # noqa: E402
 from tomojax.projector.joseph import fp as j_fp  # noqa: E402
 from tomojax.solvers import (  # noqa: E402
-    fista_init_sl as j_init, fista_run_sl as j_run, make_system as j_sys,
-    to_sl as j_to_sl,
+    fista_init as j_init_sf, fista_init_sl as j_init,
+    fista_run as j_run_sf, fista_run_sl as j_run, fista_step as j_step_sf,
+    make_system as j_sys, to_sl as j_to_sl,
 )
 
 import tomojax_torch.config  # noqa: E402
@@ -32,7 +33,8 @@ from tomojax_torch.convert import (  # noqa: E402
 from tomojax_torch.geometry import Geometry  # noqa: E402
 from tomojax_torch.sim import create_projections, shepp_logan  # noqa: E402
 from tomojax_torch.solvers import (  # noqa: E402
-    fista_init_sl, fista_run_sl, fista_step_sl, from_sl, make_system,
+    fista_init, fista_init_sl, fista_run, fista_run_sl, fista_step,
+    fista_step_sl, from_sl, make_system,
 )
 from test_golden_traces import (  # noqa: E402
     GOLDEN_FISTA_DD, GOLDEN_FISTA_RMSE,
@@ -95,6 +97,55 @@ def test_fista_run_sl_matches_reference(f32_duals, momentum, compat):
     np.testing.assert_allclose(st.x.numpy(), np.asarray(jst.x), **X_TOL)
     np.testing.assert_allclose(st.yk.numpy(), np.asarray(jst.yk), **X_TOL)
     np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=2e-4)
+
+
+@pytest.mark.parametrize("momentum,compat", [(True, "correct"),
+                                             (False, "correct"),
+                                             (True, "reference"),
+                                             (False, "reference")])
+def test_slice_first_fista_matches_reference(f32_duals, momentum, compat):
+    """fista_init / fista_run (3 iterations), then one fista_step, in the
+    reference's layout and state, against tomojax.solvers' slice-first
+    functions (its XLA path): every field at X_TOL, the atol scaled by
+    the field's largest magnitude where that exceeds 1 (the projections
+    ax, ay); the metrics at rtol 2e-4."""
+    ns, n = 6, 32
+    jsys, sysd, b_sl = _problem(ns, n)
+    b = np.ascontiguousarray(b_sl.transpose(2, 0, 1))  # (Ns, Na, Nt)
+    x0 = np.zeros((ns, n, n), np.float32)
+    jst = j_init_sf(jnp.asarray(x0), jsys)
+    jst, jm = jax.jit(lambda s, bb: j_run_sf(s, bb, jsys, 0.05, 3, 5,
+                                             momentum, compat))(
+        jst, jnp.asarray(b))
+    jst, jm1 = jax.jit(lambda s, bb: j_step_sf(s, bb, jsys, 0.05, 5,
+                                               momentum, compat))(
+        jst, jnp.asarray(b))
+    bt = torch.from_numpy(b)
+    st = fista_init(torch.from_numpy(x0), sysd)
+    st, m = fista_run(st, bt, sysd, 0.05, 3, 5, momentum, compat)
+    st, m1 = fista_step(st, bt, sysd, 0.05, 5, momentum, compat)
+    assert m.shape == (3, 3) and len(m1) == 3
+    for name in ("x", "x_old", "yk", "ax", "ay"):
+        got, want = getattr(st, name).numpy(), np.asarray(getattr(jst, name))
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=2e-4,
+                                   atol=2e-5 * max(1.0, np.abs(want).max()),
+                                   err_msg=name)
+    np.testing.assert_allclose(float(st.t), float(jst.t), rtol=1e-6)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=2e-4)
+    np.testing.assert_allclose([float(v) for v in m1],
+                               [float(v) for v in jm1], rtol=2e-4)
+
+
+def test_slice_first_fista_without_metrics_and_zero_iterations(f32_duals):
+    jsys, sysd, b_sl = _problem(2, 32)
+    b = torch.from_numpy(np.ascontiguousarray(b_sl.transpose(2, 0, 1)))
+    st0 = fista_init(torch.zeros((2, 32, 32)), sysd)
+    st, m = fista_run(st0, b, sysd, 0.05, 0)
+    assert m.shape == (0, 3) and torch.equal(st.x, st0.x)
+    assert torch.equal(st.ay, st0.ay)
+    _, m1 = fista_step(st0, b, sysd, 0.05, 5, compute_metrics=False)
+    assert all(float(v) == 0.0 for v in m1)
 
 
 def test_state_carried_across_from_reference(f32_duals):

@@ -10,8 +10,9 @@ PyTorch version; on a CUDA device it runs the hand-written kernels in
 
 from tomojax_torch.api import ChemicalTomo, Simulator, TomoTorch
 from tomojax_torch.geometry import Geometry
+from tomojax_torch.stream import DynamicReconstructor
 
 __version__ = "0.1.0"
 
-__all__ = ["ChemicalTomo", "Geometry", "Simulator", "TomoTorch",
-           "__version__"]
+__all__ = ["ChemicalTomo", "DynamicReconstructor", "Geometry", "Simulator",
+           "TomoTorch", "__version__"]

@@ -44,8 +44,8 @@ import torch
 from tomojax_torch import ops
 from tomojax_torch import tv as tvmod
 from tomojax_torch.dist import (
-    SlabGroup, all_reduce_sum, gather_slabs, pad_slices, shard_global,
-    unpad_slices,
+    SlabGroup, all_reduce_max, all_reduce_sum, gather_slabs, pad_slices,
+    shard_global, unpad_slices,
 )
 from tomojax_torch.fusion import (
     data_fusion_run,
@@ -177,10 +177,14 @@ class TomoTorch:
 
     def fista(self, Niter: int = 100, momentum: bool = True,
               lambda_param: float = 0.1, nTViter: int = 10,
-              show_convergence: bool = True, compat: str = "correct"):
+              show_convergence: bool = True, compat: str = "correct",
+              fused: bool = False):
         """FISTA-TV from zero (solvers/fista.py). With show_convergence,
         ``self.cost`` holds the per-iteration cost 0.5 dd^2 + lam tv,
-        read from the device once at the end."""
+        read from the device once at the end. fused is taken for the
+        reference's signature, where it scans the iterations into one
+        traced program: the slice-last loop here never waits for the
+        host inside the loop, so both values run it."""
         self.restart_recon()
         st = fista_init_sl(self.x, self.sys, self.b_sl)
         st, metrics = fista_run_sl(st, self.b_sl, self.sys, lambda_param,
@@ -280,19 +284,27 @@ class TomoTorch:
         the reconstruction is scaled back to data units afterwards and the
         stored data are untouched (as ``TomoTPU.kl_divergence``).
         ``self.cost`` holds the KL cost of each iteration, read once at
-        the end. Not ported for slab-sharded runs."""
-        if self.group is not None:
-            raise ValueError("kl_divergence with a group is not ported")
+        the end. With a group the maximum is the whole sinogram's and the
+        cost the sum over the slabs (one all-reduce each); the pad slices
+        carry b = 0, so x stays 0 there and they add 0 to the cost."""
         self.restart_recon()
-        bmax = float(torch.max(self.b_sl))
+        bmax = torch.max(self.b_sl)
+        if self.group is not None:
+            all_reduce_max(bmax, self.group)
+        bmax = float(bmax)
         b_kl = self.b_sl / bmax if bmax > 0 else self.b_sl
         x = to_sl(self.x)
         costs = []
         for _ in range(Niter):
             x, c = poisson_ml_step_sl(x, b_kl, self.sys, lambda_param)
             costs.append(c)
-        self.cost = (torch.stack(costs).cpu().numpy() if costs
-                     else np.zeros(Niter, np.float32))
+        if costs:
+            cost = torch.stack(costs)
+            if self.group is not None:
+                all_reduce_sum(cost, self.group)
+            self.cost = cost.cpu().numpy()
+        else:
+            self.cost = np.zeros(Niter, np.float32)
         self.x = from_sl(x * bmax if bmax > 0 else x)
         return self
 

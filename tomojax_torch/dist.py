@@ -126,6 +126,13 @@ def all_reduce_sum(t: torch.Tensor, group: SlabGroup) -> torch.Tensor:
     return t
 
 
+def all_reduce_max(t: torch.Tensor, group: SlabGroup) -> torch.Tensor:
+    """The maximum of `t` over the group, in place on its device, as
+    `all_reduce_sum` does the sum. Returns `t`."""
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     # gloo refuses some dtypes (bfloat16) for P2P; bytes travel anywhere
     return t.view(torch.uint8)

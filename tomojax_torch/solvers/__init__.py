@@ -1,6 +1,7 @@
 """Reconstruction solvers (counterpart of ``tomojax.solvers``): the system
-weights, slice-last FISTA-TV, SIRT, the SART and ART sweeps, CGLS,
-Poisson-ML, the least-squares step, FBP and ASD-POCS."""
+weights, FISTA-TV (slice-last, and the slice-first wrappers), SIRT, the
+SART and ART sweeps, CGLS, Poisson-ML, the least-squares step, FBP and
+ASD-POCS."""
 
 from tomojax_torch.solvers.asd_pocs import (
     AsdPocsParams,
@@ -15,7 +16,11 @@ from tomojax_torch.solvers.base import (
 from tomojax_torch.solvers.cuda_art import art_sweep_sl
 from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
 from tomojax_torch.solvers.fista import (
+    FistaState,
     FistaStateSL,
+    fista_init,
+    fista_run,
+    fista_step,
     fista_init_sl,
     fista_run_sl,
     fista_step_sl,
@@ -42,6 +47,10 @@ __all__ = [
     "make_system",
     "bp_single_angle",
     "row_norms_sq",
+    "FistaState",
+    "fista_init",
+    "fista_run",
+    "fista_step",
     "FistaStateSL",
     "fista_init_sl",
     "fista_run_sl",

@@ -21,6 +21,11 @@ compat='reference' reproduces the reference's momentum-SIRT behaviour
 (the TV prox result is discarded when momentum is on); momentum=False runs
 the same program with beta = 0.
 
+`fista_init`, `fista_step` and `fista_run` are the reference's
+slice-first functions: thin layout wrappers over the slice-last functions,
+with the reference's state (`FistaState`: volumes (Ns, N, N), projections
+(Ns, Na, Nt), ax = A x_old and ay = A yk carried).
+
 With ``group=`` (a `tomojax_torch.dist.SlabGroup`) the state is this
 rank's z-slab: volumes (N, N, n_loc), sinograms (Na, Nt, n_loc). K1 and
 K2 run on the slab as they are (slices are a batch); the prox runs K9a/K9b
@@ -37,7 +42,9 @@ import torch
 
 from tomojax_torch import ops
 from tomojax_torch.dist import SlabGroup, all_reduce_sum
-from tomojax_torch.projector.cuda_joseph import bp_sirt_sl, fp_resid_sl
+from tomojax_torch.projector.cuda_joseph import (
+    bp_sirt_sl, fp_resid_sl, fp_sl,
+)
 from tomojax_torch.solvers.base import System
 from tomojax_torch.tv import tv, tv_fgp_fused, tv_fgp_sharded
 
@@ -131,3 +138,70 @@ def fista_run_sl(state: FistaStateSL, b_sl: torch.Tensor, sys: System,
         return state, torch.zeros((0, 3), dtype=torch.float32,
                                   device=state.x.device)
     return state, torch.stack(metrics)
+
+
+# ------------------------------------------------------------ slice-first
+
+
+@dataclasses.dataclass(frozen=True)
+class FistaState:
+    """The reference's slice-first state: volumes (Ns, N, N), projections
+    (Ns, Na, Nt)."""
+
+    x: torch.Tensor
+    x_old: torch.Tensor
+    yk: torch.Tensor
+    t: torch.Tensor  # 0-dim momentum scalar
+    ax: torch.Tensor  # A x_old
+    ay: torch.Tensor  # A yk
+
+
+def fista_init(x0: torch.Tensor, sys: System) -> FistaState:
+    """yk = x_old = x0, and x0 projected once (K1) to seed ax = ay."""
+    x0 = x0.to(torch.float32)
+    ax = from_sl(fp_sl(to_sl(x0), sys.geom))
+    one = torch.ones((), dtype=torch.float32, device=x0.device)
+    return FistaState(x=x0, x_old=x0, yk=x0, t=one, ax=ax, ay=ax)
+
+
+def fista_run(state: FistaState, b: torch.Tensor, sys: System, lam: float,
+              n_iter: int, n_tv_iter: int = 10, momentum: bool = True,
+              compat: str = "correct", compute_metrics: bool = True,
+              group: SlabGroup | None = None):
+    """`n_iter` iterations of `fista_run_sl` on the state and the sinogram
+    b (Ns, Na, Nt) in the reference's layout; returns (state, metrics
+    (n_iter, 3)). The slice-last state carries (b - A yk) R instead of
+    A yk: it is formed from ay on entry, and ay = ax + beta (ax - ax_old)
+    on return, as the reference carries it."""
+    b_sl = to_sl(b.to(torch.float32))
+    st = FistaStateSL(x=to_sl(state.x), x_old=to_sl(state.x_old),
+                      yk=to_sl(state.yk), t=state.t, ax=to_sl(state.ax),
+                      resid=(b_sl - to_sl(state.ay))
+                      * sys.inv_row[:, :, None])
+    ax_old, t_old = st.ax, st.t
+    metrics = []
+    for _ in range(n_iter):
+        ax_old, t_old = st.ax, st.t
+        st, m = fista_step_sl(st, b_sl, sys, lam, n_tv_iter, momentum,
+                              compat, compute_metrics, group)
+        metrics.append(m)
+    beta = ((t_old - 1.0) / st.t if momentum and metrics
+            else torch.zeros_like(st.t))
+    ay = from_sl(st.ax + beta * (st.ax - ax_old))
+    state = FistaState(x=from_sl(st.x), x_old=from_sl(st.x_old),
+                       yk=from_sl(st.yk), t=st.t, ax=from_sl(st.ax), ay=ay)
+    if not metrics:
+        return state, torch.zeros((0, 3), dtype=torch.float32,
+                                  device=st.x.device)
+    return state, torch.stack(metrics)
+
+
+def fista_step(state: FistaState, b: torch.Tensor, sys: System, lam: float,
+               n_tv_iter: int = 10, momentum: bool = True,
+               compat: str = "correct", compute_metrics: bool = True,
+               group: SlabGroup | None = None):
+    """One iteration in the reference's layout: (state, (cost, dd, tv)),
+    0-dim device tensors (zeros without compute_metrics)."""
+    state, m = fista_run(state, b, sys, lam, 1, n_tv_iter, momentum, compat,
+                         compute_metrics, group)
+    return state, tuple(m[0])
