@@ -74,6 +74,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       .asd_pocs (5) on the same problem, and the functional runs with the
       group; their traces against the unsharded path's (FISTA dd and tv
       rtol 1e-5, ASD-POCS dd rtol 1e-3) and ms/iteration of both paths;
+      one sharded and one unsharded ASD-POCS iteration under
+      profiling.trace (traces under build/chip_smoke_traces/), each with
+      its top device operations and the device's busy share; then,
+      through the same group, the sharded fusion path: ChemicalTomo(...,
+      group=g) on phase 4d's problem (chemical_tomography(3), then
+      data_fusion(3) as the host loop, fused=True and method='sart') and
+      tv_gd_4d(10) with the group, each against the unsharded call
+      (reconstruction 1e-6 max|x|, costs rtol 1e-5), K9a, K9b, K5 and K9c
+      launched and K3, K4 not; the fusion golden trace replayed through
+      the group (phase 5's bounds); the fusion outer iteration sharded and
+      unsharded in turn (CUDA events, median of 2 each);
    d. the fusion path: ChemicalTomo on a simulated 3 x 128 x 256^2
       problem (HAADF 90, chemistry 45 angles over +-76 deg):
       chemical_tomography, the data_fusion host loop (K1-K5 must launch
@@ -144,6 +155,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       run's state, dd rtol 1e-3, dPOCS 1e-5); iterate after iterate_cs equal to a fresh reconstructor's
       on the same x; K1 and K2 (both epilogues) at 1, 2 and 3 angles (N
       64, Ns 8) against their plain versions with phase 3's bounds;
+   i. the TV extras: tv_chambolle(20) and tv_split_bregman(10) once each
+      on a noisy 128 x 256^2 nanocube against the same call on the CPU
+      (1e-5 max|d|; the TV value, K5, rtol 2e-5), with both times; every
+      viz figure from card tensors under build/chip_smoke_viz/ where
+      matplotlib is installed;
    every kernel of a path must have launched in it;
 5. golden: the 32 x 256^2 x 90, 20-iteration trace of
    tests/golden/fista_tpu_256.json replayed within rtol 5e-3 (dd, tv) and
@@ -171,12 +187,20 @@ at 256^3 (K3 also at 256^2 x 128), and K5 on the 3 x 128 x 256^2 fusion
 stack, one launch (where the tree takes a 4D stack) and the per-element
 loop, in the same way beside another tree.
 
+    python3 chip_smoke.py --gap-study
+
+runs only phase 4c's gap study (`_sharded_gap_study`) on the 256^3 x 90
+ASD-POCS problem through an NCCL group of world size 1, with 16 profiled
+windows each way (and without the annotation) in place of 2.
+
 It imports nothing of JAX. Without a CUDA device it exits with 1 before
 printing any result.
 """
 
 from __future__ import annotations
 
+import bisect
+import collections
 import contextlib
 import json
 import os
@@ -239,6 +263,12 @@ def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
 
 def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max())
+
+
+def _max_rel(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                        / np.abs(want)))
 
 
 def sm_clock() -> str:
@@ -1256,6 +1286,42 @@ def _last(t):
     return t[:, :, -1].contiguous()
 
 
+def _held_halo(what: str, slab, p, lo, hi, lo_x, hi_x, x_old, beta):
+    """K9a, K9b, K9c and K5's right halo on one (n0, n1, n_loc) slab with
+    the given halo planes against their plain versions, at phase 3's
+    bounds: K9a 2^-7 (bf16 duals), K9b 1e-6 max|y|, K9c 1e-5 max|g|,
+    ||g||^2 and the K5 value rtol 2e-5. Returns (K9a err, K9b err, its
+    bound, K9c err, its bound, ||g||^2 rel, K5 rel)."""
+    from tomojax_torch.tv import cuda_tv_value
+    from tomojax_torch.tv import cuda_fgp_sharded as fs
+    from tomojax_torch.tv import cuda_tvgd_sharded as gs
+
+    got = _launched(fs.fgp_iter_halo,
+                    lambda: fs.fgp_iter_halo(slab, *p, LAM, lo, hi))
+    ref = fs.fgp_iter_halo_ref(slab, *p, LAM, lo, hi)
+    e_a = max(max_err(g.float(), r.float()) for g, r in zip(got, ref))
+    got = _launched(fs.fgp_obj_halo, lambda: fs.fgp_obj_halo(
+        slab, *p, LAM, lo, x_old, beta))
+    ref = fs.fgp_obj_halo_ref(slab, *p, LAM, lo, x_old, beta)
+    e_b = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+    t_b = 1e-6 * float(ref[1].abs().max())
+    g, gsq = _launched(gs.tv_grad_halo,
+                       lambda: gs.tv_grad_halo(slab, lo_x, hi_x))
+    g_r, gsq_r = gs.tv_grad_halo_ref(slab, lo_x, hi_x)
+    e_c, t_c = max_err(g, g_r), 1e-5 * float(g_r.abs().max())
+    gsq_rel = abs(float(gsq) - float(gsq_r)) / float(gsq_r)
+    tv_r = float(cuda_tv_value.tv_value_ref(slab, hi_x))
+    tv_rel = abs(float(_launched(cuda_tv_value.tv_value, lambda:
+                                 cuda_tv_value.tv_value(slab, hi_x)))
+                 - tv_r) / tv_r
+    require(e_a <= 2 ** -7 and e_b <= t_b and e_c <= t_c
+            and gsq_rel <= 2e-5 and tv_rel <= 2e-5,
+            f"{what}: K9a {e_a:.3e} (<= 2^-7), K9b {e_b:.3e} "
+            f"(<= {t_b:.3e}), K9c {e_c:.3e} (<= {t_c:.3e}), ||g||^2 rel "
+            f"{gsq_rel:.3e} (<= 2e-5), K5 halo rel {tv_rel:.3e} (<= 2e-5)")
+    return e_a, e_b, t_b, e_c, t_c, gsq_rel, tv_rel
+
+
 def _check_halo_kernels(x: torch.Tensor, uni, report, card: str) -> None:
     """K9a/K9b/K9c and K5's right halo against their plain versions: on one
     64-slice slab with random halo planes, once per rank role: bottom (zero
@@ -1278,29 +1344,9 @@ def _check_halo_kernels(x: torch.Tensor, uni, report, card: str) -> None:
         hi = None if role == "top" else (
             uni(*plane_shape), *((uni(*plane_shape) - 0.5).bfloat16()
                                  for _ in range(3)))
-        got = _launched(fs.fgp_iter_halo,
-                        lambda: fs.fgp_iter_halo(slab, *p, LAM, lo, hi))
-        ref = fs.fgp_iter_halo_ref(slab, *p, LAM, lo, hi)
-        e_a = max(max_err(g.float(), r.float()) for g, r in zip(got, ref))
-        got = _launched(fs.fgp_obj_halo, lambda: fs.fgp_obj_halo(
-            slab, *p, LAM, lo, x_old, beta))
-        ref = fs.fgp_obj_halo_ref(slab, *p, LAM, lo, x_old, beta)
-        e_b = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
-        t_b = 1e-6 * float(ref[1].abs().max())
-        lo_x, hi_x = uni(*plane_shape), uni(*plane_shape)
-        g, gsq = _launched(gs.tv_grad_halo,
-                           lambda: gs.tv_grad_halo(slab, lo_x, hi_x))
-        g_r, gsq_r = gs.tv_grad_halo_ref(slab, lo_x, hi_x)
-        e_c, t_c = max_err(g, g_r), 1e-5 * float(g_r.abs().max())
-        gsq_rel = abs(float(gsq) - float(gsq_r)) / float(gsq_r)
-        tv_rel = abs(float(cuda_tv_value.tv_value(slab, hi_x))
-                     - float(cuda_tv_value.tv_value_ref(slab, hi_x))) \
-            / float(cuda_tv_value.tv_value_ref(slab, hi_x))
-        require(e_a <= 2 ** -7 and e_b <= t_b and e_c <= t_c
-                and gsq_rel <= 2e-5 and tv_rel <= 2e-5,
-                f"{role} slab: K9a {e_a:.3e} (<= 2^-7), K9b {e_b:.3e} "
-                f"(<= {t_b:.3e}), K9c {e_c:.3e} (<= {t_c:.3e}), ||g||^2 rel "
-                f"{gsq_rel:.3e} (<= 2e-5), K5 halo rel {tv_rel:.3e} (<= 2e-5)")
+        e_a, e_b, t_b, e_c, t_c, gsq_rel, tv_rel = _held_halo(
+            f"{role} slab", slab, p, lo, hi, uni(*plane_shape),
+            uni(*plane_shape), x_old, beta)
         roles[role] = (e_a, e_b, t_b, e_c, t_c, gsq_rel, tv_rel)
     print("K9 per role (bottom, interior, top) on a 256x256x64 slab: "
           + "; ".join(f"{r}: K9a {v[0]:.2e}, K9b {v[1]:.2e}, K9c {v[3]:.2e}, "
@@ -1671,14 +1717,188 @@ def _events_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_sharded_path(card: str, kernels: dict) -> dict:
-    """The slab-sharded path through an NCCL group of world size 1: one
-    slab holds the whole volume, the ring halos are local copies, the chain
-    ends are zeros and every scalar goes through an NCCL all-reduce."""
+@contextlib.contextmanager
+def _nccl_group(tag: str):
+    """An NCCL group of world size 1 (a file store under build/), destroyed
+    on leaving."""
     import torch.distributed as dist
 
-    from tomojax_torch import TomoTorch
     from tomojax_torch.dist import init_distributed
+
+    require(dist.is_available() and dist.is_nccl_available(),
+            "torch.distributed has no NCCL backend")
+    store = ROOT / "build" / f"chip_smoke_{tag}_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    group = init_distributed(f"file://{store}", 1, 0, device="cuda")
+    try:
+        yield group
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def _traced(label: str, fn, annotated: bool = True):
+    """One call of fn inside `profiling.trace` (the trace written under
+    build/chip_smoke_traces/<label>/), inside `profiling.annotate(label)`
+    where `annotated`, and the wall time of the call on the host clock
+    after a synchronize."""
+    from tomojax_torch import profiling
+
+    with profiling.trace(str(ROOT / "build" / "chip_smoke_traces" / label)
+                         ) as prof:
+        t0 = time.perf_counter()
+        with (profiling.annotate(label) if annotated
+              else contextlib.nullcontext()):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return prof, wall_ms
+
+
+def _gap_split(prof, annotations=()):
+    """A profiler window's device span, busy time (the union of its device
+    events) and idle time split by the host op that the main thread was
+    inside while the device waited: each gap between device events is
+    shared out over the outermost host ops it overlaps, by name, and the
+    rest is "no op" (Python between ops). Annotation spans (`annotations`
+    and user annotations) are neither work nor ops. All in ms."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def annot(e):
+        return (getattr(e, "is_user_annotation", False)
+                or e.name in annotations)
+
+    evs = [e for e in prof.events() if not annot(e)]
+    busy = []
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in evs if e.device_type == cuda):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    host = [e for e in evs if e.device_type != cuda]
+    if not busy or not host:
+        return 0.0, 0.0, {}
+    gaps = [(left[1], right[0]) for left, right in zip(busy, busy[1:])]
+    main = collections.Counter(e.thread for e in host).most_common(1)[0][0]
+
+    def outermost(e):
+        q = e.cpu_parent
+        while q is not None and annot(q):
+            q = q.cpu_parent
+        return q is None
+
+    ends = [g[1] for g in gaps]
+    split = collections.defaultdict(float)
+    for e in host:
+        if e.thread != main or not outermost(e):
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        i = bisect.bisect_right(ends, s)
+        while i < len(gaps) and gaps[i][0] < t:
+            split[e.name] += max(0.0, min(t, gaps[i][1]) - max(s, gaps[i][0]))
+            i += 1
+    idle = sum(b - a for a, b in gaps)
+    split["no op"] = idle - sum(split.values())
+    return ((busy[-1][1] - busy[0][0]) / 1e3,
+            sum(b - a for a, b in busy) / 1e3,
+            {k: v / 1e3 for k, v in split.items()})
+
+
+def _sharded_gap_study(run, group, card: str, rounds: int = 6,
+                       windows: int = 2, tries: int = 3) -> None:
+    """Where the sharded ASD-POCS iteration's extra time goes, at world
+    size 1; run(group or None, niter) is one asd_pocs_run call. (1) The
+    spread between calls: `rounds` unprofiled calls of 5 iterations each
+    way, in turn (CUDA events): min, median, max ms an iteration. (2)
+    `windows` profiled one-iteration calls each way, with and without an
+    `annotate` span, each after an unprofiled event time of the same call:
+    the window's device span, busy and idle time, and the idle time split
+    by host op (`_gap_split`); the span less the event time is what the
+    profiler adds. The first annotated window each way also prints its top
+    device operations, and each kind of window the split of its most idle
+    one. A window whose profile holds no device event (the
+    profiler can drop a window's CUDA activity) is profiled again, up to
+    `tries` times, and is printed as not measured if it never holds one."""
+    calls = {True: [], False: []}
+    for _ in range(rounds):
+        for sharded in (False, True):
+            _, ms = _events_ms(lambda: run(group if sharded else None, 5))
+            calls[sharded].append(ms / 5)
+    rows = collections.defaultdict(list)
+    tops = {}
+    empty = 0
+    for _ in range(windows):
+        for annotated in (True, False):
+            for sharded in (True, False):
+                g = group if sharded else None
+                _, ev_ms = _events_ms(lambda: run(g, 1))
+                label = ("asd_" + ("sharded" if sharded else "unsharded")
+                         + ("" if annotated else "_bare"))
+                for _ in range(tries):
+                    prof, wall_ms = _traced(label, lambda: run(g, 1),
+                                            annotated)
+                    span, busy, split = _gap_split(prof, (label,))
+                    if span > 0:
+                        break
+                    empty += 1
+                if span <= 0:
+                    rows[sharded, annotated].append(None)
+                    continue
+                rows[sharded, annotated].append(
+                    (ev_ms, wall_ms, span, busy, split))
+                if annotated and sharded not in tops:
+                    tops[sharded] = _profile_summary(prof, 1, (label,))
+    for sharded in (True, False):
+        t = sorted(calls[sharded])
+        med = statistics.median(t)
+        print(f"  {'sharded' if sharded else 'unsharded'} asd_pocs_run(5), "
+              f"{rounds} unprofiled calls in turn: ms/iteration min "
+              f"{t[0]:.3f}, median {med:.3f}, max {t[-1]:.3f}, spread "
+              f"{100 * (t[-1] - t[0]) / med:.2f} % of the median [{card}]")
+    for (sharded, annotated), reps in rows.items():
+        got = [r for r in reps if r is not None]
+        split = collections.defaultdict(float)
+        for *_, sp in got:
+            for k, v in sp.items():
+                split[k] += v / len(got)
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+        print(f"  profiled one-iteration window, "
+              f"{'sharded' if sharded else 'unsharded'}, "
+              f"{'annotated' if annotated else 'no annotation'} "
+              f"({len(reps)} windows): " + "; ".join(
+                  f"not measured (no device event in {tries} profiles)"
+                  if r is None else
+                  f"event {r[0]:.3f} ms unprofiled, span {r[2]:.3f}, busy "
+                  f"{r[3]:.3f}, idle {r[2] - r[3]:.3f} "
+                  f"({100 * (1 - r[3] / r[2]):.2f} %), host wall "
+                  f"{r[1]:.3f}" for r in reps)
+              + "; idle ms a window by host op: " + (", ".join(
+                  f"{k[:40]} {v:.3f}" for k, v in top) or "not measured"))
+        if got:
+            ev, _, span, busy, sp = max(got, key=lambda r: 1 - r[3] / r[2])
+            print(f"    the most idle of them ({100 * (1 - busy / span):.2f}"
+                  f" %, event {ev:.3f} ms unprofiled), idle ms by host op: "
+                  + ", ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(
+                      sp.items(), key=lambda kv: -kv[1])[:6]))
+    print(f"  profiles that held no device event: {empty} "
+          f"(of {4 * windows} windows, each profiled up to {tries} times)")
+    for sharded, summary in tops.items():
+        print(f"  top device operations of one "
+              f"{'sharded' if sharded else 'unsharded'} ASD-POCS iteration "
+              f"(build/chip_smoke_traces/): {summary}")
+
+
+def phase_sharded_path(card: str, kernels: dict, group) -> dict:
+    """The slab-sharded path through an NCCL group of world size 1: one
+    slab holds the whole volume, the ring halos are local copies, the chain
+    ends are zeros and every scalar goes through an NCCL all-reduce. Then
+    `_sharded_gap_study`: the spread between unprofiled ASD-POCS calls each
+    way, and profiled one-iteration windows each way (`profiling.trace`)
+    with their busy share, top device operations and idle time by host
+    op."""
+    from tomojax_torch import TomoTorch
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.sim import create_projections, nanocube_phantom
     from tomojax_torch.solvers import (
@@ -1686,73 +1906,64 @@ def phase_sharded_path(card: str, kernels: dict) -> dict:
         make_sart_weights,
     )
 
-    require(dist.is_available() and dist.is_nccl_available(),
-            "torch.distributed has no NCCL backend")
     ns, n, na, iters, asd_iters = 256, 256, 90, 10, 5
     angles = np.linspace(-76, 76, na)
     dev = torch.device("cuda")
-    store = ROOT / "build" / f"chip_smoke_store_{os.getpid()}"
-    store.parent.mkdir(parents=True, exist_ok=True)
-    store.unlink(missing_ok=True)
-    group = init_distributed(f"file://{store}", 1, 0, device="cuda")
-    try:
-        vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
-        b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
-        series = b.permute(0, 2, 1).cpu().numpy()
-        zeros = torch.zeros((ns, n, n), device=dev)
-        _reset(kernels)
-        with plain_versions_forbidden():
-            tomo = TomoTorch(angles, series, group=group)
-            tomo.fista(Niter=1, lambda_param=LAM, nTViter=N_TV)  # warm-up
-            tomo.fista(Niter=iters, lambda_param=LAM, nTViter=N_TV)
-            sh_cost = tomo.cost.copy()
-            recon = tomo.get_recon()
-            st = fista_init_sl(zeros, tomo.sys, tomo.b_sl)
-            (_, sh_m), sh_fista_ms = _events_ms(lambda: fista_run_sl(
-                st, tomo.b_sl, tomo.sys, LAM, iters, N_TV, group=group))
-            tomo.asd_pocs(Niter=1)  # warm-up
-            tomo.asd_pocs(Niter=asd_iters)
-            sh_dd, sh_tv = tomo.dd_vec.copy(), tomo.tv_vec.copy()
-            w = make_sart_weights(tomo.sys)
-            x0 = torch.zeros((n, n, ns), device=dev)
-            params = AsdPocsParams(niter=asd_iters)
-            (_, sh_run_dd, _), sh_asd_ms = _events_ms(lambda: asd_pocs_run(
-                x0, tomo.b_sl, tomo.sys, w, params, group=group))
-        counts = _read(kernels, "sharded path (NCCL, world size 1)",
-                       SHARDED_KERNELS)
-        require(counts["tv_step"] == counts["K9c_tv_grad_halo"],
-                f"sharded path: {counts['tv_step']} TV steps for "
-                f"{counts['K9c_tv_grad_halo']} gradients")
-        # the unsharded path on the same problem, then both in turn
-        # (unsharded, sharded, sharded, unsharded) for the times
-        with plain_versions_forbidden():
-            ref = TomoTorch(angles, series, device="cuda")
-            ref.fista(Niter=iters, lambda_param=LAM, nTViter=N_TV)
-            un_cost = ref.cost.copy()
-            ref.asd_pocs(Niter=asd_iters)
-            times = {"fista": {True: [sh_fista_ms], False: []},
-                     "asd": {True: [sh_asd_ms], False: []}}
-            for sharded in (False, True, False):
-                g = group if sharded else None
-                (_, m), ms = _events_ms(lambda: fista_run_sl(
-                    st, ref.b_sl, ref.sys, LAM, iters, N_TV, group=g))
-                times["fista"][sharded].append(ms)
-                if not sharded:
-                    un_m = m
-                (_, dd, _), ms = _events_ms(lambda: asd_pocs_run(
-                    x0, ref.b_sl, ref.sys, w, params, group=g))
-                times["asd"][sharded].append(ms)
-    finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
+    vol = torch.from_numpy(nanocube_phantom(ns, n)).to(dev)
+    b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
+    series = b.permute(0, 2, 1).cpu().numpy()
+    zeros = torch.zeros((ns, n, n), device=dev)
+    _reset(kernels)
+    with plain_versions_forbidden():
+        tomo = TomoTorch(angles, series, group=group)
+        tomo.fista(Niter=1, lambda_param=LAM, nTViter=N_TV)  # warm-up
+        tomo.fista(Niter=iters, lambda_param=LAM, nTViter=N_TV)
+        sh_cost = tomo.cost.copy()
+        recon = tomo.get_recon()
+        st = fista_init_sl(zeros, tomo.sys, tomo.b_sl)
+        (_, sh_m), sh_fista_ms = _events_ms(lambda: fista_run_sl(
+            st, tomo.b_sl, tomo.sys, LAM, iters, N_TV, group=group))
+        tomo.asd_pocs(Niter=1)  # warm-up
+        tomo.asd_pocs(Niter=asd_iters)
+        sh_dd, sh_tv = tomo.dd_vec.copy(), tomo.tv_vec.copy()
+        w = make_sart_weights(tomo.sys)
+        x0 = torch.zeros((n, n, ns), device=dev)
+        params = AsdPocsParams(niter=asd_iters)
+        (_, sh_run_dd, _), sh_asd_ms = _events_ms(lambda: asd_pocs_run(
+            x0, tomo.b_sl, tomo.sys, w, params, group=group))
+    counts = _read(kernels, "sharded path (NCCL, world size 1)",
+                   SHARDED_KERNELS)
+    require(counts["tv_step"] == counts["K9c_tv_grad_halo"],
+            f"sharded path: {counts['tv_step']} TV steps for "
+            f"{counts['K9c_tv_grad_halo']} gradients")
+    # the unsharded path on the same problem, then both in turn
+    # (unsharded, sharded, sharded, unsharded) for the times
+    with plain_versions_forbidden():
+        ref = TomoTorch(angles, series, device="cuda")
+        ref.fista(Niter=iters, lambda_param=LAM, nTViter=N_TV)
+        un_cost = ref.cost.copy()
+        ref.asd_pocs(Niter=asd_iters)
+        times = {"fista": {True: [sh_fista_ms], False: []},
+                 "asd": {True: [sh_asd_ms], False: []}}
+        for sharded in (False, True, False):
+            g = group if sharded else None
+            (_, m), ms = _events_ms(lambda: fista_run_sl(
+                st, ref.b_sl, ref.sys, LAM, iters, N_TV, group=g))
+            times["fista"][sharded].append(ms)
+            if not sharded:
+                un_m = m
+            (_, dd, _), ms = _events_ms(lambda: asd_pocs_run(
+                x0, ref.b_sl, ref.sys, w, params, group=g))
+            times["asd"][sharded].append(ms)
+        _sharded_gap_study(lambda g, k: asd_pocs_run(
+            x0, ref.b_sl, ref.sys, w, AsdPocsParams(niter=k), group=g),
+            group, card)
     sh_m, un_m = sh_m.cpu().numpy(), un_m.cpu().numpy()
 
-    def rel(a, b_):
-        return float(np.max(np.abs(np.asarray(a) - np.asarray(b_))
-                            / np.abs(np.asarray(b_))))
-
-    dev_dd, dev_tv = rel(sh_m[:, 1], un_m[:, 1]), rel(sh_m[:, 2], un_m[:, 2])
-    dev_cost, dev_asd = rel(sh_cost, un_cost), rel(sh_dd, ref.dd_vec)
+    dev_dd = _max_rel(sh_m[:, 1], un_m[:, 1])
+    dev_tv = _max_rel(sh_m[:, 2], un_m[:, 2])
+    dev_cost, dev_asd = _max_rel(sh_cost, un_cost), _max_rel(sh_dd,
+                                                             ref.dd_vec)
     require(recon.shape == (ns, n, n) and bool(np.isfinite(recon).all()),
             "sharded TomoTorch.fista reconstruction is not finite")
     require(bool(np.isfinite(sh_run_dd.cpu().numpy()).all())
@@ -1807,6 +2018,135 @@ def _fusion_problem(dev, nel=3, ns=128, n=256, nah=90, nac=45,
     return (gt, haadf.cpu().numpy(),
             {el: c.cpu().numpy() for el, c in zip(elements, chem)},
             ha, ca)
+
+
+SHARDED_FUSION_KERNELS = ("K1_fp", "K2_bp_sirt", "K2_bp", "K5_tv_value",
+                          "K8_sart_sweep", "K9a_fgp_iter_halo",
+                          "K9b_fgp_obj_halo", "K9c_tv_grad_halo")
+FUSION_WAYS = (("host loop", {}), ("fused", {"fused": True}),
+               ("sart", {"method": "sart"}))
+GD_DPOCS = 0.05  # the sharded path's tv_gd_4d step
+
+
+def _fusion_runs(tomo) -> dict:
+    """chemical_tomography(3), then data_fusion(3) each way, each from a
+    fresh chemical_tomography: {way: (costCHEM of the chemistry run,
+    (costHAADF, costCHEM, costTV) of the fusion run, get_recon())}."""
+    out = {}
+    for name, kw in FUSION_WAYS:
+        tomo.chemical_tomography(Niter=3)
+        chem = tomo.costCHEM.copy()
+        tomo.data_fusion(Niter=3, **kw)
+        out[name] = (chem, np.stack([tomo.costHAADF, tomo.costCHEM,
+                                     tomo.costTV]), tomo.get_recon())
+    return out
+
+
+def phase_sharded_fusion_path(card: str, kernels: dict, group) -> dict:
+    """Phase 4c, second part: ChemicalTomo(group=) on phase 4d's problem
+    through the same NCCL group of world size 1 (chemical_tomography(3) and
+    data_fusion(3) as the host loop, fused=True and method='sart'), and
+    tv_gd_4d with the group on its state, with every plain version raising;
+    K9a, K9b, K5 and K9c must launch and K3, K4 must not. Each run is held
+    against the unsharded ChemicalTomo on the same problem (reconstruction
+    1e-6 max|x|, costs rtol 1e-5; 0.0 expected, K9a/K9b being K3/K4 at one
+    rank). Then the fusion golden trace through the group, and the fusion
+    outer iteration sharded and unsharded in turn (CUDA events, median of 2
+    each)."""
+    from tomojax_torch import ChemicalTomo
+    from tomojax_torch.tv import tv_gd_4d
+
+    dev = torch.device("cuda")
+    gt, haadf, chem, ha, ca = _fusion_problem(dev)
+    _reset(kernels)
+    with plain_versions_forbidden():
+        sh = ChemicalTomo(haadf, ha, chem, ca, group=group)
+        sh_runs = _fusion_runs(sh)
+        x = sh.x
+        sh_gd, sh_gd_tv = tv_gd_4d(x, 10, GD_DPOCS, group=group)
+        torch.cuda.synchronize()
+    counts = _read(kernels, "sharded fusion path (NCCL, world size 1)",
+                   SHARDED_FUSION_KERNELS)
+    require(counts["K3_fgp_iter"] == 0 and counts["K4_fgp_obj_mom"] == 0,
+            f"sharded fusion path launched K3 {counts['K3_fgp_iter']} and "
+            f"K4 {counts['K4_fgp_obj_mom']} times (K9a/K9b expected)")
+    with plain_versions_forbidden():
+        un_runs = _fusion_runs(ChemicalTomo(haadf, ha, chem, ca))
+        un_gd, un_gd_tv = tv_gd_4d(x, 10, GD_DPOCS)
+    rmse = sh.rmse_per_element(gt.cpu().numpy())
+    devs = []
+    for name, _ in FUSION_WAYS:
+        (sc, sm, sx), (uc, um, ux) = sh_runs[name], un_runs[name]
+        require(sx.shape == ux.shape and bool(np.isfinite(sx).all()),
+                f"sharded ChemicalTomo ({name}): recon not finite or of "
+                f"shape {sx.shape}")
+        err, tol = float(np.abs(sx - ux).max()), 1e-6 * float(
+            np.abs(ux).max())
+        rel = max(_max_rel(sc, uc), _max_rel(sm, um))
+        require(err <= tol and rel <= 1e-5,
+                f"sharded ChemicalTomo ({name}) vs unsharded: recon "
+                f"{err:.3e} (bound {tol:.3e}), costs rel {rel:.3e} (1e-5)")
+        devs.append(f"{name} recon {err:.2e} <= {tol:.2e}, costs rel "
+                    f"{rel:.2e}")
+    err = float((sh_gd - un_gd).abs().max())
+    tol = 1e-6 * float(un_gd.abs().max())
+    rel = abs(float(sh_gd_tv) - float(un_gd_tv)) / abs(float(un_gd_tv))
+    require(err <= tol and rel <= 1e-5,
+            f"sharded tv_gd_4d vs unsharded: {err:.3e} (bound {tol:.3e}), "
+            f"tv rel {rel:.3e} (1e-5)")
+    print(f"sharded fusion path {tuple(gt.shape)}, HAADF {len(ha)} / "
+          f"chemistry {len(ca)} angles, NCCL group of world size 1: "
+          f"ChemicalTomo(group=) vs unsharded: " + "; ".join(devs)
+          + f"; tv_gd_4d(10) {err:.2e} <= {tol:.2e}, tv rel {rel:.2e}; "
+          f"rmse per element {np.array2string(rmse, precision=4)} [{card}]")
+    _check_fusion_halo_kernels(sh.x.contiguous(), card)
+    phase_golden_fusion(card, group)
+    _time_fusion_outer_sharded(card, group)
+    return counts
+
+
+def _check_fusion_halo_kernels(x: torch.Tensor, card: str) -> None:
+    """The halo modes that the sharded fusion path gives its kernels, on its
+    final state x (Nel, N, N, n_loc), with random halo planes (at world
+    size 1 the path's own halos are copies of x's first slices, which the
+    periodic wrap reads anyway): K5 on the whole stack with an (Nel, N, N)
+    right halo, one launch, against tv_value_ref (rtol 2e-5); K9a, K9b, K9c
+    on element 0's (N, N, n_loc) slab, bf16 duals, as an interior rank
+    (both halos) and as the path's top of a chain (zero P3 plane below, no
+    right halo), against their plain versions at phase 3's bounds."""
+    from tomojax_torch.tv import cuda_tv_value
+
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def uni(*shape, lo=0.0):
+        return torch.rand(shape, generator=gen, device=dev) + lo
+
+    hi_all = uni(*x.shape[:-1])
+    tv_r = float(cuda_tv_value.tv_value_ref(x, hi_all))
+    tv_rel = abs(float(_launched(cuda_tv_value.tv_value, lambda:
+                                 cuda_tv_value.tv_value(x, hi_all)))
+                 - tv_r) / tv_r
+    require(tv_rel <= 2e-5, f"K5 on the {tuple(x.shape)} fusion state with "
+                            f"a random right halo: rel {tv_rel:.3e} (2e-5)")
+    slab = x[0].contiguous()
+    plane = slab.shape[:2]
+    p = tuple(uni(*slab.shape, lo=-0.5).bfloat16() for _ in range(3))
+    x_old, beta = uni(*slab.shape), torch.tensor(0.3, device=dev)
+    lo = uni(*plane, lo=-0.5).bfloat16()
+    hi = (uni(*plane), *(uni(*plane, lo=-0.5).bfloat16() for _ in range(3)))
+    zero = torch.zeros(plane, dtype=torch.bfloat16, device=dev)
+    rows = [(role, _held_halo(f"fusion slab {tuple(slab.shape)}, {role}",
+                              slab, p, lo_, hi_, uni(*plane), uni(*plane),
+                              x_old, beta))
+            for role, lo_, hi_ in (("interior", lo, hi), ("top", zero, None))]
+    print(f"  the fusion state's halo modes, random halo planes: K5 on "
+          f"{tuple(x.shape)} with an {tuple(hi_all.shape)} right halo rel "
+          f"{tv_rel:.2e} (<= 2e-5); on element 0's {tuple(slab.shape)} slab "
+          + "; ".join(f"{role}: K9a {v[0]:.2e} (<= 2^-7), K9b {v[1]:.2e} "
+                      f"(<= {v[2]:.2e}), K9c {v[3]:.2e} (<= {v[4]:.2e}), "
+                      f"||g||^2 rel {v[5]:.2e}, K5 halo rel {v[6]:.2e}"
+                      for role, v in rows) + f" [{card}]")
 
 
 def _delta(kernels, before):
@@ -1950,26 +2290,7 @@ def _time_fusion_outer(card: str, nel=3, ns=128, n=256, na=90, nac=45,
     ones, gamma 1.6, lam_HAADF 10, lam_chem 0.05, iterSIRT 5, tvIter 5,
     lam_TV 1e-4; ms per outer iteration over `iters` iterations (CUDA
     events), then a torch.profiler window of 2 iterations by kernel."""
-    from tomojax_torch.fusion import data_fusion_step, make_fusion_system
-    from tomojax_torch.solvers import to_sl
-    from tomojax_torch.tv import tv_fgp_4d
-
-    dev = torch.device("cuda")
-    fsys = make_fusion_system(n, np.deg2rad(np.linspace(-76, 76, na)),
-                              np.deg2rad(np.linspace(-76, 76, nac)),
-                              np.ones(nel, np.float32), 1.6, dev)
-    rng = np.random.default_rng(0)
-
-    def draw(*shape):  # as bench.py draws them: float64, then float32
-        return to_sl(torch.from_numpy(
-            rng.random(shape).astype(np.float32)).to(dev))
-
-    x, bh, bc = draw(nel, ns, n, n), draw(ns, na, n), draw(nel, ns, nac, n)
-
-    def outer(v):
-        v, _, _ = data_fusion_step(v, bh, bc, fsys, 10.0, 0.05, 5)
-        return tv_fgp_4d(v, 5, 1e-4)[0]
-
+    x, outer = _fusion_outer(nel, ns, n, na, nac)
     with plain_versions_forbidden():
         v = outer(x)  # warm-up
         v, run_ms = _events_ms(lambda: _chain(outer, v, iters))
@@ -1982,6 +2303,57 @@ def _time_fusion_outer(card: str, nel=3, ns=128, n=256, na=90, nac=45,
           f"{nel * ns * n * n / (ms / 1e3) / 1e6:.1f}M voxel-iters/s over "
           f"{iters} iterations [{card}]")
     print("  profile (2 iterations): " + _profile_summary(prof, 2))
+
+
+def _fusion_outer(nel=3, ns=128, n=256, na=90, nac=45, group=None):
+    """bench.py's fusion problem on the card (random x, bh, bc from
+    default_rng(0), drawn as bench.py draws them: float64, then float32;
+    weights ones, gamma 1.6) and its outer iteration (lam_HAADF 10, lam_chem
+    0.05, iterSIRT 5, then tvIter 5 FGP iterations at lam_TV 1e-4), with
+    the group passed on: (x, outer)."""
+    from tomojax_torch.fusion import data_fusion_step, make_fusion_system
+    from tomojax_torch.solvers import to_sl
+    from tomojax_torch.tv import tv_fgp_4d
+
+    dev = torch.device("cuda")
+    fsys = make_fusion_system(n, np.deg2rad(np.linspace(-76, 76, na)),
+                              np.deg2rad(np.linspace(-76, 76, nac)),
+                              np.ones(nel, np.float32), 1.6, dev)
+    rng = np.random.default_rng(0)
+
+    def draw(*shape):
+        return to_sl(torch.from_numpy(
+            rng.random(shape).astype(np.float32)).to(dev))
+
+    x, bh, bc = draw(nel, ns, n, n), draw(ns, na, n), draw(nel, ns, nac, n)
+
+    def outer(v, g=group):
+        v, _, _ = data_fusion_step(v, bh, bc, fsys, 10.0, 0.05, 5, group=g)
+        return tv_fgp_4d(v, 5, 1e-4, group=g)[0]
+
+    return x, outer
+
+
+def _time_fusion_outer_sharded(card: str, group, iters=5) -> None:
+    """The fusion outer iteration with the group and without, in turn
+    (unsharded, sharded, sharded, unsharded), each over `iters` chained
+    iterations by CUDA events; median of 2 each."""
+    x, outer = _fusion_outer()
+    times = {True: [], False: []}
+    with plain_versions_forbidden():
+        outer(x, group)  # warm-up
+        for sharded in (False, True, True, False):
+            g = group if sharded else None
+            v, ms = _events_ms(lambda: _chain(lambda u: outer(u, g), x,
+                                              iters))
+            require(bool(torch.isfinite(v).all()),
+                    "sharded fusion outer iteration is not finite")
+            times[sharded].append(ms / iters)
+    sh, un = statistics.median(times[True]), statistics.median(times[False])
+    print(f"  fusion outer iteration 3x128x256^2, HAADF 90 / chemistry 45: "
+          f"sharded {sh:.3f} ms/iteration, unsharded {un:.3f} "
+          f"(+{100 * (sh / un - 1):.2f} %); median of 2 runs of {iters} "
+          f"iterations each, in turn [{card}]")
 
 
 def _chain(fn, v, k):
@@ -2002,24 +2374,29 @@ def _profiled(fn):
     return prof
 
 
-def _profile_summary(prof, iters: int) -> str:
+def _profile_summary(prof, iters: int, annotations=()) -> str:
     """Device ms per iteration by kernel name (the 12 largest), the total,
     and the idle share of the device window (1 - busy / first start to
-    last end)."""
+    last end). The device-side spans of annotated regions (`annotations`,
+    or marked as user annotations) are not work and are left out."""
     cuda = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.events() if e.device_type == cuda]
-    if not evs:
-        return "no device events"
+    evs = [e for e in prof.events() if e.device_type == cuda
+           and not getattr(e, "is_user_annotation", False)
+           and e.name not in annotations]
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs)) if evs else 0
+    if span <= 0:
+        return "not measured (no device events)"
     by = {}
     for e in evs:
         by[e.name] = by.get(e.name, 0.0) + (e.time_range.end
                                             - e.time_range.start)
     busy = sum(by.values())
-    span = (max(e.time_range.end for e in evs)
-            - min(e.time_range.start for e in evs))
     top = sorted(by.items(), key=lambda kv: -kv[1])[:12]
-    return (f"device busy {busy / iters / 1e3:.4f} ms/iteration, idle share "
-            f"{100 * (1 - busy / span):.2f} %; " + "; ".join(
+    return (f"device busy {busy / iters / 1e3:.4f} ms/iteration of a "
+            f"{span / iters / 1e3:.4f} ms window, idle share "
+            f"{100 * (1 - busy / span):.2f} % (busy share "
+            f"{100 * busy / span:.2f} %); " + "; ".join(
                 f"{name[:60]} {us / iters / 1e3:.4f}" for name, us in top))
 
 
@@ -2329,11 +2706,8 @@ def phase_stream_path(card: str, kernels: dict) -> dict:
     round, the same runs through an NCCL group of
     world size 1 (the unsharded dd at rtol 1e-5; K9c must launch; the
     slab saved and loaded bit for bit), and the checks at small size."""
-    import torch.distributed as dist
-
     from tomojax_torch import TomoTorch, ops
     from tomojax_torch import io as tio
-    from tomojax_torch.dist import init_distributed
     from tomojax_torch.stream import DynamicReconstructor, TiltWatcher
 
     ns, n, na = STREAM_SHAPE
@@ -2426,10 +2800,7 @@ def phase_stream_path(card: str, kernels: dict) -> dict:
     print(f"  profile of a CS round ({STREAM_ITERS} iterations): "
           + _profile_summary(prof_cs, STREAM_ITERS))
     # the same runs through an NCCL group of world size 1
-    store = ROOT / "build" / f"chip_smoke_stream_store_{os.getpid()}"
-    store.unlink(missing_ok=True)
-    group = init_distributed(f"file://{store}", 1, 0, device="cuda")
-    try:
+    with _nccl_group("stream") as group:
         sh = {}
         for alg, required in (("sirt", STREAM_KERNELS),
                               ("cs", STREAM_CS_KERNELS[:-2]
@@ -2453,14 +2824,71 @@ def phase_stream_path(card: str, kernels: dict) -> dict:
         back = tio.load_sharded(str(d), group)["x"]
         require(back.device == x.device and torch.equal(back, x),
                 "save_sharded / load_sharded of a CUDA slab is not exact")
-    finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
     print(f"  save_sharded / load_sharded of the {tuple(x.shape)} CUDA slab: "
           f"bit for bit")
     _check_stream_small(card)
     _check_few_angles(card)
     return {name: sum(c[name] for c in counts.values()) for name in kernels}
+
+
+EXTRAS_SHAPE = (128, 256)  # (Ns, N): a fusion element's volume
+EXTRAS_CHECK_SHAPE = (16, 64)  # the card against the CPU
+EXTRAS_CALLS = (("tv_chambolle(20)", "tv_chambolle", {"n_iter": 20}),
+                ("tv_split_bregman(10)", "tv_split_bregman", {"n_iter": 10}))
+
+
+def _noisy(ns: int, n: int) -> torch.Tensor:
+    """A nanocube (seed 0) with Gaussian noise 0.2 from default_rng(0),
+    slice-last, on the host."""
+    from tomojax_torch.sim import nanocube_phantom
+
+    vol = nanocube_phantom(ns, n)
+    noisy = vol + 0.2 * np.random.default_rng(0).standard_normal(
+        vol.shape).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(noisy.transpose(1, 2, 0)))
+
+
+def phase_extras(card: str, kernels: dict) -> dict:
+    """Phase 4i: tv.extras on the card, once each on a noisy 128 x 256^2
+    nanocube, timed by CUDA events: finite, and the TV value (K5) within
+    rtol 2e-5 of its plain version on the card. Then the same calls on a
+    16 x 64^2 nanocube on the card against the CPU (the volume within 1e-5
+    max|d|, the TV value within rtol 2e-5): the extras are plain PyTorch,
+    so the card and the CPU run the same expressions."""
+    from tomojax_torch.tv import extras
+    from tomojax_torch.tv.cuda_tv_value import tv_value_ref
+
+    ns, n = EXTRAS_SHAPE
+    x = _noisy(ns, n).cuda()
+    _reset(kernels)
+    runs = {}
+    with plain_versions_forbidden():
+        for label, name, kw in EXTRAS_CALLS:
+            runs[label] = _events_ms(lambda: getattr(extras, name)(x, **kw))
+    counts = _read(kernels, "extras path", ("K5_tv_value",))
+    cs, cn = EXTRAS_CHECK_SHAPE
+    small, tv_plain = _noisy(cs, cn), float(tv_value_ref(x))
+    out = []
+    for label, name, kw in EXTRAS_CALLS:
+        (d, tv0), ms = runs[label]
+        tv_rel = abs(float(tv0) - tv_plain) / tv_plain
+        require(bool(torch.isfinite(d).all()) and tv_rel <= 2e-5,
+                f"{label} at {ns}x{n}^2: not finite, or tv rel "
+                f"{tv_rel:.3e} (2e-5)")
+        d_card, tv_card = getattr(extras, name)(small.cuda(), **kw)
+        d_ref, tv_ref = getattr(extras, name)(small, **kw)
+        err = float((d_card.cpu() - d_ref).abs().max())
+        tol = 1e-5 * float(d_ref.abs().max())
+        rel = abs(float(tv_card) - float(tv_ref)) / abs(float(tv_ref))
+        require(err <= tol and rel <= 2e-5,
+                f"{label} at {cs}x{cn}^2 on the card vs the CPU: {err:.3e} "
+                f"(bound {tol:.3e}), tv rel {rel:.3e} (2e-5)")
+        out.append(f"{label} {ms:.3f} ms, tv rel {tv_rel:.2e}; at "
+                   f"{cs}x{cn}^2 vs the CPU {err:.2e} <= {tol:.2e}, tv rel "
+                   f"{rel:.2e}")
+    print(f"extras on the card {ns}x{n}^2 (one call each, CUDA events): "
+          + "; ".join(out) + f" [{card}]")
+    return counts
 
 
 # The experiment kernels, one row per TPU kernel of scripts/exp_*.py: (row,
@@ -3054,12 +3482,13 @@ def phase_golden_asd(card: str) -> None:
             "ASD-POCS golden trace outside its bounds")
 
 
-def phase_golden_fusion(card: str) -> None:
+def phase_golden_fusion(card: str, group=None) -> None:
     """tests/golden/fusion_jax_cpu.json: the reference's ChemicalTomo host
     loop on the CPU, replayed by the port on the card (its own system,
-    projections and kernels, float32 FGP duals) within the stored bounds.
-    The lambda_chem decay iterations are checked first: a mismatch there is
-    a flipped branch, not drift."""
+    projections and kernels, float32 FGP duals) within the stored bounds;
+    with a group through it (K9a/K9b, the costs all-reduced). The
+    lambda_chem decay iterations are checked first: a mismatch there is a
+    flipped branch, not drift."""
     from tomojax_torch import ChemicalTomo, config
 
     golden = json.loads(
@@ -3074,7 +3503,7 @@ def phase_golden_fusion(card: str) -> None:
     config.fgp_dual_dtype = torch.float32
     try:
         tomo = ChemicalTomo(haadf, ha, chem, ca, gamma=c["gamma"],
-                            sigmaMethod=c["sigma_method"])
+                            sigmaMethod=c["sigma_method"], group=group)
         tomo.chemical_tomography(Niter=c["chem_iters"],
                                  lambdaCHEM=c["lambda_chem"])
         trace = {"costCHEM_chem": tomo.costCHEM.copy()}
@@ -3098,7 +3527,8 @@ def phase_golden_fusion(card: str) -> None:
     rmse = tomo.rmse_per_element(gt.cpu().numpy())
     dev["rmse_final"] = float(np.max(np.abs(rmse - np.asarray(
         golden["rmse_final"]))))
-    print(f"golden fusion {c['nel']}x{c['ns']}x{c['n']}^2, HAADF "
+    through = "" if group is None else " through the group"
+    print(f"golden fusion {c['nel']}x{c['ns']}x{c['n']}^2{through}, HAADF "
           f"{c['na_haadf']} / chemistry {c['na_chem']} angles vs "
           f"{c['device']}: lambda_chem decays at {decays} as recorded; max "
           f"rel dev " + ", ".join(f"{k} {v:.3e} (<= {bd[k]})"
@@ -3193,6 +3623,36 @@ def projector_times_main() -> int:
     return 0
 
 
+def gap_study_main() -> int:
+    """`--gap-study`: only `_sharded_gap_study` on phase 4c's ASD-POCS
+    problem (256^3 x 90, defaults), with 16 profiled windows each way."""
+    from tomojax_torch import TomoTorch
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.sim import create_projections, nanocube_phantom
+    from tomojax_torch.solvers import (
+        AsdPocsParams, asd_pocs_run, make_sart_weights,
+    )
+
+    card = phase_device()
+    phase_build()
+    ns, n, na = 256, 256, 90
+    angles = np.linspace(-76, 76, na)
+    vol = torch.from_numpy(nanocube_phantom(ns, n)).cuda()
+    b = create_projections(vol, Geometry.make(n, np.deg2rad(angles)))
+    ref = TomoTorch(angles, b.permute(0, 2, 1).cpu().numpy(), device="cuda")
+    w = make_sart_weights(ref.sys)
+    x0 = torch.zeros((n, n, ns), device="cuda")
+
+    def run(g, k):
+        return asd_pocs_run(x0, ref.b_sl, ref.sys, w,
+                            AsdPocsParams(niter=k), group=g)
+
+    with _nccl_group("gap") as group, plain_versions_forbidden():
+        run(None, 1), run(group, 1)  # warm-up
+        _sharded_gap_study(run, group, card, windows=16)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3201,18 +3661,23 @@ def main() -> int:
         return projector_times_main()
     if sys.argv[1:] == ["--tv-times"]:
         return tv_times_main()
+    if sys.argv[1:] == ["--gap-study"]:
+        return gap_study_main()
     try:
         card = phase_device()
         phase_build()
         kernels = _kernel_table()
         rows = phase_kernels(card)
         paths = [phase_main_path(card, kernels),
-                 phase_asd_path(card, kernels),
-                 phase_sharded_path(card, kernels),
-                 phase_fusion_path(card, kernels),
-                 phase_variants(card, kernels),
-                 phase_sim_path(card, kernels),
-                 phase_stream_path(card, kernels)]
+                 phase_asd_path(card, kernels)]
+        with _nccl_group("sharded") as group:
+            paths += [phase_sharded_path(card, kernels, group),
+                      phase_sharded_fusion_path(card, kernels, group)]
+        paths += [phase_fusion_path(card, kernels),
+                  phase_variants(card, kernels),
+                  phase_sim_path(card, kernels),
+                  phase_stream_path(card, kernels),
+                  phase_extras(card, kernels)]
         exp_rows = phase_experiments(card)
         phase_golden(card)
         phase_golden_asd(card)
@@ -3222,7 +3687,7 @@ def main() -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     # launches: the kernel's count over the main paths' runs (phase 4a-e,
-    # g, h),
+    # g-i),
     # an experiment kernel's over its driver's run (phase 4f)
     report = [{"name": name, "route": "cuda", "source": src,
                "replaces": rep,

@@ -17,7 +17,9 @@ rtol 1e-5 (test_torch_tv.py's bounds for the same functions unsharded);
 sharded FISTA at tests/test_dist.py:268-271's (x rtol 1e-4 / atol 1e-5,
 dd and tv rtol 1e-4, f32 duals); sharded ASD-POCS at test_dist.py:324-326's
 (x atol 2e-3, dd rtol 1e-3); TomoTorch against TomoTPU at
-test_torch_api.py's and test_torch_asd_pocs.py's.
+test_torch_api.py's and test_torch_asd_pocs.py's; the sharded fusion at
+test_dist.py:136-137's (x atol 1e-5, costs rtol 1e-4), against tomojax on
+make_mesh(8) and against the unsharded port.
 """
 
 import time
@@ -32,9 +34,18 @@ torch.set_num_threads(2)
 
 import torch.multiprocessing as mp  # noqa: E402
 
+from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
+
+from tomojax import ChemicalTomo as JChemicalTomo  # noqa: E402
 from tomojax import TomoTPU, dist as jdist  # noqa: E402
 from tomojax import config as tjconfig  # noqa: E402
 from tomojax import tv as jtv  # noqa: E402
+from tomojax.fusion import (  # noqa: E402
+    data_distance_chem as j_ddc, data_fusion_step as j_step,
+    fp4d as j_fp4d, make_fusion_system as j_make_fsys,
+    model_haadf as j_model, poisson_ml_step_4d as j_pml,
+    rescale_projections as j_rescale, weights_for_elements as j_weights,
+)
 from tomojax.geometry import Geometry as JGeometry  # noqa: E402
 from tomojax.projector.joseph import fp as j_fp  # noqa: E402
 from tomojax.sim import shepp_logan  # noqa: E402
@@ -65,6 +76,11 @@ KL_NS, KL_LAM = 5, 0.5  # 5 slices over 2 ranks: one pad slice
 STREAM_ANGLES = np.asarray([0.0] + [s * k * 7.5 for k in range(1, 9)
                                      for s in (1, -1)][:15])
 SHARD_ARRAY = np.arange(4 * 2 * 3, dtype=np.float32).reshape(4, 2, 3)
+# the sharded fusion (tests/test_dist.py:101-178): 2 elements at N 24, Ns 16
+# (Ns 6 for the uneven case), HAADF 10 and chemistry 5 angles
+FU_N, FU_NS, FU_UNEVEN_NS = 24, 16, 6
+FU_H_DEG, FU_C_DEG = np.linspace(-70, 70, 10), np.linspace(-60, 60, 5)
+FU_ELEMENTS = ["c", "zn"]
 
 
 def _sl(a):
@@ -73,6 +89,44 @@ def _sl(a):
 
 def _public(a):
     return np.asarray(a).transpose(2, 0, 1)
+
+
+def _sl4(a):
+    """(Nel, Ns, A, B) -> slice-last (Nel, A, B, Ns)."""
+    return np.ascontiguousarray(np.asarray(a).transpose(0, 2, 3, 1))
+
+
+def _fusion_system():
+    w = j_weights(FU_ELEMENTS, 1.6, 3)
+    return j_make_fsys(FU_N, np.deg2rad(FU_H_DEG), np.deg2rad(FU_C_DEG), w,
+                       1.6)
+
+
+def _fusion_problem() -> dict:
+    """tests/test_dist.py's fusion problems (uniform ground truths from
+    default_rng(3), Ns 16, and default_rng(5), Ns 6), projected by tomojax;
+    its system as arrays; the series as ChemicalTomo takes them."""
+    jf = _fusion_system()
+    out = {"fu_n": FU_N, "fu_h_deg": FU_H_DEG, "fu_c_deg": FU_C_DEG,
+           "fu_h_rad": np.deg2rad(FU_H_DEG), "fu_c_rad": np.deg2rad(FU_C_DEG),
+           "fu_w": np.asarray(jf.weights), "fu_l_aps": np.asarray(jf.l_aps),
+           "fu_l_asig": np.asarray(jf.l_asig),
+           "fu_sart_w": np.asarray(make_sart_weights(jf.haadf))}
+    for tag, s in (("h", jf.haadf), ("c", jf.chem)):
+        out.update({f"fu_{tag}_row": np.asarray(s.row_sum),
+                    f"fu_{tag}_col": np.asarray(s.col_sum),
+                    f"fu_{tag}_lip": np.asarray(s.lipschitz)})
+    for suffix, seed, ns in (("", 3, FU_NS), ("_uneven", 5, FU_UNEVEN_NS)):
+        rng = np.random.default_rng(seed)
+        gt = rng.uniform(0, 1, (2, ns, FU_N, FU_N)).astype(np.float32)
+        bc = np.asarray(j_fp4d(jnp.asarray(gt), jf.chem))
+        bh = np.asarray(j_fp(j_model(jnp.asarray(gt), jf), jf.haadf.geom))
+        out.update({"fu_gt" + suffix: gt,
+                    "ct_haadf" + suffix: bh.transpose(0, 2, 1),
+                    "ct_chem" + suffix: bc.transpose(0, 1, 3, 2)})
+        if not suffix:
+            out.update(fu_gt_sl=_sl4(gt), fu_bc_sl=_sl4(bc), fu_bh_sl=_sl(bh))
+    return out
 
 
 def _problem() -> dict:
@@ -101,6 +155,7 @@ def _problem() -> dict:
         "fista_lam": FISTA_LAM, "fista_ntv": FISTA_NTV, "asd_ng": ASD_NG,
         "tomo_angles_deg": ANGLES_DEG,
         "tomo_series": np.ascontiguousarray(series, np.float32),
+        **_fusion_problem(),
     }
 
 
@@ -417,3 +472,178 @@ def test_kl_divergence_with_group(problem, ranks):
                                    atol=1e-4 * np.abs(want_x).max())
     assert got["kl_padded"].shape == (6, N, N)
     assert np.all(got["kl_padded"][5] == 0.0)
+
+
+# ------------------------------------------------------ the sharded fusion
+
+FU_X_KEYS = ("fu_sirt_x", "fu_sart_x", "fu_pml_x", "fu_fgp_d", "fu_gd_x",
+             "fu_rescale")
+FU_SCALAR_KEYS = ("fu_sirt_ch", "fu_sirt_cc", "fu_sart_ch", "fu_sart_cc",
+                  "fu_pml_cost", "fu_ddc", "fu_tv", "fu_fgp_tv", "fu_gd_tv")
+
+
+def _jax_chemical_tomo(problem, mesh) -> dict:
+    """rank_body.chemical_tomo_runs in tomojax on `mesh`, volumes
+    slice-last."""
+    out = {}
+    tomo = JChemicalTomo(problem["ct_haadf"], FU_H_DEG,
+                         dict(zip(FU_ELEMENTS, problem["ct_chem"])),
+                         FU_C_DEG, mesh=mesh)
+    for way, kw in rank_body.CT_WAYS.items():
+        tomo.chemical_tomography(**rank_body.CT_CHEM)
+        out["ct_chem_cost"] = tomo.costCHEM
+        tomo.data_fusion(**rank_body.CT_FUSION, **kw)
+        out[f"ct_{way}_costs"] = np.stack([tomo.costHAADF, tomo.costCHEM,
+                                           tomo.costTV])
+        out[f"ct_{way}_recon"] = tomo.get_recon()
+    out["ct_rmse"] = tomo.rmse_per_element(problem["fu_gt"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_fusion(problem):
+    """tomojax on make_mesh(8), as tests/test_dist.py runs it: the fusion
+    steps jitted on stacks sharded on the slice axis (XLA stencils), the
+    4D FGP and TV-GD through the sharded Pallas kernels in interpret mode
+    (per element, f32 duals), ChemicalTomo(mesh=). Slice-last, as the
+    ranks give theirs."""
+    mesh = jdist.make_mesh(8)
+    jf = _fusion_system()
+    sh4 = NamedSharding(mesh, P(None, "z", None, None))
+    gt = jax.device_put(jnp.asarray(problem["fu_gt"]), sh4)
+    bc = jax.device_put(jnp.asarray(_public4(problem["fu_bc_sl"])), sh4)
+    bh = jdist.shard_volume(jnp.asarray(_public(problem["fu_bh_sl"])), mesh)
+    x0 = jnp.zeros_like(gt)
+    w = jnp.asarray(problem["fu_sart_w"])
+    out = {}
+    for way, kw in (("sirt", {}), ("sart", {"method": "sart",
+                                            "sart_weights": w})):
+        x, ch, cc = jax.jit(lambda x, h, c, kw=kw: j_step(
+            x, h, c, jf, *rank_body.FU_STEP, **kw))(x0, bh, bc)
+        out.update({f"fu_{way}_x": _sl4(x), f"fu_{way}_ch": ch,
+                    f"fu_{way}_cc": cc})
+    x, out["fu_pml_cost"] = jax.jit(lambda x, c: j_pml(
+        x, c, jf, rank_body.FU_PML_LAM))(x0, bc)
+    out["fu_pml_x"] = _sl4(x)
+    out["fu_rescale"] = _sl(jax.jit(lambda g, h: j_rescale(g, h, jf))(gt, bh))
+    out["fu_ddc"] = jax.jit(lambda g, c: j_ddc(0.5 * g, c, jf))(gt, bc)
+    out["fu_tv"] = jax.jit(jtv.tv_4d)(gt)
+    prev = (tjconfig.tv_impl, tjconfig.fgp_dual_dtype)
+    try:
+        tjconfig.set_tv_impl("pallas", dual_dtype=jnp.float32)
+        with tjconfig.mesh_scope(mesh):
+            d, out["fu_fgp_tv"] = jax.jit(lambda v: jtv.tv_fgp_4d(
+                v, *rank_body.FU_FGP))(gt)
+            g, out["fu_gd_tv"] = jax.jit(lambda v: jtv.tv_gd_4d(
+                v, *rank_body.FU_GD))(gt)
+    finally:
+        tjconfig.set_tv_impl(prev[0], dual_dtype=prev[1])
+    out.update(fu_fgp_d=_sl4(d), fu_gd_x=_sl4(g))
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out.update(_jax_chemical_tomo(problem, mesh))
+    return out
+
+
+def _public4(a):
+    """Slice-last (Nel, A, B, Ns) -> (Nel, Ns, A, B)."""
+    return np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2))
+
+
+def _padded(problem, ns: int) -> dict:
+    """The uneven problem's series and ground truth with zero slices up to
+    `ns`, as the ranks pad them, under the uneven keys."""
+    pad = ns - FU_UNEVEN_NS
+    p = dict(problem)
+    for key, axis in (("ct_haadf_uneven", 0), ("ct_chem_uneven", 1),
+                      ("fu_gt_uneven", 1)):
+        width = [(0, 0)] * problem[key].ndim
+        width[axis] = (0, pad)
+        p[key] = np.pad(problem[key], width)
+    return p
+
+
+@pytest.fixture(scope="module")
+def port_fusion(problem):
+    """The same calls in the unsharded port (plain versions, f32 duals,
+    as the ranks run them); the uneven problem on the volume zero-padded to
+    8 slices, as 4 ranks pad it."""
+    saved = tomojax_torch.config.fgp_dual_dtype
+    tomojax_torch.config.fgp_dual_dtype = torch.float32
+    try:
+        out = {k: np.asarray(v)
+               for k, v in rank_body.fusion_steps(problem).items()}
+        out.update(rank_body.chemical_tomo_runs(problem, device="cpu"))
+        out.update(rank_body.chemical_tomo_runs(_padded(problem, 8),
+                                                "_uneven", device="cpu"))
+    finally:
+        tomojax_torch.config.fgp_dual_dtype = saved
+    return out
+
+
+@pytest.mark.parametrize("k", WORLDS)
+def test_sharded_fusion_steps_and_4d_tv_match_jax_and_unsharded(
+        ranks, jax_fusion, port_fusion, k):
+    """data_fusion_step (SIRT and SART) and poisson_ml_step_4d from zero,
+    rescale_projections, data_distance_chem and the 4D tv, tv_fgp and
+    tv_gd on the ground truth, with the group, against tomojax on
+    make_mesh(8) and the unsharded port, at test_dist.py:136-137's bounds:
+    stacks atol 1e-5, scalars rtol 1e-4. Measured at 1, 2 and 4 ranks:
+    against tomojax stacks within 1.9e-6 (the rescaled sinogram; the
+    volumes 4.8e-7), scalars within 3.3e-7; against the unsharded port
+    stacks within 6.0e-8, scalars within 8.1e-8."""
+    got = ranks(k)
+    for ref in (jax_fusion, port_fusion):
+        for key in FU_X_KEYS:
+            np.testing.assert_allclose(got[key], ref[key], atol=1e-5,
+                                       err_msg=key)
+        for key in FU_SCALAR_KEYS:
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-4,
+                                       err_msg=key)
+
+
+@pytest.mark.parametrize("k", WORLDS)
+def test_chemical_tomo_with_group_matches_jax_and_unsharded(
+        ranks, jax_fusion, port_fusion, k):
+    """ChemicalTomo(group=): chemical_tomography(5), then data_fusion(3) as
+    the host loop, fused=True and method='sart', each from a fresh
+    chemical_tomography. Against the unsharded port: volumes atol 1e-5,
+    costs rtol 1e-4 (measured: volumes 0.0, costs 4.9e-7); against
+    tomojax's ChemicalTomo(mesh=make_mesh(8)) the same bounds (measured:
+    volumes 5.1e-7, costs 2.4e-6). The lambda_chem decay takes the same
+    branches: no two consecutive HAADF costs lie within 1e-3 of each other
+    (the smallest gap measured 0.128)."""
+    got = ranks(k)
+    for ref in (port_fusion, jax_fusion):
+        np.testing.assert_allclose(got["ct_chem_cost"], ref["ct_chem_cost"],
+                                   rtol=1e-4)
+        for way in rank_body.CT_WAYS:
+            np.testing.assert_allclose(got[f"ct_{way}_costs"],
+                                       ref[f"ct_{way}_costs"], rtol=1e-4,
+                                       err_msg=way)
+            np.testing.assert_allclose(got[f"ct_{way}_recon"],
+                                       ref[f"ct_{way}_recon"], atol=1e-5,
+                                       err_msg=way)
+        np.testing.assert_allclose(got["ct_rmse"], ref["ct_rmse"], rtol=1e-4)
+    for way in rank_body.CT_WAYS:
+        ch = got[f"ct_{way}_costs"][0]
+        assert np.min(np.abs(np.diff(ch)) / ch[1:]) > 1e-3, way
+    assert got["ct_host_recon"].shape == (2, FU_NS, FU_N, FU_N)
+
+
+def test_chemical_tomo_with_group_uneven(ranks, port_fusion):
+    """Ns 6 over 4 ranks (tests/test_dist.py:148-178): the slice axis is
+    padded to 8, get_recon drops the padding, and the run equals the
+    unsharded port's on the same zero-padded volume (volumes atol 1e-5,
+    costs rtol 1e-4; measured 1.2e-7 and 1.1e-7)."""
+    got = ranks(4)
+    for way in rank_body.CT_WAYS:
+        rec = got[f"ct_{way}_recon_uneven"]
+        assert rec.shape == (2, FU_UNEVEN_NS, FU_N, FU_N)
+        assert np.isfinite(rec).all()
+        np.testing.assert_allclose(
+            rec, port_fusion[f"ct_{way}_recon_uneven"][:, :FU_UNEVEN_NS],
+            atol=1e-5, err_msg=way)
+        np.testing.assert_allclose(got[f"ct_{way}_costs_uneven"],
+                                   port_fusion[f"ct_{way}_costs_uneven"],
+                                   rtol=1e-4, err_msg=way)
+    assert got["ct_rmse_uneven"].shape == (2,)

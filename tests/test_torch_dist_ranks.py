@@ -14,6 +14,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+# the sharded fusion cases (tests/test_dist.py's problem): ChemicalTomo's
+# calls, shared with the parent, which runs them unsharded and in tomojax
+CT_CHEM = {"Niter": 5, "lambdaCHEM": 0.2}
+CT_FUSION = {"Niter": 3, "lambdaHAADF": 0.5, "iterSIRT": 2, "tvIter": 3,
+             "lambdaTV": 1e-3}
+CT_WAYS = {"host": {}, "fused": {"fused": True}, "sart": {"method": "sart"}}
+FU_STEP = (0.5, 0.05, 2)  # lam_haadf, lam_chem, iter_sirt
+FU_PML_LAM = 0.2
+FU_FGP, FU_GD = (3, 0.1), (4, 0.05)  # (iterations, lam), (ng, dpocs)
+
 
 def run(rank: int, world: int, init_file: str, problem_file: str,
         out_file: str) -> None:
@@ -230,6 +240,95 @@ def _kl(group, p: dict) -> dict:
             "kl_padded": gather_slabs(tomo.x, group, 0).numpy()}
 
 
+def fusion_system(p: dict, device="cpu"):
+    """The reference's fusion system of the problem, carried across."""
+    from tomojax_torch.convert import fusion_system_from_numpy
+    from tomojax_torch.geometry import Geometry
+
+    n = int(p["fu_n"])
+    return fusion_system_from_numpy(
+        (Geometry.make(n, p["fu_h_rad"]), p["fu_h_row"], p["fu_h_col"],
+         p["fu_h_lip"]),
+        (Geometry.make(n, p["fu_c_rad"]), p["fu_c_row"], p["fu_c_col"],
+         p["fu_c_lip"]),
+        p["fu_w"], 1.6, p["fu_l_aps"], p["fu_l_asig"], device)
+
+
+def fusion_steps(p: dict, group=None, cut=None) -> dict:
+    """The fusion functions and the 4D TV on the problem's slice-last
+    stacks: from zero the fused step (SIRT and SART) and the Poisson-ML
+    step; on the ground truth the rescale and the 4D TV value, FGP and
+    TV-GD; the chemistry distance of half the ground truth. `cut(a,
+    axis)` gives this rank's slab of a whole array (None: the whole array
+    as a tensor); the results are the rank's slabs and the all-reduced
+    scalars."""
+    from tomojax_torch.convert import sart_weights_from_numpy
+    from tomojax_torch.fusion import (
+        data_distance_chem, data_fusion_step, poisson_ml_step_4d,
+        rescale_projections,
+    )
+    from tomojax_torch.tv import tv_4d, tv_fgp_4d, tv_gd_4d
+
+    cut = cut or (lambda a, axis: torch.from_numpy(np.array(a, np.float32)))
+    fsys = fusion_system(p)
+    gt, bh, bc = (cut(p["fu_gt_sl"], 3), cut(p["fu_bh_sl"], 2),
+                  cut(p["fu_bc_sl"], 3))
+    x0 = torch.zeros_like(gt)
+    w = sart_weights_from_numpy(p["fu_sart_w"], "cpu")
+    out = {}
+    for way, kw in (("sirt", {}), ("sart", {"method": "sart",
+                                            "sart_weights": w})):
+        x, ch, cc = data_fusion_step(x0, bh, bc, fsys, *FU_STEP, group=group,
+                                     **kw)
+        out.update({f"fu_{way}_x": x, f"fu_{way}_ch": ch,
+                    f"fu_{way}_cc": cc})
+    out["fu_pml_x"], out["fu_pml_cost"] = poisson_ml_step_4d(
+        x0, bc, fsys, FU_PML_LAM, group)
+    out["fu_rescale"] = rescale_projections(gt, bh, fsys, group)
+    out["fu_ddc"] = data_distance_chem(0.5 * gt, bc, fsys, group)
+    out["fu_tv"] = tv_4d(gt, group)
+    out["fu_fgp_d"], out["fu_fgp_tv"] = tv_fgp_4d(gt, *FU_FGP, group=group)
+    out["fu_gd_x"], out["fu_gd_tv"] = tv_gd_4d(gt, *FU_GD, group=group)
+    return out
+
+
+def chemical_tomo_runs(p: dict, suffix: str = "", group=None,
+                       device=None) -> dict:
+    """ChemicalTomo on the problem's series (suffix "_uneven": the Ns 6
+    problem): chemical_tomography, then data_fusion each way of CT_WAYS
+    from a fresh chemical_tomography; the costs and get_recon of each."""
+    from tomojax_torch import ChemicalTomo
+
+    haadf, chem = p["ct_haadf" + suffix], p["ct_chem" + suffix]
+    tomo = ChemicalTomo(haadf, p["fu_h_deg"], {"c": chem[0], "zn": chem[1]},
+                        p["fu_c_deg"], device=device, group=group)
+    out = {}
+    for way, kw in CT_WAYS.items():
+        tomo.chemical_tomography(**CT_CHEM)
+        out["ct_chem_cost" + suffix] = tomo.costCHEM
+        tomo.data_fusion(**CT_FUSION, **kw)
+        out[f"ct_{way}_costs{suffix}"] = np.stack(
+            [tomo.costHAADF, tomo.costCHEM, tomo.costTV])
+        out[f"ct_{way}_recon{suffix}"] = tomo.get_recon()
+    out["ct_rmse" + suffix] = tomo.rmse_per_element(p["fu_gt" + suffix])
+    return out
+
+
+def _fusion(group, p: dict) -> dict:
+    from tomojax_torch.convert import slab_from_numpy
+
+    out = fusion_steps(p, group, lambda a, axis: slab_from_numpy(a, group,
+                                                                 axis))
+    for key in ("fu_sirt_x", "fu_sart_x", "fu_pml_x", "fu_fgp_d", "fu_gd_x"):
+        out[key] = _gather(out[key], group, 3)
+    out["fu_rescale"] = _gather(out["fu_rescale"], group, 2)
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out.update(chemical_tomo_runs(p, group=group))
+    if group.size == 4:  # Ns 6 over 4 ranks: two pad slices
+        out.update(chemical_tomo_runs(p, "_uneven", group))
+    return out
+
+
 def _compute(group, p: dict, work: str) -> dict:
     from tomojax_torch import config
 
@@ -238,6 +337,7 @@ def _compute(group, p: dict, work: str) -> dict:
     out.update(_tv(group, p))
     out.update(_solvers(group, p))
     out.update(_tomo(group, p))
+    out.update(_fusion(group, p))
     if group.size == 2:  # the streaming cases run in the 2-rank spawn only
         os.makedirs(work, exist_ok=True)
         out.update(_stream(group, p, work))

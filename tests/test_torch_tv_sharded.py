@@ -204,6 +204,17 @@ def test_reference_mpi_model_matches_jax(k):
     assert not np.allclose(got.numpy(), alt.numpy(), atol=1e-5)
 
 
+def test_reference_mpi_is_3d_only():
+    """The reference asserts a 3D volume for compat='reference-mpi'
+    (tomojax/tv/__init__.py:129); the port raises for a 4D stack."""
+    x = torch.from_numpy(np.stack([_sl(_vol(7))] * 2))
+    with pytest.raises(ValueError, match="reference-mpi"):
+        tv_gd(x, 1, 0.05, compat="reference-mpi", axis_norm=(1, 2, 3))
+    with pytest.raises(AssertionError):
+        jtv.tv_gd(jnp.asarray(np.stack([_vol(7)] * 2)), 1, 0.05,
+                  axis_norm=(1, 2, 3), compat="reference-mpi")
+
+
 def test_halo_wrappers_take_plain_versions_on_cpu_and_check_operands():
     x = _sl(_vol(8, (6, 5, 7)))
     p = tuple(torch.full(x.shape, 0.1) for _ in range(3))

@@ -17,23 +17,27 @@
                         chem_angles_deg)             # device="cuda"
     chem.chemical_tomography(Niter=50).data_fusion(Niter=50)
     recon = chem.get_recon()                  # (Nel, Nslice, Nray, Nray)
+    chem.display_recon("elements.png")        # tomo.show_recon(path),
+                                              # tomo.plot_convergence(path)
 
 The tilt series is (Nslice, Nray, Nangles), as in the reference. Every
 tensor lives on the device given at construction: there is no automatic
 device choice, and device="cuda" on a machine without CUDA raises.
 
-Slab-sharded runs (counterpart of ``TomoTPU(mesh=...)``): every rank
-constructs ``TomoTorch(angles, series, group=g)`` with the whole series
+Slab-sharded runs (counterpart of ``TomoTPU(mesh=...)`` and
+``ChemicalTomo(mesh=...)``): every rank constructs ``TomoTorch(angles,
+series, group=g)`` or ``ChemicalTomo(..., group=g)`` with the whole series
 and the `SlabGroup` of ``tomojax_torch.dist.init_distributed``, then makes
 the same calls. Each rank keeps the slices of its z-slab; the solvers
 exchange halo planes and all-reduce their scalars, and ``get_recon``
-gathers the slabs (a collective: every rank calls it). When Nslice is not
+gathers the slabs (a collective: every rank calls it, as it calls the
+plotting methods, which gather first). When Nslice is not
 a multiple of the group size, the slice axis is padded with zero slices at
 the high end, as the JAX package pads it: the data term does not see the
 padding, but the periodic TV wrap then couples slice Nslice - 1 to a zero
-slice instead of slice 0, so TV-regularised results (fista, asd_pocs)
-differ from the unsharded run near that boundary. For the same result as
-one device, choose Nslice divisible by the group size.
+slice instead of slice 0, so TV-regularised results (fista, asd_pocs,
+data_fusion) differ from the unsharded run near that boundary. For the
+same result as one device, choose Nslice divisible by the group size.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tomojax_torch import ops
+from tomojax_torch import ops, viz
 from tomojax_torch import tv as tvmod
 from tomojax_torch.dist import (
     SlabGroup, all_reduce_max, all_reduce_sum, gather_slabs, pad_slices,
@@ -93,6 +97,12 @@ def _device(device, owner: str) -> torch.device:
     return device
 
 
+def _slab(a: torch.Tensor, group: SlabGroup, axis: int) -> torch.Tensor:
+    """This rank's slab of the whole host tensor `a` on `axis`, padded
+    first with zero slices to a multiple of the group size."""
+    return shard_global(pad_slices(a, group, axis)[0], group, axis)
+
+
 def _to_sinogram(tilt_series: np.ndarray) -> np.ndarray:
     """(Nslice, Nray, Nangles) -> the slice-last sinogram (Nangles, Nray,
     Nslice), contiguous float32."""
@@ -140,8 +150,7 @@ class TomoTorch:
         if self.group is None:
             self.b_sl = b_sl.to(self.device)
         else:
-            self.b_sl = shard_global(pad_slices(b_sl, self.group, 2)[0],
-                                     self.group, 2)
+            self.b_sl = _slab(b_sl, self.group, 2)
         self._sart_w = None
         self.restart_recon()
 
@@ -376,6 +385,16 @@ class TomoTorch:
         return from_sl(self._whole(fp_sl(to_sl(self.x), self.geom),
                                    2)).cpu().numpy()
 
+    def plot_convergence(self, path: str | None = None):
+        """Scatter of ``self.cost`` against the iteration (`viz`); saved to
+        `path`, or shown."""
+        return viz.plot_convergence(self.cost, path=path)
+
+    def show_recon(self, path: str | None = None):
+        """The three central planes of the reconstruction (`viz`); a
+        collective with a group (it gathers the slabs)."""
+        return viz.show_volume(self.get_recon(), path=path)
+
     @staticmethod
     def _check_init(init: str) -> str:
         if init not in ("sequential", "random"):
@@ -445,20 +464,34 @@ class Simulator(TomoTorch):
 
 
 class ChemicalTomo:
-    """Fused multi-modal reconstructor on one device (counterpart of
-    ``tomojax.api.ChemicalTomo``, the reference's
-    chemistry/reconstructor.py).
+    """Fused multi-modal reconstructor on one device, or on one z-slab per
+    rank of a `SlabGroup` (counterpart of ``tomojax.api.ChemicalTomo``, the
+    reference's chemistry/reconstructor.py).
 
     haadf: the HAADF tilt series (Nslice, Nray, NaH); chem: element symbol
     -> its tilt series (Nslice, Nray, NaC); angles in degrees. Both are
     clamped to >= 0 and normalised to max 1 on the host, as the reference
     does. The state lives slice-last on `device` (default "cuda", which
     raises where torch finds no CUDA): x (Nel, Nray, Nray, Nslice), the
-    sinograms (NaH, Nray, Nslice) and (Nel, NaC, Nray, Nslice)."""
+    sinograms (NaH, Nray, Nslice) and (Nel, NaC, Nray, Nslice).
+
+    With a group (then no device), every rank passes the whole series and
+    keeps its slab of each stack: the slice axis is padded with zero slices
+    to a multiple of the group size, as the reference pads it on a mesh,
+    and cut into one slab per rank. The costs are all-reduced, so every
+    rank reads the same values and takes the same lambdaCHEM decay;
+    `get_recon`, `rmse_per_element` and `display_recon` gather the slabs
+    (collectives) and drop the padding."""
 
     def __init__(self, haadf, haadfTiltAngles, chem: dict, chemTiltAngles,
-                 gamma: float = 1.6, sigmaMethod: int = 3, device=None):
-        self.device = _device(device, "ChemicalTomo")
+                 gamma: float = 1.6, sigmaMethod: int = 3, device=None,
+                 group: SlabGroup | None = None):
+        if group is not None and device is not None:
+            raise ValueError("pass a device or a group, not both: a group's "
+                             "tensors live on group.device")
+        self.group = group
+        self.device = _device(device if group is None else group.device,
+                              "ChemicalTomo")
         haadf = np.asarray(haadf, np.float32)
         if haadf.ndim != 3 or haadf.shape[2] != len(haadfTiltAngles):
             raise ValueError(f"haadf {haadf.shape} must be (Nslice, Nray, "
@@ -476,15 +509,21 @@ class ChemicalTomo:
                 raise ValueError(f"chem[{el!r}] {c.shape}, expected {want}")
             stack.append(_to_sinogram(c / max(c.max(), 1e-30)))
         h = np.maximum(haadf, 0)
-        self.b_haadf = torch.from_numpy(
-            _to_sinogram(h / max(h.max(), 1e-30))).to(self.device)
-        self.b_chem = torch.from_numpy(np.stack(stack)).to(self.device)
+        b_haadf = torch.from_numpy(_to_sinogram(h / max(h.max(), 1e-30)))
+        b_chem = torch.from_numpy(np.stack(stack))
+        if group is None:
+            self.b_haadf = b_haadf.to(self.device)
+            self.b_chem = b_chem.to(self.device)
+        else:
+            self.b_haadf = _slab(b_haadf, group, 2)
+            self.b_chem = _slab(b_chem, group, 3)
         self.fsys = make_fusion_system(
             self.ny, np.deg2rad(np.asarray(haadfTiltAngles, np.float64)),
             np.deg2rad(np.asarray(chemTiltAngles, np.float64)),
             weights_for_elements(self.elements, gamma, sigmaMethod), gamma,
             self.device)
-        self.x = torch.zeros((self.nel, self.ny, self.ny, self.nx),
+        self.x = torch.zeros((self.nel, self.ny, self.ny,
+                              self.b_haadf.shape[2]),
                              dtype=torch.float32, device=self.device)
         self.reconTotal = None
         self.chemistry_reconstructed = False
@@ -503,7 +542,7 @@ class ChemicalTomo:
         costs = []
         for _ in range(Niter):
             self.x, c = poisson_ml_step_4d(self.x, self.b_chem, self.fsys,
-                                           lambdaCHEM)
+                                           lambdaCHEM, self.group)
             costs.append(c)
         self.costCHEM = (torch.stack(costs).cpu().numpy() if costs
                          else np.zeros(Niter, np.float32))
@@ -514,7 +553,8 @@ class ChemicalTomo:
     def _rescale_data(self, scale: float = 10.0):
         """reconstructor.py:227-236."""
         self.x = rescale_tomograms(self.x, scale)
-        self.b_haadf = rescale_projections(self.x, self.b_haadf, self.fsys)
+        self.b_haadf = rescale_projections(self.x, self.b_haadf, self.fsys,
+                                           self.group)
 
     def data_fusion(self, Niter: int = 50, lambdaCHEM: float = 5e-2,
                     lambdaHAADF: float = 10.0, lambdaTV: float = 1e-4,
@@ -540,7 +580,8 @@ class ChemicalTomo:
             self.x, metrics = data_fusion_run(
                 self.x, self.b_haadf, self.b_chem, self.fsys, lambdaHAADF,
                 lambdaCHEM, Niter, iterSIRT, tvIter, lambdaTV,
-                self.reduceLambda, normalize_haadf, method, sart_w)
+                self.reduceLambda, normalize_haadf, method, sart_w,
+                self.group)
             m = metrics.cpu().numpy()
         else:
             m = np.zeros((Niter, 3), np.float32)
@@ -549,8 +590,9 @@ class ChemicalTomo:
                 self.x, ch, cc = data_fusion_step(
                     self.x, self.b_haadf, self.b_chem, self.fsys,
                     lambdaHAADF, lam_chem, iterSIRT, normalize_haadf, method,
-                    sart_w)
-                self.x, tv0 = tv_fgp_4d(self.x, tvIter, lambdaTV)
+                    sart_w, self.group)
+                self.x, tv0 = tv_fgp_4d(self.x, tvIter, lambdaTV,
+                                        group=self.group)
                 m[i] = torch.stack([ch, cc, tv0]).cpu().numpy()
                 if self.reduceLambda and i > 0 and m[i, 0] > m[i - 1, 0]:
                     lam_chem *= 0.95
@@ -558,16 +600,29 @@ class ChemicalTomo:
         self.reconTotal = None
         return self
 
+    def _whole(self) -> torch.Tensor:
+        """The state (Nel, Nray, Nray, Nslice) without the padding: with a
+        group the slabs gathered on every rank (a collective)."""
+        if self.group is None:
+            return self.x
+        return unpad_slices(gather_slabs(self.x, self.group, 3), self.nx, 3)
+
     def rmse_per_element(self, ground_truth) -> np.ndarray:
         """Per-element RMSE against the (Nel, Nslice, Nray, Nray) ground
-        truth."""
+        truth; a collective with a group."""
         gt = torch.as_tensor(np.asarray(ground_truth, np.float32),
                              device=self.device)
-        return ops.rmse_per_element(from_sl(self.x), gt).cpu().numpy()
+        return ops.rmse_per_element(from_sl(self._whole()), gt).cpu().numpy()
 
     def get_recon(self) -> np.ndarray:
         """(Nel, Nslice, Nray, Nray) float32 numpy
-        (reconstructor.py:238-249)."""
+        (reconstructor.py:238-249); with a group the gathered slabs without
+        the padding, on every rank."""
         if self.reconTotal is None:
-            self.reconTotal = from_sl(self.x).cpu().numpy()
+            self.reconTotal = from_sl(self._whole()).cpu().numpy()
         return self.reconTotal
+
+    def display_recon(self, path: str | None = None):
+        """Each element's map at the central slice side by side (`viz`);
+        a collective with a group (it gathers the slabs)."""
+        return viz.show_elements(self.get_recon(), self.elements, path=path)

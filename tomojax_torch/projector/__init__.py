@@ -9,6 +9,12 @@ from tomojax_torch.projector.cuda_joseph import (
     fp_resid_sl,
     fp_sl,
 )
-from tomojax_torch.projector.joseph import bp, fp
+from tomojax_torch.projector.joseph import (
+    bp,
+    bp_adjointable,
+    fp,
+    fp_adjointable,
+)
 
-__all__ = ["fp", "bp", "fp_sl", "fp_resid_sl", "bp_sl", "bp_sirt_sl"]
+__all__ = ["fp", "bp", "fp_adjointable", "bp_adjointable", "fp_sl",
+           "fp_resid_sl", "bp_sl", "bp_sirt_sl"]

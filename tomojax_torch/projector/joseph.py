@@ -11,7 +11,9 @@ Both use the closed form of that module's docstring,
 which holds at most two nonzero taps per (pixel, angle), so both operators
 are 2-point gathers. The work happens slice-last in
 ``projector/cuda_joseph.py``: the plain gathers on the CPU, kernels K1
-and K2 with their epilogues off on the card.
+and K2 with their epilogues off on the card. ``fp_adjointable`` and
+``bp_adjointable`` are the same operators for autograd, each
+differentiated by the other (the reference's ``jax.custom_vjp`` pair).
 """
 
 from __future__ import annotations
@@ -32,3 +34,35 @@ def bp(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
     """Matched backprojection A^T y : (Ns, Nproj, Nray) -> (Ns, N, N)."""
     aty = bp_sl(y.permute(1, 2, 0).contiguous(), geom)
     return aty.permute(2, 0, 1).contiguous()
+
+
+class _FpAdjointable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, geom):
+        ctx.geom = geom
+        return fp(x, geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        return bp(g, ctx.geom), None
+
+
+class _BpAdjointable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, geom):
+        ctx.geom = geom
+        return bp(y, geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fp(g, ctx.geom), None
+
+
+def fp_adjointable(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """`fp` whose gradient is `bp` of the output's gradient."""
+    return _FpAdjointable.apply(x, geom)
+
+
+def bp_adjointable(y: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """`bp` whose gradient is `fp` of the output's gradient."""
+    return _BpAdjointable.apply(y, geom)

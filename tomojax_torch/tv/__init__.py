@@ -15,11 +15,14 @@ K5 launch for the stack),
 ``tv_fgp`` runs the 3D chain per element, and ``tv_gd`` with
 axis_norm=(1, 2, 3) runs K7 per element with each element's norm.
 
-With ``group=`` (a `tomojax_torch.dist.SlabGroup`, even of size 1) the
-volume is this rank's slice-last slab (N, N, n_loc) of a z-sharded volume
-and the functions compute what they compute on the whole volume: the
+With ``group=`` (a `tomojax_torch.dist.SlabGroup`, even of size 1) a 3D
+volume is this rank's slice-last slab (N, N, n_loc) of a z-sharded volume,
+and a 4D stack is this rank's slab (Nel, N, N, n_loc) of each element. The
+functions compute what they compute on the whole volume or stack: the
 stencils take their slab-axis neighbours from halo planes (K5 with a
-right halo, K9a/K9b, K9c) and the scalars are all-reduced.
+right halo, one launch for a stack; K9a/K9b and K9c per element) and the
+scalars are all-reduced. Every rank loops over the elements in the same
+order, so the halo exchanges and all-reduces pair up across the ranks.
 """
 
 from __future__ import annotations
@@ -39,40 +42,32 @@ COMPAT = ("global", "reference-mpi")
 def tv(x: torch.Tensor, group: SlabGroup | None = None) -> torch.Tensor:
     """Isotropic periodic TV of a 3D volume, or the summed per-element TV
     of a 4D (Nel, ...) stack (0-dim tensor). With a group: the TV of the
-    whole z-sharded volume, the wrap on axis 2 crossing the slabs as a
-    ring, on every rank."""
+    whole z-sharded volume (or stack), the wrap on the slice axis crossing
+    the slabs as a ring, on every rank: one right halo plane per element
+    and one K5 launch."""
     if group is not None:
-        if x.dim() != 3:
-            raise ValueError(f"tv with a group takes a 3D slab, got "
-                             f"{tuple(x.shape)}")
-        _, hi = halo_exchange(x[:, :, 0].contiguous(), None, group,
-                              ring=True)
+        _, hi = halo_exchange(x[..., 0].contiguous(), None, group, ring=True)
         return all_reduce_sum(tv_value(x, hi), group)
     return tv_value(x)
-
-
-def _no_group_4d(x: torch.Tensor, group) -> None:
-    if group is not None:
-        raise ValueError(f"4D stacks {tuple(x.shape)} take no group: "
-                         f"sharded 4D TV is not ported")
 
 
 def tv_fgp(x: torch.Tensor, n_iter: int, lam: float, dual_dtype=None,
            group: SlabGroup | None = None):
     """Reference-faithful FGP TV denoise of a 3D volume, of this rank's
     slab with a group (K9a/K9b), or of each element of a 4D (Nel, ...)
-    stack (the 3D chain per element; the TV values are summed).
+    stack (the 3D chain, or with a group the slab chain, per element; the
+    TV values are summed).
 
     Returns (denoised, tv_of_input), as ``tomojax.tv.tv_fgp`` does. The
     duals are stored as ``dual_dtype`` (default config.fgp_dual_dtype,
     bfloat16); pass torch.float32 for the reference's all-f32 result."""
-    if x.dim() == 4:
-        _no_group_4d(x, group)
-        return (torch.stack([tv_fgp_fused(xe, n_iter, lam, dual_dtype)
-                             for xe in x]), tv(x))
-    if group is None:
-        return tv_fgp_fused(x, n_iter, lam, dual_dtype), tv(x)
-    return tv_fgp_sharded(x, n_iter, lam, group, dual_dtype), tv(x, group)
+    def prox(v):
+        if group is None:
+            return tv_fgp_fused(v, n_iter, lam, dual_dtype)
+        return tv_fgp_sharded(v, n_iter, lam, group, dual_dtype)
+
+    d = torch.stack([prox(xe) for xe in x]) if x.dim() == 4 else prox(x)
+    return d, tv(x, group)
 
 
 def tv_gd(x: torch.Tensor, ng: int, dpocs, group: SlabGroup | None = None,
@@ -87,8 +82,9 @@ def tv_gd(x: torch.Tensor, ng: int, dpocs, group: SlabGroup | None = None,
     steps never wait for the host.
 
     A 4D (Nel, ...) stack takes axis_norm=(1, 2, 3) (the reference's 4D
-    TV-GD): K7 per element, each normalised by its own norm. 3D volumes
-    take axis_norm=None.
+    TV-GD): K7 per element, each normalised by its own norm; with a group
+    K9c per element, each element's norm all-reduced. 3D volumes take
+    axis_norm=None.
 
     compat='reference-mpi' with a group reproduces the reference's
     multi-rank TV-GD (``tomojax.tv._tv_gd_reference_mpi``): every rank
@@ -96,12 +92,18 @@ def tv_gd(x: torch.Tensor, ng: int, dpocs, group: SlabGroup | None = None,
     normalised by its local norm, and the returned TV value is the sum of
     the slabs' local periodic TVs. Its result depends on the number of
     ranks, on purpose; without a group, or with one rank, it is the
-    default."""
+    default. It models the 3D multi-rank path only, as in the reference."""
     if compat not in COMPAT:
         raise ValueError(f"compat must be one of {COMPAT}: {compat!r}")
+    if compat == "reference-mpi" and x.dim() != 3:
+        raise ValueError(f"compat='reference-mpi' takes a 3D volume, got "
+                         f"{tuple(x.shape)}")
     if x.dim() == 4 and axis_norm == (1, 2, 3):
-        _no_group_4d(x, group)
-        return _tv_gd_4d(x, ng, dpocs)
+        if group is None:
+            x_new = [tv_descent(xe, ng, dpocs) for xe in x]
+        else:
+            x_new = [tv_gd_sharded(xe, ng, dpocs, group) for xe in x]
+        return torch.stack(x_new), tv(x, group)
     if x.dim() != 3 or axis_norm is not None:
         raise ValueError(f"tv_gd takes a 3D volume with axis_norm None or "
                          f"a 4D stack with axis_norm (1, 2, 3), got "
@@ -115,35 +117,33 @@ def tv_gd(x: torch.Tensor, ng: int, dpocs, group: SlabGroup | None = None,
     return tv_descent(x, ng, dpocs), tv0
 
 
-def _tv_gd_4d(x: torch.Tensor, ng: int, dpocs):
-    """TV-GD of a 4D stack: K7 and the step per element, each element's
-    own norm."""
-    return torch.stack([tv_descent(xe, ng, dpocs) for xe in x]), tv(x)
-
-
-def tv_4d(x: torch.Tensor) -> torch.Tensor:
-    """Summed per-element TV of a (Nel, ...) stack (0-dim tensor)."""
+def tv_4d(x: torch.Tensor, group: SlabGroup | None = None) -> torch.Tensor:
+    """Summed per-element TV of a (Nel, ...) stack, or of the z-sharded
+    stack whose slabs the ranks of `group` hold (0-dim tensor)."""
     if x.dim() != 4:
         raise ValueError(f"tv_4d takes a 4D stack, got {tuple(x.shape)}")
-    return tv(x)
+    return tv(x, group)
 
 
-def tv_fgp_4d(x: torch.Tensor, n_iter: int, lam: float):
-    """Per-element FGP of a (Nel, ...) stack: (denoised, summed TV of the
-    input); the stencils never cross the element axis. The duals are
-    stored as config.fgp_dual_dtype."""
+def tv_fgp_4d(x: torch.Tensor, n_iter: int, lam: float, dual_dtype=None,
+              group: SlabGroup | None = None):
+    """Per-element FGP of a (Nel, ...) stack, or of this rank's slabs of
+    it with a group: (denoised, summed TV of the input); the stencils never
+    cross the element axis. The duals are stored as ``dual_dtype``
+    (default config.fgp_dual_dtype)."""
     if x.dim() != 4:
         raise ValueError(f"tv_fgp_4d takes a 4D stack, got "
                          f"{tuple(x.shape)}")
-    return tv_fgp(x, n_iter, lam)
+    return tv_fgp(x, n_iter, lam, dual_dtype, group)
 
 
-def tv_gd_4d(x: torch.Tensor, ng: int, dpocs):
-    """Per-element TV-GD of a (Nel, ...) stack, each element normalised by
-    its own gradient norm."""
+def tv_gd_4d(x: torch.Tensor, ng: int, dpocs,
+             group: SlabGroup | None = None):
+    """Per-element TV-GD of a (Nel, ...) stack, or of this rank's slabs of
+    it with a group, each element normalised by its own gradient norm."""
     if x.dim() != 4:
         raise ValueError(f"tv_gd_4d takes a 4D stack, got {tuple(x.shape)}")
-    return tv_gd(x, ng, dpocs, axis_norm=(1, 2, 3))
+    return tv_gd(x, ng, dpocs, group, axis_norm=(1, 2, 3))
 
 
 __all__ = ["EPS_TV", "tv", "tv_4d", "tv_fgp", "tv_fgp_4d", "tv_fgp_fused",
