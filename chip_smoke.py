@@ -202,6 +202,7 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -3623,6 +3624,72 @@ def projector_times_main() -> int:
     return 0
 
 
+def art_times(geom, ns: int, card: str, tree: str) -> dict:
+    """A1's ms a sweep (CUDA events over 3 back-to-back sweeps from zero on
+    nanocube projections) for every slices-a-block instantiation,
+    angle-major and in a random order (randperm, seed 0), and, where the
+    tree has them (`cuda_art.VARIANTS`), each variant angle-major with the
+    cycles a ray it saves against FULL at the card's SM clock."""
+    from tomojax_torch.experiments.timing import batch_ms
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import cuda_art, to_sl
+
+    dev = torch.device("cuda")
+    n, na, nt = geom.n, geom.nproj, geom.nray
+    rays = na * nt
+    b = fp_sl(to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev)), geom)
+    x0 = torch.zeros((n, n, ns), device=dev)
+    seq = torch.arange(rays, dtype=torch.int32, device=dev)
+    perm = torch.randperm(rays, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(device=dev, dtype=torch.int32)
+    variants = getattr(cuda_art, "VARIANTS", ("FULL",))
+    out = {}
+    for sl in cuda_art.SLICES:
+        row = {"random": batch_ms(lambda: cuda_art.art_sweep_sl(
+            x0, b, geom, 1.0, perm, sl), 3, dev)}
+        for v in variants:
+            fn = (cuda_art.art_sweep_sl if v == "FULL" else functools.partial(
+                cuda_art.art_variant, variant=v))
+            row[v] = batch_ms(lambda: fn(x0, b, geom, 1.0, seq, slices=sl),
+                              3, dev)
+        out[sl] = row
+    clock = sm_clock()
+    mhz = float(clock.split(",")[0].split()[0])
+    for sl, row in out.items():
+        full = row["FULL"]
+        print(f"A1 [{tree}] at {ns} x {n}^2 x {na} ({rays} rays), {sl} "
+              f"slices a block: angle-major {full:.3f} ms ("
+              f"{1e3 * full / rays:.4f} us a ray), random {row['random']:.3f}"
+              + "".join(f"; {v} {row[v]:.3f} (saves "
+                        f"{(full - row[v]) * 1e3 * mhz / rays:.0f} cycles a "
+                        f"ray)" for v in variants if v != "FULL")
+              + f" [{card}]")
+    print(f"A1 [{tree}] SM clock after it, max: {clock}")
+    return {str(sl): row for sl, row in out.items()}
+
+
+def art_times_main() -> int:
+    """`--art-times`: only A1's times (`art_times`) at 256^3 x 90, with the
+    tomojax_torch package beside this file; a copy of this file beside
+    another tree times that tree's kernel."""
+    from tomojax_torch import _build
+    from tomojax_torch.geometry import Geometry
+
+    card = phase_device()
+    info = _build.build()
+    entry = ""
+    for line in info.log.splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        elif "art_sweep" in entry and ("Used" in line or "spill" in line):
+            print(f"  ptxas: {entry.split()[-3]} {line.strip()}")
+    geom = Geometry.make(256, np.deg2rad(np.linspace(-76, 76, 90)))
+    times = art_times(geom, 256, card, str(ROOT.name))
+    print(json.dumps({"art_ms": times, "tree": str(ROOT)}))
+    return 0
+
+
 def gap_study_main() -> int:
     """`--gap-study`: only `_sharded_gap_study` on phase 4c's ASD-POCS
     problem (256^3 x 90, defaults), with 16 profiled windows each way."""
@@ -3663,6 +3730,8 @@ def main() -> int:
         return tv_times_main()
     if sys.argv[1:] == ["--gap-study"]:
         return gap_study_main()
+    if sys.argv[1:] == ["--art-times"]:
+        return art_times_main()
     try:
         card = phase_device()
         phase_build()

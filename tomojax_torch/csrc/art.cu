@@ -108,9 +108,15 @@ __device__ __forceinline__ Ray fetch_ray(int r, const float4* tab,
   return ray;
 }
 
+// Variants that split a ray's time (tj_art_variant; results not the
+// sweep's): NOLOAD takes each step's values from registers (the previous
+// ray's updated values) in place of x, NORED sums over the warp only (no
+// shared partials, no barrier), NOSTORE writes no update.
+enum Variant { FULL = 0, NOLOAD = 1, NORED = 2, NOSTORE = 3 };
+
 // x updated in place (the wrapper passes a copy); tab (Na) float4 {cos,
 // sin, row_driven, 0} in float32; order `count` rays.
-template <int SL>
+template <int SL, int V>
 __global__ void __launch_bounds__(A_MAXW * 32)
 art_sweep_kernel(float* __restrict__ x, const float* __restrict__ b,
                  const float4* __restrict__ tab,
@@ -130,6 +136,9 @@ art_sweep_kernel(float* __restrict__ x, const float* __restrict__ b,
   const float toff = 0.5f * static_cast<float>(nt - 1);
   const int rays = na * nt;
   int prev_rd = -1, buf = 0;
+  float v0[A_K], v1[A_K];
+#pragma unroll
+  for (int q = 0; q < A_K; ++q) v0[q] = v1[q] = 0.f;
   Ray next = fetch_ray(order[0], tab, b, nt, rays, ns, s, live);
   for (int k = 0; k < count; ++k) {
     const Ray ray = next;
@@ -153,12 +162,12 @@ art_sweep_kernel(float* __restrict__ x, const float* __restrict__ b,
         __fdiv_rn(1.f, fmaxf(fabsf(rd ? ang.x : ang.y), 1e-8f));
 
     Tap tp[A_K];
-    float v0[A_K], v1[A_K];
 #pragma unroll
     for (int q = 0; q < A_K; ++q) {
       const int m = g + q * G;
-      v0[q] = v1[q] = 0.f;
       tp[q] = ray_tap(rd, t1, sh, scale, ctr, m < n ? m : 0, n);
+      if (V == NOLOAD) continue;
+      v0[q] = v1[q] = 0.f;
       if (m < n && live) {
         v0[q] = x[static_cast<size_t>(tp[q].p0) * ns + s];
         v1[q] = x[static_cast<size_t>(tp[q].p1) * ns + s];
@@ -181,19 +190,23 @@ art_sweep_kernel(float* __restrict__ x, const float* __restrict__ b,
       dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, o));
       nsq = __fadd_rn(nsq, __shfl_xor_sync(0xffffffffu, nsq, o));
     }
-    if (g % Q == 0) {  // step lane 0 of the warp
-      part[buf][warp][lane] = dot;
-      if (lane == 0) npart[buf][warp] = nsq;
+    if (V != NORED) {
+      if (g % Q == 0) {  // step lane 0 of the warp
+        part[buf][warp][lane] = dot;
+        if (lane == 0) npart[buf][warp] = nsq;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     next = fetch_ray(r_next, tab, b, nt, rays, ns, s, live);
-    dot = part[buf][0][lane];
-    nsq = npart[buf][0];
-    for (int w = 1; w < nwarps; ++w) {
-      dot = __fadd_rn(dot, part[buf][w][lane]);
-      nsq = __fadd_rn(nsq, npart[buf][w]);
+    if (V != NORED) {
+      dot = part[buf][0][lane];
+      nsq = npart[buf][0];
+      for (int w = 1; w < nwarps; ++w) {
+        dot = __fadd_rn(dot, part[buf][w][lane]);
+        nsq = __fadd_rn(nsq, npart[buf][w]);
+      }
+      buf ^= 1;
     }
-    buf ^= 1;
     const float coeff = __fdiv_rn(__fmul_rn(beta, __fsub_rn(ray.bv, dot)),
                                   fmaxf(nsq, 1e-12f));
     if (!live) continue;
@@ -201,6 +214,14 @@ art_sweep_kernel(float* __restrict__ x, const float* __restrict__ b,
     for (int q = 0; q < A_K; ++q) {
       if (g + q * G >= n) continue;
       const float n0 = __fadd_rn(v0[q], __fmul_rn(coeff, tp[q].w0));
+      if (V == NOLOAD) {  // the next ray's values
+        v0[q] = n0;
+        v1[q] = __fadd_rn(v1[q], __fmul_rn(coeff, tp[q].w1));
+      }
+      if (V == NOSTORE) {
+        if (V != NOLOAD) v0[q] = n0;  // keeps the update live
+        continue;
+      }
       if (tp[q].p1 == tp[q].p0) {
         x[static_cast<size_t>(tp[q].p0) * ns + s] =
             __fadd_rn(n0, __fmul_rn(coeff, tp[q].w1));
@@ -213,7 +234,7 @@ art_sweep_kernel(float* __restrict__ x, const float* __restrict__ b,
   }
 }
 
-template <int SL>
+template <int SL, int V = FULL>
 int launch(float* x, const float* b, const float4* tab, const int* order,
            int count, float beta, int n, int nt, int na, int ns,
            cudaStream_t st) {
@@ -222,7 +243,7 @@ int launch(float* x, const float* b, const float4* tab, const int* order,
   if (warps > A_MAXW) return cudaErrorInvalidValue;
   const dim3 block(SL, Q * warps);
   const dim3 grid((ns + SL - 1) / SL);
-  art_sweep_kernel<SL><<<grid, block, 0, st>>>(x, b, tab, order, count,
+  art_sweep_kernel<SL, V><<<grid, block, 0, st>>>(x, b, tab, order, count,
                                                beta, n, nt, na, ns);
   return tj::launch_error();
 }
@@ -263,4 +284,41 @@ TJ_API int tj_art_sweep(float* x, const float* b, const float* tab,
     default:
       return launch<16>(x, b, t, order, count, beta, n, nt, na, ns, st);
   }
+}
+
+// One sweep of a variant of the kernel (Variant: 0 FULL, 1 NOLOAD, 2 NORED,
+// 3 NOSTORE), for timing the parts of a ray; operands as tj_art_sweep's.
+TJ_API int tj_art_variant(int variant, float* x, const float* b,
+                          const float* tab, const int* order, int count,
+                          float beta, int n, int nt, int na, int ns,
+                          int slices, void* stream) {
+  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || count <= 0 ||
+      n > tj_art_max_n(slices) || variant < 0 || variant > 3) {
+    return cudaErrorInvalidValue;
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* t = reinterpret_cast<const float4*>(tab);
+#define TJ_ART_V(SL_)                                                       \
+  switch (variant) {                                                       \
+    case NOLOAD:                                                           \
+      return launch<SL_, NOLOAD>(x, b, t, order, count, beta, n, nt, na, ns, \
+                                 st);                                      \
+    case NORED:                                                            \
+      return launch<SL_, NORED>(x, b, t, order, count, beta, n, nt, na, ns,  \
+                                st);                                       \
+    case NOSTORE:                                                          \
+      return launch<SL_, NOSTORE>(x, b, t, order, count, beta, n, nt, na,    \
+                                  ns, st);                                 \
+    default:                                                               \
+      return launch<SL_, FULL>(x, b, t, order, count, beta, n, nt, na, ns,   \
+                               st);                                        \
+  }
+  switch (slices) {
+    case 1: TJ_ART_V(1)
+    case 2: TJ_ART_V(2)
+    case 4: TJ_ART_V(4)
+    case 8: TJ_ART_V(8)
+    default: TJ_ART_V(16)
+  }
+#undef TJ_ART_V
 }

@@ -173,3 +173,27 @@ def art_sweep_sl(x, b, geom: Geometry, beta, order, slices=None):
 
 
 art_sweep_sl.launches = 0
+
+VARIANTS = ("FULL", "NOLOAD", "NORED", "NOSTORE")  # csrc/art.cu Variant
+
+
+def art_variant(x, b, geom: Geometry, beta, order, variant: str,
+                slices=None):
+    """One sweep of a variant of A1 on the card, for splitting a ray's time
+    (`VARIANTS`: FULL is A1; NOLOAD takes each step's values from
+    registers in place of x, NORED sums over the warp only, with no shared
+    partials and no barrier, NOSTORE writes no update; their results are
+    not the sweep's). Operands as `art_sweep_sl`'s, on the card; counts in
+    no launch count."""
+    if _checked_on_cpu(x, b, geom, order, slices):
+        raise ValueError("art_variant times the kernel: pass CUDA tensors")
+    n, nt, na, ns = geom.n, geom.nray, geom.nproj, x.shape[-1]
+    if slices is None:
+        slices = art_slices(n)
+    out = x.clone()
+    p = torch.Tensor.data_ptr
+    _build.check(_build.lib().tj_art_variant(
+        VARIANTS.index(variant), p(out), p(b), p(art_table(geom, x.device)),
+        p(order), order.numel(), float(beta), n, nt, na, ns, slices,
+        _build.stream()), "tj_art_variant")
+    return out
