@@ -55,9 +55,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the ART sweep (A1) in each of its slices-a-block instantiations against
    its plain version at 256^3 x 90 and at N 33, Na 7, Ns 5 (three single
    ray steps from random x, 1e-6 max|x|; one sweep from zero on nanocube
-   projections, 1e-4 max|x|; two sweeps identical; out-of-range rays
-   leave x), and its ms a sweep at 256^3 x 90 angle-major and in a random
-   order (CUDA events) beside its bound;
+   projections in each of three orders, angle-major, random and two
+   angles in turns, 1e-4 max|x|; two sweeps identical; out-of-range rays
+   leave x), at 128 x 512^2 and 64 x 1024^2 x 90 over the rays of three
+   angles (0.854, 45 and 76 degrees; 1e-4 max|x|) in every instantiation
+   that takes N, and its ms a sweep at 256^3 x 90 angle-major and in a
+   random order (CUDA events) beside its bound, with the split of a ray
+   by the kernel's variants (no loads, no block partials, no stores, no
+   L2 prefetch, the chain alone) and the clock64 cycles of its phases;
 4. main paths, each with every launch count set to 0 just before it and
    read just after, and with every plain version made to raise:
    a. FISTA-TV: TomoTorch on the 256 x 256^2 x 90 nanocube problem (one
@@ -186,6 +191,13 @@ the PyTorch step expression, K5 and K11 (bf16 duals) beside two K3 launches
 at 256^3 (K3 also at 256^2 x 128), and K5 on the 3 x 128 x 256^2 fusion
 stack, one launch (where the tree takes a 4D stack) and the per-element
 loop, in the same way beside another tree.
+
+    python3 chip_smoke.py --art-times
+
+times only A1 at 256^3 x 90 (`art_times`: every slices-a-block
+instantiation angle-major and random, and the variants and phases where
+the tree has them) and prints A1's registers and spills from the build,
+in the same way beside another tree.
 
     python3 chip_smoke.py --gap-study
 
@@ -1170,14 +1182,31 @@ def art_work(geom, ns: int, rays: int):
             rays * (8 * n * ns + 12 * n + 3 * ns))
 
 
-def _art_levels(geom, ns: int, uni) -> dict:
-    """A1 against its plain version at two levels, for each slices-a-block
-    instantiation (cuda_art.SLICES), each required: three single ray steps (a
-    row-driven ray, a column-driven one, the detector's last bin) from
-    random x within 1e-6 max|x|; one angle-major sweep from zero on
-    nanocube projections within 1e-4 max|x|. Also: two sweeps agree bit
-    for bit and out-of-range rays leave x. Returns the sweep's error and
-    bound, the plain sweep's ms (host clock) and a line of text."""
+def _art_orders(geom, dev) -> dict:
+    """The orders phase 3 holds A1 to: angle-major, a random permutation
+    (randperm, seed 0) and cuda_art.mixed_order (two angles in turns, three
+    bins at a time)."""
+    from tomojax_torch.solvers import cuda_art
+
+    rays = geom.nproj * geom.nray
+    perm = torch.randperm(rays, generator=torch.Generator().manual_seed(0))
+    return {"angle-major": torch.arange(rays, dtype=torch.int32, device=dev),
+            "random": perm.to(device=dev, dtype=torch.int32),
+            "mixed": torch.from_numpy(cuda_art.mixed_order(
+                geom.nproj, geom.nray)).to(dev)}
+
+
+def _art_levels(geom, ns: int, uni, orders=None, slices=None,
+                steps=True) -> dict:
+    """A1 against its plain version, for each slices-a-block instantiation
+    (`slices`, by default cuda_art.SLICES), each required: three single ray
+    steps (a row-driven ray, a column-driven one, the detector's last bin)
+    from random x within 1e-6 max|x| (where `steps`); one sweep in each of
+    `orders` ({name: int32 order on the card}, by default `_art_orders`)
+    from zero on nanocube projections within 1e-4 max|x|. Also: two sweeps
+    agree bit for bit and out-of-range rays leave x. Returns the
+    angle-major (or first) sweep's error and bound, the plain sweep's ms
+    (host clock) and a line of text."""
     from tomojax_torch.projector.cuda_joseph import fp_sl
     from tomojax_torch.sim import nanocube_phantom
     from tomojax_torch.solvers import cuda_art, to_sl
@@ -1189,20 +1218,26 @@ def _art_levels(geom, ns: int, uni) -> dict:
     vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
     b = fp_sl(vol, geom)
     x, x0 = uni(n, n, ns), torch.zeros_like(vol)
+    orders = _art_orders(geom, dev) if orders is None else orders
     seq = torch.arange(na * nt, dtype=torch.int32, device=dev)
-    steps = [(seq[r:r + 1], plain(x, b, geom, 1.0, seq[r:r + 1]))
-             for r in (nt // 2, (na // 2) * nt + nt // 3, nt - 1)]
-    t0 = time.perf_counter()
-    ref = plain(x0, b, geom, 1.0, seq)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    rays = (nt // 2, (na // 2) * nt + nt // 3, nt - 1) if steps else ()
+    one_steps = [(seq[r:r + 1], plain(x, b, geom, 1.0, seq[r:r + 1]))
+                 for r in rays]
+    refs = {}
+    for name, order in orders.items():
+        t0 = time.perf_counter()
+        refs[name] = plain(x0, b, geom, 1.0, order)
+        torch.cuda.synchronize()
+        refs[name] = (refs[name], 1e3 * (time.perf_counter() - t0),
+                      1e-4 * float(refs[name].abs().max()))
+    first = next(iter(orders))
     skip = torch.tensor([na * nt, -1], dtype=torch.int32, device=dev)
-    out = {"plain_ms": plain_ms, "tol": 1e-4 * float(ref.abs().max()),
-           "b": b, "x0": x0, "seq": seq}
+    out = {"plain_ms": refs[first][1], "tol": refs[first][2], "b": b,
+           "x0": x0, "seq": seq}
     texts = []
-    for sl in cuda_art.SLICES:
+    for sl in cuda_art.SLICES if slices is None else slices:
         step_err = step_tol = 0.0
-        for one, want in steps:
+        for one, want in one_steps:
             got = _launched(sweep, lambda: sweep(x, b, geom, 1.0, one, sl))
             err, tol = max_err(got, want), 1e-6 * float(want.abs().max())
             require(err <= tol, f"{tag} ({sl} slices a block), ray "
@@ -1211,34 +1246,57 @@ def _art_levels(geom, ns: int, uni) -> dict:
             step_err, step_tol = max(step_err, err), max(step_tol, tol)
         require(torch.equal(sweep(x, b, geom, 1.0, skip, sl), x),
                 f"{tag} ({sl} slices a block): out-of-range rays changed x")
-        got = sweep(x0, b, geom, 1.0, seq, sl)
-        err = max_err(got, ref)
-        require(err <= out["tol"], f"{tag} ({sl} slices a block), one "
-                                   f"sweep: error {err:.3e} above "
-                                   f"{out['tol']:.3e}")
-        require(torch.equal(sweep(x0, b, geom, 1.0, seq, sl), got),
-                f"{tag} ({sl} slices a block): two sweeps differ")
-        if sl == cuda_art.ART_SLICES:
-            out["err"] = err
-        texts.append(f"{sl} slices a block: one ray step {step_err:.2e} <= "
-                     f"{step_tol:.2e} (1e-6 max|x|), one sweep from zero "
-                     f"{err:.2e} <= {out['tol']:.2e} (1e-4 max|x|)")
+        errs = []
+        for name, order in orders.items():
+            ref, _, tol = refs[name]
+            got = _launched(sweep, lambda: sweep(x0, b, geom, 1.0, order,
+                                                 sl))
+            err = max_err(got, ref)
+            require(err <= tol, f"{tag} ({sl} slices a block), one {name} "
+                                f"sweep: error {err:.3e} above {tol:.3e}")
+            require(torch.equal(sweep(x0, b, geom, 1.0, order, sl), got),
+                    f"{tag} ({sl} slices a block, {name}): two sweeps "
+                    f"differ")
+            if name == first and sl == cuda_art.art_slices(n):
+                out["err"] = err
+            errs.append(f"{name} {err:.2e} <= {tol:.2e}")
+        texts.append(f"{sl} slices a block: "
+                     + (f"one ray step {step_err:.2e} <= {step_tol:.2e} "
+                        f"(1e-6 max|x|), " if one_steps else "")
+                     + "one sweep from zero " + ", ".join(errs)
+                     + " (1e-4 max|x|)")
     out["text"] = (f"{tag} against the plain version on nanocube "
                    f"projections: " + "; ".join(texts) + "; two sweeps "
                    f"identical; out-of-range rays leave x; plain sweep "
-                   f"{plain_ms:.0f} ms")
+                   f"({first}) {out['plain_ms']:.0f} ms")
     return out
+
+
+def _three_angle_order(geom, dev):
+    """The rays of three angles of `geom`, angle-major: the one nearest 0
+    degrees (row-driven), the one nearest 45 degrees and the last one."""
+    deg = np.rad2deg(geom.angles)
+    picks = (int(np.argmin(np.abs(deg))), int(np.argmin(np.abs(deg - 45))),
+             geom.nproj - 1)
+    nt = geom.nray
+    return torch.cat([torch.arange(a * nt, (a + 1) * nt, dtype=torch.int32)
+                      for a in picks]).to(dev), [float(deg[a]) for a in picks]
+
+
+ART_WIDE = ((128, 512), (64, 1024))  # (Ns, N) at 90 angles
 
 
 def _check_art(geom, uni, report, card: str) -> None:
     """A1 (the ART sweep) against its plain version (_art_levels) at 256^3
-    x 90 (the plain sweep, 23,040 rays of about 15 PyTorch launches each,
-    takes 4-5 s on the H100) and at N 33, Na 7, Ns 5; then A1's ms a sweep
-    at 256^3 x 90 (CUDA events over back-to-back sweeps) for each
-    slices-a-block instantiation, angle-major and in a random order,
-    beside its bound and the traffic of re-reading each ray's pixels from
-    device memory (16 N Ns bytes a ray)."""
-    from tomojax_torch.experiments.timing import batch_ms
+    x 90 (a plain sweep, 23,040 rays of about 15 PyTorch launches each,
+    takes 4-5 s on the H100) and at N 33, Na 7, Ns 5, each in the three
+    orders of `_art_orders`; at 128 x 512^2 and 64 x 1024^2 x 90 (+-76
+    degrees with the angle nearest 45 set to 45) over the rays of three
+    angles (`_three_angle_order`) in each instantiation that takes N; then
+    A1's times at 256^3 x 90 (`art_times`: every slices-a-block
+    instantiation angle-major and random, and the split of a ray by the
+    kernel's variants) beside its bound and the traffic of re-reading each
+    ray's pixels from device memory (16 N Ns bytes a ray)."""
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.solvers import cuda_art
 
@@ -1247,26 +1305,29 @@ def _check_art(geom, uni, report, card: str) -> None:
     n, na, ns = geom.n, geom.nproj, 256
     lv = _art_levels(geom, ns, uni)
     print(lv["text"])
+    for ns_w, n_w in ART_WIDE:
+        deg = np.linspace(-76, 76, na)
+        deg[np.argmin(np.abs(deg - 45))] = 45.0
+        wide = Geometry.make(n_w, np.deg2rad(deg))
+        order, picks = _three_angle_order(wide, torch.device("cuda"))
+        fits = tuple(sl for sl in cuda_art.SLICES
+                     if cuda_art.art_max_n(sl) >= n_w)
+        text = _art_levels(wide, ns_w, uni, {"three-angle": order}, fits,
+                           steps=False)["text"]
+        print(f"{text} (angles {', '.join(f'{a:.3f}' for a in picks)} "
+              f"deg)")
     rays = na * geom.nray
-    perm = torch.randperm(rays, generator=torch.Generator().manual_seed(0))
-    perm = perm.to(device=lv["seq"].device, dtype=torch.int32)
-    sweep, b, x0 = cuda_art.art_sweep_sl, lv["b"], lv["x0"]
-    times = {(sl, kind): batch_ms(
-        lambda: sweep(x0, b, geom, 1.0, order, sl), 3, x0.device)
-        for sl in cuda_art.SLICES
-        for kind, order in (("angle-major", lv["seq"]), ("random", perm))}
+    times = art_times(geom, ns, card, "this tree")
     bound_ms, bound_by = bound(*art_work(geom, ns, rays))
     traffic_ms = 1e3 * 16 * n * ns * rays / HBM_BYTES_PER_S
-    print(f"A1 at {ns} x {n}^2 x {na} ({rays} rays), ms a sweep over 3 "
-          f"back-to-back sweeps (CUDA events), angle-major / random order: "
-          + "; ".join(f"{sl} slices a block {times[sl, 'angle-major']:.3f} "
-                      f"/ {times[sl, 'random']:.3f}"
-                      for sl in cuda_art.SLICES)
-          + f"; bound {bound_ms:.4f} ms ({bound_by}); each ray's 2N pixels "
-          f"from device memory {traffic_ms:.2f} ms; SM clock after it, max: "
-          f"{sm_clock()} [{card}]")
+    sl = str(cuda_art.ART_SLICES)
+    print(f"A1 at {ns} x {n}^2 x {na}: bound {bound_ms:.4f} ms ({bound_by})"
+          f"; each ray's 2N pixels from device memory {traffic_ms:.2f} ms; "
+          f"chain bound (the CHAIN variant: the rays' chain without x's "
+          f"traffic, {sl} slices a block) {times[sl]['CHAIN']:.3f} ms = "
+          f"{1e3 * times[sl]['CHAIN'] / rays:.4f} us a ray [{card}]")
     report("A1_art_sweep", lv["err"], lv["tol"],
-           times[cuda_art.ART_SLICES, "angle-major"], lv["plain_ms"],
+           times[str(cuda_art.ART_SLICES)]["FULL"], lv["plain_ms"],
            f" ({cuda_art.ART_SLICES} slices a block, angle-major; plain ms "
            f"one sweep, host clock)", work=art_work(geom, ns, rays))
 
@@ -3628,8 +3689,9 @@ def art_times(geom, ns: int, card: str, tree: str) -> dict:
     """A1's ms a sweep (CUDA events over 3 back-to-back sweeps from zero on
     nanocube projections) for every slices-a-block instantiation,
     angle-major and in a random order (randperm, seed 0), and, where the
-    tree has them (`cuda_art.VARIANTS`), each variant angle-major with the
-    cycles a ray it saves against FULL at the card's SM clock."""
+    tree has them (`cuda_art.VARIANTS`, `cuda_art.art_phases`), each
+    variant angle-major with the cycles a ray it saves against FULL at the
+    card's SM clock, and the clock64 cycles a ray of each phase."""
     from tomojax_torch.experiments.timing import batch_ms
     from tomojax_torch.projector.cuda_joseph import fp_sl
     from tomojax_torch.sim import nanocube_phantom
@@ -3653,6 +3715,8 @@ def art_times(geom, ns: int, card: str, tree: str) -> dict:
                 cuda_art.art_variant, variant=v))
             row[v] = batch_ms(lambda: fn(x0, b, geom, 1.0, seq, slices=sl),
                               3, dev)
+        if hasattr(cuda_art, "art_phases"):
+            row["phases"] = cuda_art.art_phases(x0, b, geom, 1.0, seq, sl)
         out[sl] = row
     clock = sm_clock()
     mhz = float(clock.split(",")[0].split()[0])
@@ -3665,6 +3729,13 @@ def art_times(geom, ns: int, card: str, tree: str) -> dict:
                         f"{(full - row[v]) * 1e3 * mhz / rays:.0f} cycles a "
                         f"ray)" for v in variants if v != "FULL")
               + f" [{card}]")
+        if "phases" in row:
+            ph = dict(row["phases"])
+            nrays = ph.pop("rays")
+            print(f"A1 [{tree}] {sl} slices a block, clock64 cycles a ray "
+                  f"by phase (thread 0 of each block, {nrays} rays): "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in ph.items())
+                  + f"; sum {sum(ph.values()):.0f}")
     print(f"A1 [{tree}] SM clock after it, max: {clock}")
     return {str(sl): row for sl, row in out.items()}
 

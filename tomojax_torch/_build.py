@@ -67,9 +67,9 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _P, _P],
     "tj_sart_route": [_I, _I],
     "tj_sart_active_clusters": [_I, _I, _I, _IP],
-    "tj_art_sweep": [_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _I, _P],
+    "tj_art_sweep": [_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P],
     "tj_art_max_n": [_I],
-    "tj_art_variant": [_I, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _I, _P],
+    "tj_art_variant": [_I, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P, _P],
     "tj_exp_fp": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I,
                   _I, _P],
     "tj_exp_bp": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -4,8 +4,8 @@
 // ray costs about 20 launches (460,000 a sweep at 256^2 x 90), so the port
 // runs the whole sweep in one launch. For k = 0, 1, ... with ray
 // r = order[k] (angle a = r / Nt, bin j = r % Nt), for every slice s:
-//   pos_m  = t_j / c + (ctr - m)(-s / c) + ctr    row-driven, or
-//            ctr - t_j / s + (m - ctr)(c / s)     column-driven,
+//   pos_m  = t_j / c + (ctr - m) sh + ctr,  sh = -s / c   row-driven, or
+//            ctr - t_j / s + (m - ctr) sh,  sh = c / s    column-driven,
 //   w0, w1 = the two hat taps of step m, scaled by 1/max(|c| or |s|, 1e-8),
 //            out-of-range taps weighted 0 and their index clipped,
 //   dot    = sum_m (x[p0] w0 + x[p1] w1),  nsq = sum_m (w0^2 + w1^2),
@@ -15,310 +15,86 @@
 // column-driven ones (column m). Slice-last layouts: x (N, N, Ns),
 // b (Na, Nt, Ns). The arithmetic of the positions, the weights and the
 // updates is rounded as the plain version (cuda_art.art_sweep_sl_ref)
-// rounds it, one operation at a time (__f*_rn: no FMA contraction); only
-// the order of the dot's and nsq's sums differs from it.
+// rounds it, one operation at a time (__f*_rn: no FMA contraction); the
+// angle's divisor, sh and scale come from cuda_art.art_table, which the
+// plain version computes its taps from. Only the order of the dot's and
+// nsq's sums differs from it.
 //
 // Why no atomics: slices are independent, so a block owns SL consecutive
 // slices and walks every ray of the order itself. Within a ray, step m
 // touches only row m (row-driven) or column m (column-driven), and each
-// step belongs to one thread (step group g takes m = g, g + G, ...): no two
+// step belongs to one step group (g takes m = g, g + G, ...): no two
 // threads write one pixel of a slice in a ray. The two taps of a step share
 // a pixel only where one was clipped (weight 0); its thread then adds both
 // in the reference's order. From one ray to the next a pixel keeps its
 // owner while the driving axis stays the same; where it changes the block
 // waits at a barrier before the next ray's reads. dot and nsq are summed in
-// a fixed order (a thread's steps in order, a butterfly over the step lanes
-// of a warp, then the warps in order), so two sweeps agree bit for bit.
+// a fixed order (a thread's steps as a tree, a butterfly over the step
+// groups of a warp, then the warps in order), so two sweeps agree bit for
+// bit.
 //
-// Layout: threadIdx.x is the slice lane (SL = 1, 2, 4, 8 or 16 slices,
-// SL * 4 contiguous bytes a pixel), threadIdx.y the step group; a warp
-// holds 32 / SL step groups, a block 32 ceil(N / (32 / SL * A_K)) threads
-// (at most A_MAXW warps) with at most A_K steps a thread, whose taps and
-// values stay in registers from the dot to the update. The order and the
-// angle table are read on the device, the next ray's table row and b one
-// ray ahead; an order entry outside [0, Na Nt) leaves x as it was.
+// Layout (art.cuh Cfg): a thread holds VS = min(SL, 4) slices of a pixel
+// as one vector (L = SL / VS threads a step group, threadIdx.x);
+// threadIdx.y is the step group; a warp holds Q = 32 / L step groups, a
+// block as many warps as N needs at KS steps a thread (1 up to 4 slices a
+// block, else 2; at most W warps; above that 4, or 8 at one slice a
+// block). 2 slices a block (cuda_art.ART_SLICES) is the fastest at 256^3.
 //
-// Bound on the H100: the sweep is one dependent chain of Na Nt rays (23,040
-// at 256^2 x 90), each a read of 2N pixels, a block reduction with one
-// barrier, and a write of 2N pixels, per slice: 16 N Ns bytes a ray, 24.2
-// GB a sweep at 256^3 x 90 if every ray's pixels came from device memory
-// (7.2 ms at 3.35 TB/s); the function itself moves x once each way
-// (0.05 ms) and does 12 GFLOP (0.18 ms). Consecutive rays of one angle
-// share most pixels, so the chain's latency (the reads after the previous
-// ray's writes, the barrier, the reduction), not bytes, sets the pace:
-// about 2.6 us a ray, 59 ms a sweep at 8 slices a block (chip_smoke.py).
-#include "common.cuh"
+// The schedule (carry and prefetch). Where ray r + 1 of the order keeps
+// r's driving axis (the next bin of the angle, or any ray of that axis),
+// step m of both rays belongs to the same thread, and r writes only its own
+// two pixels of row (column) m. So each thread computes r + 1's taps and
+// loads those of its pixels that r does not write before r's stores; after
+// r's update it takes the others (the pixels r + 1 shares with r, clipped
+// taps included) from its registers, and a pixel that r + 1 keeps is not
+// stored by r but by the ray that lets it go. A ray that changes the axis,
+// or follows an out-of-range entry, fetches its pixels after r's stores
+// (on a change of axis after a barrier). The order, b and each ray's row of
+// cuda_art.art_table are staged A_R rays ahead into rings in shared memory
+// with cp.async (the order entry 2 A_R ahead), and the pixels of ray r +
+// A_D that r + A_D - 1 did not take are prefetched into L2. The next ray's
+// loads are issued after the ray's shuffles and its partials' stores, the
+// prefetch after the partials' loads, so that those shared-memory and
+// shuffle operations do not queue behind them. An order entry outside [0,
+// Na Nt) leaves x as it was.
+//
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py): the
+// function moves x once each way (0.05 ms at 256^3 x 90) and does 12 GFLOP
+// (0.18 ms); rereading each ray's 2N pixels from device memory would take
+// 7.2 ms. The sweep is one dependent chain of Na Nt rays a block. Loading
+// every ray's pixels after the previous ray's stores (8 slices a block) took
+// 2.57 us a ray, 59.2 ms a sweep; split by variants of that kernel: the
+// loads 1390 cycles a ray, the block sum 1055, the stores 1479 (each ray's
+// loads waited for the last ray's stores). This design takes 1.05 us a ray,
+// 24.1 ms a sweep angle-major and 36.7 in a random order (2 slices a block).
+// What binds it now is the chain itself: without any traffic of x (the CHAIN
+// variant) a ray takes 0.62 us, 14.3 ms a sweep; by clock64 phase about
+// 2,060 cycles a ray, the dot and the butterfly about 350, the block sum
+// about 380, the coefficient and the update about 460, the staging, the next
+// ray's taps and loads and the prefetch about 790 together. The rest is the
+// memory pipeline, which every step's scattered access costs a line of:
+// about 3.5 N lines a ray a block (the loads, the stores and the prefetch,
+// 1.15 N each), whatever the slices a block. Splitting a ray's steps across
+// the SMs of a cluster would cut the lines an SM but add a cluster barrier
+// and remote partials to every ray (K8's step pays about 2,200 cycles for
+// its partials, PERF.md).
 
-namespace {
+#include "art.cuh"
 
-constexpr int A_K = 8;       // steps a thread at most
-constexpr int A_MAXW = 16;   // warps a block at most (128 registers a
-                             // thread: the taps and values of A_K steps)
-
-struct Tap {
-  int p0, p1;   // pixel indices (row * N + column) of the two taps
-  float w0, w1;
-};
-
-// Step m of a ray: the reference's float32 arithmetic, one rounding an
-// operation in its order. t1 = t_j / c' and sh = (-s) / c' (row-driven) or
-// t1 = t_j / s' and sh = c / s' (column-driven), c' and s' the cosine and
-// sine with magnitudes below 1e-8 replaced by 1.
-__device__ __forceinline__ Tap ray_tap(bool rd, float t1, float sh,
-                                       float scale, float ctr, int m,
-                                       int n) {
-  const float fm = static_cast<float>(m);
-  const float pos =
-      rd ? __fadd_rn(__fadd_rn(t1, __fmul_rn(__fsub_rn(ctr, fm), sh)), ctr)
-         : __fadd_rn(__fsub_rn(ctr, t1), __fmul_rn(__fsub_rn(fm, ctr), sh));
-  const float f = floorf(pos);
-  const float frac = __fsub_rn(pos, f);
-  const int i0 = static_cast<int>(f);
-  const int i1 = i0 + 1;
-  Tap t;
-  t.w0 = __fmul_rn((i0 >= 0 && i0 < n) ? __fsub_rn(1.f, frac) : 0.f, scale);
-  t.w1 = __fmul_rn((i1 >= 0 && i1 < n) ? frac : 0.f, scale);
-  const int c0 = min(max(i0, 0), n - 1);
-  const int c1 = min(max(i1, 0), n - 1);
-  t.p0 = rd ? m * n + c0 : c0 * n + m;
-  t.p1 = rd ? m * n + c1 : c1 * n + m;
-  return t;
-}
-
-// The ray a block takes next: its index (-1 when outside [0, rays)), its
-// angle's table row and this thread's b. Loaded one ray ahead, so that the
-// loads from device memory overlap the current ray.
-struct Ray {
-  int r;
-  float4 ang;
-  float bv;
-};
-
-__device__ __forceinline__ Ray fetch_ray(int r, const float4* tab,
-                                         const float* b, int nt, int rays,
-                                         int ns, int s, bool live) {
-  Ray ray;
-  ray.r = (r >= 0 && r < rays) ? r : -1;
-  ray.ang = make_float4(0.f, 0.f, 0.f, 0.f);
-  ray.bv = 0.f;
-  if (ray.r >= 0) {
-    ray.ang = tab[r / nt];
-    if (live) ray.bv = b[static_cast<size_t>(r) * ns + s];
-  }
-  return ray;
-}
-
-// Variants that split a ray's time (tj_art_variant; results not the
-// sweep's): NOLOAD takes each step's values from registers (the previous
-// ray's updated values) in place of x, NORED sums over the warp only (no
-// shared partials, no barrier), NOSTORE writes no update.
-enum Variant { FULL = 0, NOLOAD = 1, NORED = 2, NOSTORE = 3 };
-
-// x updated in place (the wrapper passes a copy); tab (Na) float4 {cos,
-// sin, row_driven, 0} in float32; order `count` rays.
-template <int SL, int V>
-__global__ void __launch_bounds__(A_MAXW * 32)
-art_sweep_kernel(float* __restrict__ x, const float* __restrict__ b,
-                 const float4* __restrict__ tab,
-                 const int* __restrict__ order, int count, float beta,
-                 int n, int nt, int na, int ns) {
-  constexpr int Q = 32 / SL;  // step groups a warp
-  __shared__ float part[2][A_MAXW][SL];
-  __shared__ float npart[2][A_MAXW];
-  const int lane = threadIdx.x;  // slice lane
-  const int g = threadIdx.y;     // step group
-  const int G = blockDim.y;
-  const int warp = (g * SL + lane) >> 5;
-  const int nwarps = (G * SL) >> 5;
-  const int s = blockIdx.x * SL + lane;
-  const bool live = s < ns;
-  const float ctr = 0.5f * static_cast<float>(n - 1);
-  const float toff = 0.5f * static_cast<float>(nt - 1);
-  const int rays = na * nt;
-  int prev_rd = -1, buf = 0;
-  float v0[A_K], v1[A_K];
-#pragma unroll
-  for (int q = 0; q < A_K; ++q) v0[q] = v1[q] = 0.f;
-  Ray next = fetch_ray(order[0], tab, b, nt, rays, ns, s, live);
-  for (int k = 0; k < count; ++k) {
-    const Ray ray = next;
-    const int r_next = k + 1 < count ? order[k + 1] : -1;
-    if (ray.r < 0) {  // uniform over the block
-      next = fetch_ray(r_next, tab, b, nt, rays, ns, s, live);
-      continue;
-    }
-    const int a = ray.r / nt;
-    const int j = ray.r - a * nt;
-    const float4 ang = ray.ang;
-    const bool rd = ang.z != 0.f;
-    if (prev_rd >= 0 && static_cast<int>(rd) != prev_rd) __syncthreads();
-    prev_rd = rd;
-    const float tj = __fsub_rn(static_cast<float>(j), toff);
-    const float cs = fabsf(ang.x) < 1e-8f ? 1.f : ang.x;
-    const float ss = fabsf(ang.y) < 1e-8f ? 1.f : ang.y;
-    const float t1 = rd ? __fdiv_rn(tj, cs) : __fdiv_rn(tj, ss);
-    const float sh = rd ? __fdiv_rn(-ang.y, cs) : __fdiv_rn(ang.x, ss);
-    const float scale =
-        __fdiv_rn(1.f, fmaxf(fabsf(rd ? ang.x : ang.y), 1e-8f));
-
-    Tap tp[A_K];
-#pragma unroll
-    for (int q = 0; q < A_K; ++q) {
-      const int m = g + q * G;
-      tp[q] = ray_tap(rd, t1, sh, scale, ctr, m < n ? m : 0, n);
-      if (V == NOLOAD) continue;
-      v0[q] = v1[q] = 0.f;
-      if (m < n && live) {
-        v0[q] = x[static_cast<size_t>(tp[q].p0) * ns + s];
-        v1[q] = x[static_cast<size_t>(tp[q].p1) * ns + s];
-      }
-    }
-    float dot = 0.f, nsq = 0.f;
-#pragma unroll
-    for (int q = 0; q < A_K; ++q) {
-      if (g + q * G < n) {
-        dot = __fadd_rn(dot, __fadd_rn(__fmul_rn(v0[q], tp[q].w0),
-                                       __fmul_rn(v1[q], tp[q].w1)));
-        nsq = __fadd_rn(nsq, __fadd_rn(__fmul_rn(tp[q].w0, tp[q].w0),
-                                       __fmul_rn(tp[q].w1, tp[q].w1)));
-      }
-    }
-    // butterfly over the Q step lanes of the warp (lanes lane + SL q):
-    // every lane ends with the same sum
-#pragma unroll
-    for (int o = SL; o < 32; o <<= 1) {
-      dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, o));
-      nsq = __fadd_rn(nsq, __shfl_xor_sync(0xffffffffu, nsq, o));
-    }
-    if (V != NORED) {
-      if (g % Q == 0) {  // step lane 0 of the warp
-        part[buf][warp][lane] = dot;
-        if (lane == 0) npart[buf][warp] = nsq;
-      }
-      __syncthreads();
-    }
-    next = fetch_ray(r_next, tab, b, nt, rays, ns, s, live);
-    if (V != NORED) {
-      dot = part[buf][0][lane];
-      nsq = npart[buf][0];
-      for (int w = 1; w < nwarps; ++w) {
-        dot = __fadd_rn(dot, part[buf][w][lane]);
-        nsq = __fadd_rn(nsq, npart[buf][w]);
-      }
-      buf ^= 1;
-    }
-    const float coeff = __fdiv_rn(__fmul_rn(beta, __fsub_rn(ray.bv, dot)),
-                                  fmaxf(nsq, 1e-12f));
-    if (!live) continue;
-#pragma unroll
-    for (int q = 0; q < A_K; ++q) {
-      if (g + q * G >= n) continue;
-      const float n0 = __fadd_rn(v0[q], __fmul_rn(coeff, tp[q].w0));
-      if (V == NOLOAD) {  // the next ray's values
-        v0[q] = n0;
-        v1[q] = __fadd_rn(v1[q], __fmul_rn(coeff, tp[q].w1));
-      }
-      if (V == NOSTORE) {
-        if (V != NOLOAD) v0[q] = n0;  // keeps the update live
-        continue;
-      }
-      if (tp[q].p1 == tp[q].p0) {
-        x[static_cast<size_t>(tp[q].p0) * ns + s] =
-            __fadd_rn(n0, __fmul_rn(coeff, tp[q].w1));
-      } else {
-        x[static_cast<size_t>(tp[q].p0) * ns + s] = n0;
-        x[static_cast<size_t>(tp[q].p1) * ns + s] =
-            __fadd_rn(v1[q], __fmul_rn(coeff, tp[q].w1));
-      }
-    }
-  }
-}
-
-template <int SL, int V = FULL>
-int launch(float* x, const float* b, const float4* tab, const int* order,
-           int count, float beta, int n, int nt, int na, int ns,
-           cudaStream_t st) {
-  constexpr int Q = 32 / SL;
-  const int warps = (n + Q * A_K - 1) / (Q * A_K);
-  if (warps > A_MAXW) return cudaErrorInvalidValue;
-  const dim3 block(SL, Q * warps);
-  const dim3 grid((ns + SL - 1) / SL);
-  art_sweep_kernel<SL, V><<<grid, block, 0, st>>>(x, b, tab, order, count,
-                                               beta, n, nt, na, ns);
-  return tj::launch_error();
-}
-
-}  // namespace
+using namespace tj_art;
 
 // The largest N a sweep with `slices` slices a block takes (0: no such
-// instantiation): A_MAXW warps of 32 / slices step groups, A_K steps each.
-TJ_API int tj_art_max_n(int slices) {
-  if (slices != 1 && slices != 2 && slices != 4 && slices != 8 &&
-      slices != 16) {
-    return 0;
-  }
-  return A_MAXW * (32 / slices) * A_K;
-}
+// instantiation).
+TJ_API int tj_art_max_n(int slices) { return max_n(slices); }
 
-// One ART sweep in place on x (N, N, Ns): b (Na, Nt, Ns); tab (Na, 4)
-// floats {cos, sin, row_driven, 0}; order `count` rays on the device;
-// slices 1, 2, 4, 8 or 16 a block.
-TJ_API int tj_art_sweep(float* x, const float* b, const float* tab,
+// One ART sweep in place on x (N, N, Ns): b (Na, Nt, Ns); rtab (Na Nt, 4)
+// floats {t1, sh, scale, row_driven} per ray (cuda_art.art_table); order
+// `count` rays on the device; slices 1, 2, 4, 8 or 16 a block.
+TJ_API int tj_art_sweep(float* x, const float* b, const float* rtab,
                         const int* order, int count, float beta, int n,
-                        int nt, int na, int ns, int slices, void* stream) {
-  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || count <= 0 ||
-      n > tj_art_max_n(slices)) {
-    return cudaErrorInvalidValue;
-  }
-  auto st = static_cast<cudaStream_t>(stream);
-  const auto* t = reinterpret_cast<const float4*>(tab);
-  switch (slices) {
-    case 1:
-      return launch<1>(x, b, t, order, count, beta, n, nt, na, ns, st);
-    case 2:
-      return launch<2>(x, b, t, order, count, beta, n, nt, na, ns, st);
-    case 4:
-      return launch<4>(x, b, t, order, count, beta, n, nt, na, ns, st);
-    case 8:
-      return launch<8>(x, b, t, order, count, beta, n, nt, na, ns, st);
-    default:
-      return launch<16>(x, b, t, order, count, beta, n, nt, na, ns, st);
-  }
-}
-
-// One sweep of a variant of the kernel (Variant: 0 FULL, 1 NOLOAD, 2 NORED,
-// 3 NOSTORE), for timing the parts of a ray; operands as tj_art_sweep's.
-TJ_API int tj_art_variant(int variant, float* x, const float* b,
-                          const float* tab, const int* order, int count,
-                          float beta, int n, int nt, int na, int ns,
-                          int slices, void* stream) {
-  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || count <= 0 ||
-      n > tj_art_max_n(slices) || variant < 0 || variant > 3) {
-    return cudaErrorInvalidValue;
-  }
-  auto st = static_cast<cudaStream_t>(stream);
-  const auto* t = reinterpret_cast<const float4*>(tab);
-#define TJ_ART_V(SL_)                                                       \
-  switch (variant) {                                                       \
-    case NOLOAD:                                                           \
-      return launch<SL_, NOLOAD>(x, b, t, order, count, beta, n, nt, na, ns, \
-                                 st);                                      \
-    case NORED:                                                            \
-      return launch<SL_, NORED>(x, b, t, order, count, beta, n, nt, na, ns,  \
-                                st);                                       \
-    case NOSTORE:                                                          \
-      return launch<SL_, NOSTORE>(x, b, t, order, count, beta, n, nt, na,    \
-                                  ns, st);                                 \
-    default:                                                               \
-      return launch<SL_, FULL>(x, b, t, order, count, beta, n, nt, na, ns,   \
-                               st);                                        \
-  }
-  switch (slices) {
-    case 1: TJ_ART_V(1)
-    case 2: TJ_ART_V(2)
-    case 4: TJ_ART_V(4)
-    case 8: TJ_ART_V(8)
-    default: TJ_ART_V(16)
-  }
-#undef TJ_ART_V
+                        int rays, int ns, int slices, void* stream) {
+  if (!valid(rtab, count, n, rays, ns, slices)) return cudaErrorInvalidValue;
+  return launch_sl<FULL>(slices, x, b, reinterpret_cast<const float4*>(rtab),
+                         order, count, beta, n, rays, ns, nullptr,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -20,9 +20,18 @@ N steps along the driving axis, two hat taps a step scaled by
 ``art_sweep_sl`` runs the plain version ``art_sweep_sl_ref`` only when
 its tensors lie on the CPU; on CUDA tensors it launches ``csrc/art.cu``
 (one launch a sweep, counted in ``art_sweep_sl.launches``) or raises.
-The kernel rounds the positions, the weights and the updates as the plain
-version does; only its sums of dot and nsq run in another (fixed) order,
-so the two agree within rounding, and two kernel sweeps bit for bit.
+Both compute their taps from one table (`art_table`: per ray t_j / the
+angle's divisor, sh, scale, the driving axis). The kernel rounds the
+positions, the weights and the updates as the plain version does; only
+its sums of dot and nsq run in another (fixed) order, so the two agree
+within rounding, and two kernel sweeps bit for bit.
+
+The kernel's schedule (csrc/art.cu): a step of ray r + 1 that keeps r's
+driving axis belongs to the thread that held it in r, so the pixels the
+two rays share (clipped taps included) pass in registers and the others
+are loaded while r reduces; a pixel that r + 1 carries is stored by the
+ray that lets it go. `art_variant` and `art_phases` split a ray's time
+on the card (chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -36,18 +45,37 @@ from tomojax_torch import _build
 from tomojax_torch.geometry import Geometry
 
 F32 = torch.float32
-ART_SLICES = 8  # slices a block of A1 (csrc/art.cu takes 1, 2, 4, 8, 16)
+ART_SLICES = 2  # slices a block of A1 (csrc/art.cu takes 1, 2, 4, 8, 16)
 SLICES = (1, 2, 4, 8, 16)
-STEPS_A_THREAD = 8  # csrc/art.cu A_K
-MAX_WARPS = 16  # csrc/art.cu A_MAXW
+
+
+def art_config(slices: int) -> tuple:
+    """(VS, L, Q, KS, KL, W) of A1 with `slices` slices a block
+    (csrc/art.cuh Cfg): slices a thread, threads a step group, step groups
+    a warp, steps a thread where N allows it (KS) and above (KL), warps a
+    block at most."""
+    if slices not in SLICES:
+        raise ValueError(f"slices {slices}: A1 takes one of {SLICES}")
+    vs = min(slices, 4)
+    lanes = slices // vs
+    return (vs, lanes, 32 // lanes, 1 if slices <= 4 else 2,
+            8 if slices == 1 else 4, 16 if slices <= 2 else 8)
 
 
 def art_max_n(slices: int = ART_SLICES) -> int:
     """The largest N A1 takes with `slices` slices a block (tj_art_max_n):
-    16 warps of 32 / slices step groups, 8 steps a thread."""
-    if slices not in SLICES:
-        raise ValueError(f"slices {slices}: A1 takes one of {SLICES}")
-    return MAX_WARPS * (32 // slices) * STEPS_A_THREAD
+    W warps of Q step groups, KL steps each (`art_config`)."""
+    _, _, q, _, kl, w = art_config(slices)
+    return w * q * kl
+
+
+def art_groups(n: int, slices: int) -> int:
+    """G, the step groups of one A1 block at image side n: step m belongs
+    to group m % G (`art_config`: Q a warp, as many warps as n needs at KS
+    steps a thread, or at KL above W warps)."""
+    _, _, q, ks, kl, w = art_config(slices)
+    warps = -(-n // (q * ks))
+    return q * (warps if warps <= w else -(-n // (q * kl)))
 
 
 def art_slices(n: int) -> int:
@@ -62,12 +90,26 @@ def art_slices(n: int) -> int:
 
 @functools.lru_cache(maxsize=16)
 def art_table(geom: Geometry, device: torch.device) -> torch.Tensor:
-    """(Na, 4) float32 {cos, sin, row_driven, 0} on `device`, the angle
-    table A1 reads (the cosines and sines of ``Geometry`` rounded to
-    float32, as the reference's scan body takes them)."""
-    tab = np.stack([geom.cos, geom.sin, geom.row_driven.astype(np.float64),
-                    np.zeros(geom.nproj)], axis=1)
-    return torch.as_tensor(tab.astype(np.float32), device=device)
+    """(Na Nt, 4) float32 {t1, sh, scale, row_driven} per ray a * Nt + j
+    on `device`, the table A1 reads and the plain version (`art_taps`)
+    computes its taps from. With c, s the angle's cosine and sine rounded
+    to float32 (as the reference's scan body takes them) and c', s' those
+    below 1e-8 in magnitude replaced by 1: t1 = t_j / c' and sh = -s / c'
+    (row-driven) or t_j / s' and c / s' (column-driven), t_j = j - (Nt -
+    1) / 2, scale = 1 / max(|c| or |s|, 1e-8), each one float32 operation,
+    computed once on the CPU."""
+    c = torch.as_tensor(geom.cos.astype(np.float32))[:, None]
+    s = torch.as_tensor(geom.sin.astype(np.float32))[:, None]
+    rd = torch.as_tensor(geom.row_driven)[:, None]
+    safe_c = torch.where(c.abs() < 1e-8, 1.0, c)
+    safe_s = torch.where(s.abs() < 1e-8, 1.0, s)
+    tj = (torch.arange(geom.nray, dtype=F32) - (geom.nray - 1) / 2.0)[None]
+    t1 = tj / torch.where(rd, safe_c, safe_s)
+    sh = torch.where(rd, -s / safe_c, c / safe_s).expand_as(t1)
+    scale = (1.0 / torch.clamp_min(torch.where(rd, c, s).abs(), 1e-8)
+             ).expand_as(t1)
+    tab = torch.stack([t1, sh, scale, rd.to(F32).expand_as(t1)], dim=-1)
+    return tab.reshape(geom.nproj * geom.nray, 4).contiguous().to(device)
 
 
 def art_taps(geom: Geometry, device):
@@ -76,21 +118,18 @@ def art_taps(geom: Geometry, device):
     indices row * N + column of the two taps of each step, w0, w1 their
     float32 weights and nsq (Na Nt,) = sum of w0^2 + w1^2, in the
     reference's float32 arithmetic and order (tomojax/solvers/iterative.py
-    art_sweep's body, batched over the rays)."""
+    art_sweep's body, batched over the rays): pos = t1 + (ctr - m) sh +
+    ctr (row-driven) or ctr - t1 + (m - ctr) sh, from `art_table`."""
     n, nt, na = geom.n, geom.nray, geom.nproj
-    tab = art_table(geom, torch.device(device))
-    c, s = tab[:, 0, None, None], tab[:, 1, None, None]
-    rd = (tab[:, 2] != 0)[:, None, None]
+    tab = art_table(geom, torch.device(device)).reshape(na, nt, 4)
+    t1, sh = tab[..., 0, None], tab[..., 1, None]
+    scale = tab[..., 2, None]
+    rd = tab[..., 3, None] != 0
     ctr = (n - 1) / 2.0
     steps = torch.arange(n, dtype=F32, device=tab.device)[None, None, :]
-    tj = (torch.arange(nt, dtype=F32, device=tab.device)
-          - (nt - 1) / 2.0)[None, :, None]
-    safe_c = torch.where(c.abs() < 1e-8, 1.0, c)
-    safe_s = torch.where(s.abs() < 1e-8, 1.0, s)
-    pos_row = tj / safe_c + (ctr - steps) * (-s / safe_c) + ctr
-    pos_col = ctr - tj / safe_s + (steps - ctr) * (c / safe_s)
+    pos_row = t1 + (ctr - steps) * sh + ctr
+    pos_col = ctr - t1 + (steps - ctr) * sh
     pos = torch.where(rd, pos_row, pos_col)
-    scale = 1.0 / torch.clamp_min(torch.where(rd, c, s).abs(), 1e-8)
     f = torch.floor(pos)
     frac = pos - f
     i0 = f.to(torch.int64)
@@ -106,6 +145,23 @@ def art_taps(geom: Geometry, device):
     nsq = (w0 * w0 + w1 * w1).sum(-1).reshape(na * nt)
     return (pixel(i0), pixel(i1), w0.reshape(na * nt, n),
             w1.reshape(na * nt, n), nsq)
+
+
+def mixed_order(na: int, nt: int, run: int = 3) -> np.ndarray:
+    """A permutation of the Na Nt rays that jumps between two angles every
+    `run` bins: angles a and a + ceil(Na / 2) in turns, for each a below
+    ceil(Na / 2). Over a symmetric tilt range the pairs mix jumps that keep
+    the driving axis (A1 carries the next ray) with jumps that change it (a
+    full fetch after a barrier); chip_smoke.py and the tests hold A1 to it.
+    """
+    half = (na + 1) // 2
+    out = []
+    for a in range(half):
+        pair = [a] + ([a + half] if a + half < na else [])
+        for j0 in range(0, nt, run):
+            for p in pair:
+                out.extend(p * nt + j for j in range(j0, min(j0 + run, nt)))
+    return np.asarray(out, dtype=np.int32)
 
 
 def _checked_on_cpu(x, b, geom: Geometry, order, slices) -> bool:
@@ -167,33 +223,63 @@ def art_sweep_sl(x, b, geom: Geometry, beta, order, slices=None):
     p = torch.Tensor.data_ptr
     _build.check(_build.lib().tj_art_sweep(
         p(out), p(b), p(art_table(geom, x.device)), p(order), order.numel(),
-        float(beta), n, nt, na, ns, slices, _build.stream()), "tj_art_sweep")
+        float(beta), n, nt * na, ns, slices, _build.stream()),
+        "tj_art_sweep")
     art_sweep_sl.launches += 1
     return out
 
 
 art_sweep_sl.launches = 0
 
-VARIANTS = ("FULL", "NOLOAD", "NORED", "NOSTORE")  # csrc/art.cu Variant
+# A1's variants (csrc/art.cuh Variant bits) and the PROF bit
+VARIANTS = {"FULL": 0, "NOLOAD": 1, "NORED": 2, "NOSTORE": 4, "NOPREF": 8,
+            "CHAIN": 1 | 4 | 8}
+PROF = 16
+PHASES = ("staging", "full fetch", "dot and butterfly",
+          "next ray's taps and loads", "barrier", "block sum", "L2 prefetch",
+          "coefficient and update")  # csrc/art.cuh A_PHASES
+
+
+def _variant(x, b, geom: Geometry, beta, order, index: int, slices, prof):
+    if _checked_on_cpu(x, b, geom, order, slices):
+        raise ValueError("A1's variants time the kernel: pass CUDA tensors")
+    n, nt, na, ns = geom.n, geom.nray, geom.nproj, x.shape[-1]
+    out = x.clone()
+    p = torch.Tensor.data_ptr
+    _build.check(_build.lib().tj_art_variant(
+        index, p(out), p(b), p(art_table(geom, x.device)), p(order),
+        order.numel(), float(beta), n, nt * na, ns,
+        art_slices(n) if slices is None else slices,
+        None if prof is None else p(prof), _build.stream()),
+        "tj_art_variant")
+    return out
 
 
 def art_variant(x, b, geom: Geometry, beta, order, variant: str,
                 slices=None):
     """One sweep of a variant of A1 on the card, for splitting a ray's time
-    (`VARIANTS`: FULL is A1; NOLOAD takes each step's values from
-    registers in place of x, NORED sums over the warp only, with no shared
-    partials and no barrier, NOSTORE writes no update; their results are
-    not the sweep's). Operands as `art_sweep_sl`'s, on the card; counts in
-    no launch count."""
-    if _checked_on_cpu(x, b, geom, order, slices):
-        raise ValueError("art_variant times the kernel: pass CUDA tensors")
-    n, nt, na, ns = geom.n, geom.nray, geom.nproj, x.shape[-1]
-    if slices is None:
-        slices = art_slices(n)
-    out = x.clone()
-    p = torch.Tensor.data_ptr
-    _build.check(_build.lib().tj_art_variant(
-        VARIANTS.index(variant), p(out), p(b), p(art_table(geom, x.device)),
-        p(order), order.numel(), float(beta), n, nt, na, ns, slices,
-        _build.stream()), "tj_art_variant")
-    return out
+    (`VARIANTS`: FULL is A1; NOLOAD takes every pixel value from
+    registers in place of x, NORED takes the warp's sum for the block's (no
+    shared partials; the ray's barrier stays), NOSTORE writes no update,
+    NOPREF issues no L2 prefetch, CHAIN is all three of NOLOAD, NOSTORE
+    and NOPREF: the ray-to-ray chain without x's traffic; their results
+    are not the sweep's). Operands as `art_sweep_sl`'s, on the card (Ns a
+    multiple of min(slices, 4)); counts in no launch count."""
+    return _variant(x, b, geom, beta, order, VARIANTS[variant], slices,
+                    None)
+
+
+def art_phases(x, b, geom: Geometry, beta, order, slices=None) -> dict:
+    """One A1 sweep on the card with the phases of a ray timed (the
+    kernel's PROF instantiation; operands as `art_sweep_sl`'s): the mean
+    clock64 cycles a ray of each of `PHASES` over the blocks (thread 0 of
+    each), and the rays counted. Counts in no launch count."""
+    ns = x.shape[-1]
+    blocks = -(-ns // (art_slices(geom.n) if slices is None else slices))
+    prof = torch.zeros((blocks, len(PHASES) + 1), dtype=torch.int64,
+                       device=x.device)
+    _variant(x, b, geom, beta, order, PROF, slices, prof)
+    cyc = prof.cpu().double()
+    rays = int(cyc[0, -1])
+    return {"rays": rays, **{name: float(cyc[:, q].mean()) / max(rays, 1)
+                             for q, name in enumerate(PHASES)}}
