@@ -45,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tomojax_torch import ops, viz
+from tomojax_torch import ops, profiling, viz
 from tomojax_torch import tv as tvmod
 from tomojax_torch.dist import (
     SlabGroup, all_reduce_max, all_reduce_sum, gather_slabs, pad_slices,
@@ -85,6 +85,29 @@ from tomojax_torch.solvers import (
 )
 from tomojax_torch.tv import tv_fgp_4d
 
+# Spans (`profiling.annotate`; recorded only while a torch profiler runs):
+# one root per public call that does device work ("api.<class>" around a
+# construction, "api.<method>" around a solver method or get_recon), and
+# inside it "api.sinogram" (the host transpose and normalisation),
+# "api.h2d" (the series' copy to the device), "api.system" (the
+# projector's system and weights), "api.d2h" (a copy of results to the
+# host: a wait) and the solvers' "solvers.iteration" / "solvers.read".
+
+
+def _d2h(t: torch.Tensor) -> np.ndarray:
+    """`t` as host numpy: one read, in an "api.d2h" span (a wait for the
+    device's queue, then the copy)."""
+    with profiling.annotate("api.d2h"):
+        profiling.count_reads(t)
+        return t.cpu().numpy()
+
+
+def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The host tensor `t` copied to `device`, in an "api.h2d" span."""
+    with profiling.annotate("api.h2d"):
+        profiling.count("h2d_bytes", t.numel() * t.element_size())
+        return t.to(device)
+
 
 def _device(device, owner: str) -> torch.device:
     """torch.device(device), "cuda" when None; raises for CUDA where torch
@@ -114,6 +137,7 @@ class TomoTorch:
     """Batched tilt-series reconstructor on one device, or on one z-slab
     per rank of a `SlabGroup`."""
 
+    @profiling.spanned("api.TomoTorch")
     def __init__(self, tilt_angles_deg, tilt_series=None, device=None,
                  group: SlabGroup | None = None):
         """device: default "cuda". group: run slab-sharded over its ranks,
@@ -142,13 +166,16 @@ class TomoTorch:
                 f"tilt series {ts.shape} must be (Nslice, Nray, Nangles) "
                 f"with Nangles = {len(self.tilt_angles)}")
         self.Nslice, self.Nray, self.Nangles = ts.shape
-        self.geom = Geometry.make(self.Nray, np.deg2rad(self.tilt_angles))
-        self.sys = make_system(self.geom, self.device)
+        with profiling.annotate("api.system"):
+            self.geom = Geometry.make(self.Nray,
+                                      np.deg2rad(self.tilt_angles))
+            self.sys = make_system(self.geom, self.device)
         # slice-last sinogram (Nangles, Nray, Nslice), or this rank's slab
         # of it after padding to a multiple of the group size
-        b_sl = torch.from_numpy(_to_sinogram(ts))
+        with profiling.annotate("api.sinogram"):
+            b_sl = torch.from_numpy(_to_sinogram(ts))
         if self.group is None:
-            self.b_sl = b_sl.to(self.device)
+            self.b_sl = _h2d(b_sl, self.device)
         else:
             self.b_sl = _slab(b_sl, self.group, 2)
         self._sart_w = None
@@ -173,6 +200,7 @@ class TomoTorch:
             self.x = x_prev
         return self
 
+    @profiling.spanned("api.wbp")
     def wbp(self, filter: str = "ram-lak", apply_positivity: bool = True):
         """Filtered backprojection (solvers/wbp.py); an unknown filter name
         is reported and replaced by ram-lak, as the reference does."""
@@ -184,6 +212,7 @@ class TomoTorch:
         self.recon = None
         return self
 
+    @profiling.spanned("api.fista")
     def fista(self, Niter: int = 100, momentum: bool = True,
               lambda_param: float = 0.1, nTViter: int = 10,
               show_convergence: bool = True, compat: str = "correct",
@@ -200,10 +229,11 @@ class TomoTorch:
                                    Niter, nTViter, momentum, compat,
                                    compute_metrics=show_convergence,
                                    group=self.group)
-        self.cost = metrics[:, 0].cpu().numpy()
+        self.cost = _d2h(metrics[:, 0])
         self.x = from_sl(st.x)
         return self
 
+    @profiling.spanned("api.sart")
     def sart(self, Niter: int = 150, init: str = "sequential",
              beta: float = 1.0, show_convergence: bool = True):
         """SART sweeps from zero (K8), 'sequential' or 'random' angle order.
@@ -222,11 +252,12 @@ class TomoTorch:
             if show_convergence:
                 dds.append(data_distance_sl(x, self.b_sl, self.sys,
                                             self.group))
-        self.cost = (torch.stack(dds).cpu().numpy() if dds
+        self.cost = (_d2h(torch.stack(dds)) if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
         return self
 
+    @profiling.spanned("api.art")
     def art(self, Niter: int = 1, beta: float = 1.0,
             random_order: bool = False, show_convergence: bool = True):
         """Ray-by-ray Kaczmarz sweeps from zero (A1), rays angle-major or,
@@ -247,11 +278,12 @@ class TomoTorch:
             if show_convergence:
                 dds.append(data_distance_sl(x, self.b_sl, self.sys,
                                             self.group))
-        self.cost = (torch.stack(dds).cpu().numpy() if dds
+        self.cost = (_d2h(torch.stack(dds)) if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
         return self
 
+    @profiling.spanned("api.cgls")
     def cgls(self, Niter: int = 100, show_convergence: bool = True):
         """CGLS from zero (per-slice scalars, K1 and K2), positivity after
         the run; with show_convergence ``self.cost`` holds the one data
@@ -260,12 +292,14 @@ class TomoTorch:
         x = torch.clamp_min(cgls_run_sl(to_sl(self.x), self.b_sl, self.sys,
                                         Niter), 0.0)
         if show_convergence:
-            self.cost = np.asarray(
-                [float(data_distance_sl(x, self.b_sl, self.sys,
-                                        self.group))])
+            dd = data_distance_sl(x, self.b_sl, self.sys, self.group)
+            with profiling.annotate("api.d2h"):
+                profiling.count_reads(dd)
+                self.cost = np.asarray([float(dd)])
         self.x = from_sl(x)
         return self
 
+    @profiling.spanned("api.sirt")
     def sirt(self, Niter: int = 150, show_convergence: bool = True,
              variant: str = "astra"):
         """SIRT from zero, one `sirt_sweep_sl` iteration at a time; variant
@@ -283,11 +317,12 @@ class TomoTorch:
             if show_convergence:
                 dds.append(data_distance_sl(x, self.b_sl, self.sys,
                                             self.group))
-        self.cost = (torch.stack(dds).cpu().numpy() if dds
+        self.cost = (_d2h(torch.stack(dds)) if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
         return self
 
+    @profiling.spanned("api.kl_divergence")
     def kl_divergence(self, Niter: int = 100, lambda_param: float = 0.1):
         """Poisson-ML from zero on a copy of the data normalised to max 1;
         the reconstruction is scaled back to data units afterwards and the
@@ -300,7 +335,9 @@ class TomoTorch:
         bmax = torch.max(self.b_sl)
         if self.group is not None:
             all_reduce_max(bmax, self.group)
-        bmax = float(bmax)
+        with profiling.annotate("api.d2h"):
+            profiling.count_reads(bmax)
+            bmax = float(bmax)
         b_kl = self.b_sl / bmax if bmax > 0 else self.b_sl
         x = to_sl(self.x)
         costs = []
@@ -311,12 +348,13 @@ class TomoTorch:
             cost = torch.stack(costs)
             if self.group is not None:
                 all_reduce_sum(cost, self.group)
-            self.cost = cost.cpu().numpy()
+            self.cost = _d2h(cost)
         else:
             self.cost = np.zeros(Niter, np.float32)
         self.x = from_sl(x * bmax if bmax > 0 else x)
         return self
 
+    @profiling.spanned("api.asd_pocs")
     def asd_pocs(self, Niter: int = 100, eps: float = 0.025,
                  beta0: float = 0.25, beta_reduce: float = 0.9985,
                  r_max: float = 0.95, nTViter: int = 10, alpha: float = 0.2,
@@ -338,8 +376,8 @@ class TomoTorch:
                 params, self._orders(init, Niter), self.group)
         if fused:
             x, dd_vec, tv_vec = asd_pocs_run(*args)
-            self.dd_vec = dd_vec.cpu().numpy()
-            self.tv_vec = tv_vec.cpu().numpy()
+            self.dd_vec = _d2h(dd_vec)
+            self.tv_vec = _d2h(tv_vec)
         else:
             x, self.dd_vec, self.tv_vec, _ = asd_pocs_host_loop(*args)
         self.cost = self.dd_vec
@@ -348,14 +386,18 @@ class TomoTorch:
 
     def data_distance(self) -> float:
         """||A x - b|| of the current reconstruction (K1)."""
-        return float(data_distance_sl(to_sl(self.x), self.b_sl, self.sys,
-                                      self.group))
+        dd = data_distance_sl(to_sl(self.x), self.b_sl, self.sys, self.group)
+        profiling.count_reads(dd)
+        return float(dd)
 
     def tv(self) -> float:
         """Periodic isotropic TV of the current reconstruction (K5)."""
-        return float(tvmod.tv(to_sl(self.x), self.group))
+        tv = tvmod.tv(to_sl(self.x), self.group)
+        profiling.count_reads(tv)
+        return float(tv)
 
     def lipschitz(self) -> float:
+        profiling.count_reads(self.sys.lipschitz)
         return float(self.sys.lipschitz)
 
     def _whole(self, a: torch.Tensor, axis: int) -> torch.Tensor:
@@ -366,24 +408,25 @@ class TomoTorch:
         return unpad_slices(gather_slabs(a, self.group, axis), self.Nslice,
                             axis)
 
+    @profiling.spanned("api.get_recon")
     def get_recon(self) -> np.ndarray:
         """The reconstruction, (Nslice, Nray, Nray) float32 numpy; with a
         group the gathered slabs without the padding, on every rank."""
         if self.recon is None:
-            self.recon = self._whole(self.x, 0).cpu().numpy()
+            self.recon = _d2h(self._whole(self.x, 0))
         return self.recon
 
     def get_projections(self) -> np.ndarray:
         """The measured sinogram (Nslice, Nangles, Nray) (the reference's
         sinogram layout, not the tilt series'); a collective with a
         group."""
-        return from_sl(self._whole(self.b_sl, 2)).cpu().numpy()
+        return _d2h(from_sl(self._whole(self.b_sl, 2)))
 
     def get_model_projections(self) -> np.ndarray:
         """A x of the current reconstruction (K1), (Nslice, Nangles, Nray);
         a collective with a group."""
-        return from_sl(self._whole(fp_sl(to_sl(self.x), self.geom),
-                                   2)).cpu().numpy()
+        return _d2h(from_sl(self._whole(fp_sl(to_sl(self.x), self.geom),
+                                        2)))
 
     def plot_convergence(self, path: str | None = None):
         """Scatter of ``self.cost`` against the iteration (`viz`); saved to
@@ -454,12 +497,15 @@ class Simulator(TomoTorch):
         `original` (with a group over all ranks' real slices, an
         all-reduce)."""
         if self.group is None:
-            return float(ops.rmse(self.x, self._truth))
+            err = ops.rmse(self.x, self._truth)
+            profiling.count_reads(err)
+            return float(err)
         n_loc = self.x.shape[0]
         lo = self.group.rank * n_loc
         hi = min(lo + n_loc, self.Nslice)
         d = self.x[:max(hi - lo, 0)] - self._truth[lo:hi]
         sq = all_reduce_sum(torch.sum(d * d), self.group)
+        profiling.count_reads(sq)
         return float(torch.sqrt(sq / self._truth.numel()))
 
 
@@ -483,6 +529,7 @@ class ChemicalTomo:
     `get_recon`, `rmse_per_element` and `display_recon` gather the slabs
     (collectives) and drop the padding."""
 
+    @profiling.spanned("api.ChemicalTomo")
     def __init__(self, haadf, haadfTiltAngles, chem: dict, chemTiltAngles,
                  gamma: float = 1.6, sigmaMethod: int = 3, device=None,
                  group: SlabGroup | None = None):
@@ -502,26 +549,30 @@ class ChemicalTomo:
         self.gamma, self.sigmaMethod = gamma, sigmaMethod
         self.reduceLambda = True
         want = (self.nx, self.ny, len(chemTiltAngles))
-        stack = []
-        for el in self.elements:
-            c = np.maximum(np.asarray(chem[el], np.float32), 0)
-            if c.shape != want:
-                raise ValueError(f"chem[{el!r}] {c.shape}, expected {want}")
-            stack.append(_to_sinogram(c / max(c.max(), 1e-30)))
-        h = np.maximum(haadf, 0)
-        b_haadf = torch.from_numpy(_to_sinogram(h / max(h.max(), 1e-30)))
-        b_chem = torch.from_numpy(np.stack(stack))
+        with profiling.annotate("api.sinogram"):
+            stack = []
+            for el in self.elements:
+                c = np.maximum(np.asarray(chem[el], np.float32), 0)
+                if c.shape != want:
+                    raise ValueError(
+                        f"chem[{el!r}] {c.shape}, expected {want}")
+                stack.append(_to_sinogram(c / max(c.max(), 1e-30)))
+            h = np.maximum(haadf, 0)
+            b_haadf = torch.from_numpy(
+                _to_sinogram(h / max(h.max(), 1e-30)))
+            b_chem = torch.from_numpy(np.stack(stack))
         if group is None:
-            self.b_haadf = b_haadf.to(self.device)
-            self.b_chem = b_chem.to(self.device)
+            self.b_haadf = _h2d(b_haadf, self.device)
+            self.b_chem = _h2d(b_chem, self.device)
         else:
             self.b_haadf = _slab(b_haadf, group, 2)
             self.b_chem = _slab(b_chem, group, 3)
-        self.fsys = make_fusion_system(
-            self.ny, np.deg2rad(np.asarray(haadfTiltAngles, np.float64)),
-            np.deg2rad(np.asarray(chemTiltAngles, np.float64)),
-            weights_for_elements(self.elements, gamma, sigmaMethod), gamma,
-            self.device)
+        with profiling.annotate("api.system"):
+            self.fsys = make_fusion_system(
+                self.ny, np.deg2rad(np.asarray(haadfTiltAngles, np.float64)),
+                np.deg2rad(np.asarray(chemTiltAngles, np.float64)),
+                weights_for_elements(self.elements, gamma, sigmaMethod),
+                gamma, self.device)
         self.x = torch.zeros((self.nel, self.ny, self.ny,
                               self.b_haadf.shape[2]),
                              dtype=torch.float32, device=self.device)
@@ -532,6 +583,7 @@ class ChemicalTomo:
         self.x = torch.zeros_like(self.x)
         self.reconTotal = None
 
+    @profiling.spanned("api.chemical_tomography")
     def chemical_tomography(self, Niter: int = 100,
                             lambdaCHEM: float = 0.05,
                             show_convergence: bool = True):
@@ -541,10 +593,12 @@ class ChemicalTomo:
         self.restart_recon()
         costs = []
         for _ in range(Niter):
-            self.x, c = poisson_ml_step_4d(self.x, self.b_chem, self.fsys,
-                                           lambdaCHEM, self.group)
+            with profiling.annotate("solvers.iteration"):
+                self.x, c = poisson_ml_step_4d(self.x, self.b_chem,
+                                               self.fsys, lambdaCHEM,
+                                               self.group)
             costs.append(c)
-        self.costCHEM = (torch.stack(costs).cpu().numpy() if costs
+        self.costCHEM = (_d2h(torch.stack(costs)) if costs
                          else np.zeros(Niter, np.float32))
         self.chemistry_reconstructed = True
         self.reconTotal = None
@@ -556,6 +610,7 @@ class ChemicalTomo:
         self.b_haadf = rescale_projections(self.x, self.b_haadf, self.fsys,
                                            self.group)
 
+    @profiling.spanned("api.data_fusion")
     def data_fusion(self, Niter: int = 50, lambdaCHEM: float = 5e-2,
                     lambdaHAADF: float = 10.0, lambdaTV: float = 1e-4,
                     iterSIRT: int = 5, tvIter: int = 5,
@@ -582,20 +637,25 @@ class ChemicalTomo:
                 lambdaCHEM, Niter, iterSIRT, tvIter, lambdaTV,
                 self.reduceLambda, normalize_haadf, method, sart_w,
                 self.group)
-            m = metrics.cpu().numpy()
+            m = _d2h(metrics)
         else:
             m = np.zeros((Niter, 3), np.float32)
             lam_chem = lambdaCHEM
             for i in range(Niter):
-                self.x, ch, cc = data_fusion_step(
-                    self.x, self.b_haadf, self.b_chem, self.fsys,
-                    lambdaHAADF, lam_chem, iterSIRT, normalize_haadf, method,
-                    sart_w, self.group)
-                self.x, tv0 = tv_fgp_4d(self.x, tvIter, lambdaTV,
-                                        group=self.group)
-                m[i] = torch.stack([ch, cc, tv0]).cpu().numpy()
-                if self.reduceLambda and i > 0 and m[i, 0] > m[i - 1, 0]:
-                    lam_chem *= 0.95
+                with profiling.annotate("solvers.iteration"):
+                    self.x, ch, cc = data_fusion_step(
+                        self.x, self.b_haadf, self.b_chem, self.fsys,
+                        lambdaHAADF, lam_chem, iterSIRT, normalize_haadf,
+                        method, sart_w, self.group)
+                    self.x, tv0 = tv_fgp_4d(self.x, tvIter, lambdaTV,
+                                            group=self.group)
+                    with profiling.annotate("solvers.read"):
+                        costs = torch.stack([ch, cc, tv0])
+                        profiling.count_reads(costs)
+                        m[i] = costs.cpu().numpy()
+                    if (self.reduceLambda and i > 0
+                            and m[i, 0] > m[i - 1, 0]):
+                        lam_chem *= 0.95
         self.costHAADF, self.costCHEM, self.costTV = m[:, 0], m[:, 1], m[:, 2]
         self.reconTotal = None
         return self
@@ -612,14 +672,15 @@ class ChemicalTomo:
         truth; a collective with a group."""
         gt = torch.as_tensor(np.asarray(ground_truth, np.float32),
                              device=self.device)
-        return ops.rmse_per_element(from_sl(self._whole()), gt).cpu().numpy()
+        return _d2h(ops.rmse_per_element(from_sl(self._whole()), gt))
 
+    @profiling.spanned("api.get_recon")
     def get_recon(self) -> np.ndarray:
         """(Nel, Nslice, Nray, Nray) float32 numpy
         (reconstructor.py:238-249); with a group the gathered slabs without
         the padding, on every rank."""
         if self.reconTotal is None:
-            self.reconTotal = from_sl(self._whole()).cpu().numpy()
+            self.reconTotal = _d2h(from_sl(self._whole()))
         return self.reconTotal
 
     def display_recon(self, path: str | None = None):

@@ -1,31 +1,136 @@
-"""Tracing and per-iteration throughput (counterpart of
-``tomojax/profiling.py``), on ``torch.profiler``.
+"""Tracing, the program's spans and counters, and per-iteration
+throughput (counterpart of ``tomojax/profiling.py``), on
+``torch.profiler``.
 
 * `trace(log_dir)` records host and (where torch finds CUDA) device
   activity and writes a Chrome-format trace into `log_dir`, which
   TensorBoard's profiler plugin and Perfetto open.
-* `annotate(name)` names a region in that trace
-  (``torch.profiler.record_function``).
+* `annotate(name)` is a span: a named region of the program. With no
+  torch profiler running it is one shared no-op context and records
+  nothing. While one runs (`trace`, or any ``torch.profiler.profile``) it
+  enters ``torch.profiler.record_function(name)``, so the region shows in
+  the trace beside the kernels it launched, and appends a `Span` to an
+  in-memory store: its name, start and end from ``time.time_ns()`` (the
+  profiler's host clock: a stamp lies at the trace's
+  ``kineto_results.trace_start_ns()`` plus the event's microseconds), its
+  id, its parent's id, the id of its outermost open span (its root: one
+  per public API call), and the counts made while it was the innermost
+  open span.
+* `count(name, n)`, `count_reads(*tensors)` and `launched(wrapper)` add to
+  the innermost open span, and do nothing when none is open.
+* `spanned(name)` runs each call of a function inside `annotate(name)`.
+* `recorded()` is the store: at most `STORE_SPANS` spans, oldest first; a
+  full store drops its oldest and counts them in ``spans_dropped``.
+  `trace` clears it on entry.
 * `IterationMeter` keeps per-iteration wall times and voxel-iters/s, with
   the reference's one-line summary.
+
+The port opens spans at its layer boundaries only (``api.*``,
+``solvers.*``, ``tv.*``), never one per kernel launch: a launch is counted
+(``launches.<wrapper>``). The other counters are ``reads`` and
+``d2h_bytes`` (each blocking device-to-host read the api, solvers, stream
+and fusion code make, counted where the code reads, whatever the device),
+``h2d_bytes`` (the api's copies of the data to the device) and
+``plan_builds`` (the bodies of the cached per-geometry tables of
+``projector.cuda_joseph``, which run only on a miss).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
 
+STORE_SPANS = 1 << 16  # spans the store keeps; older ones are dropped
+
+_OFF = contextlib.nullcontext()  # the span while no profiler runs
+_ids = itertools.count(1)
+
+
+class _Open(threading.local):
+    """Each thread's open spans, innermost last."""
+
+    def __init__(self):
+        self.spans = []
+
+
+_open = _Open()
+
+
+class Span:
+    """One recorded span (and, while open, the context that records it)."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "root",
+                 "counts", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.counts = {}
+
+    def __enter__(self):
+        stack = _open.spans
+        outer = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = None if outer is None else outer.id
+        self.root = self.id if outer is None else outer.root
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        self.start_ns = time.time_ns()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        _open.spans.remove(self)
+        self._rf.__exit__(*exc)
+        self._rf = None
+        _STORE.add(self)
+        return False
+
+
+class Store:
+    """The spans recorded, oldest first: at most `limit`; `spans_dropped`
+    counts the oldest dropped to keep that bound."""
+
+    def __init__(self, limit: int = STORE_SPANS):
+        self.spans = collections.deque(maxlen=limit)
+        self.spans_dropped = 0
+        self._lock = threading.Lock()
+
+    def add(self, span: Span) -> None:
+        with self._lock:
+            if len(self.spans) == self.spans.maxlen:
+                self.spans_dropped += 1
+            self.spans.append(span)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.spans.clear()
+            self.spans_dropped = 0
+
+
+_STORE = Store()
+
+
+def recorded() -> Store:
+    """The store of recorded spans (``.spans``, ``.spans_dropped``)."""
+    return _STORE
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the body: CPU activity, and CUDA kernels and copies where
-    torch finds a CUDA device. On leaving, the card's queued work is
-    waited for and the trace is written into `log_dir` as
+    torch finds a CUDA device. The store of spans is cleared on entry, so
+    `recorded` then holds the body's spans. On leaving, the card's queued
+    work is waited for and the trace is written into `log_dir` as
     ``<host>_<pid>.<time>.pt.trace.json``. Yields the
     ``torch.profiler.profile``, whose ``events()`` and ``key_averages()``
     can be read after the body."""
@@ -39,6 +144,7 @@ def trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     os.makedirs(log_dir, exist_ok=True)
+    _STORE.clear()
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         try:
@@ -49,8 +155,51 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """A named region in the trace (a context manager)."""
-    return torch.profiler.record_function(name)
+    """A span named `name` (a context manager): recorded while a torch
+    profiler runs, the shared no-op otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return Span(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside `annotate(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` of the innermost open span."""
+    stack = _open.spans
+    if stack:
+        c = stack[-1].counts
+        c[name] = c.get(name, 0) + n
+
+
+def count_reads(*tensors: torch.Tensor) -> None:
+    """One blocking device-to-host read of each tensor (``reads``) and its
+    bytes (``d2h_bytes``), in the innermost open span."""
+    stack = _open.spans
+    if stack:
+        c = stack[-1].counts
+        c["reads"] = c.get("reads", 0) + len(tensors)
+        c["d2h_bytes"] = (c.get("d2h_bytes", 0)
+                          + sum(t.numel() * t.element_size()
+                                for t in tensors))
+
+
+def launched(wrapper) -> None:
+    """One launch of `wrapper`'s kernel: ``wrapper.launches`` (read by
+    ``chip_smoke.py`` and the tests) and ``launches.<name>`` in the
+    innermost open span."""
+    wrapper.launches += 1
+    if _open.spans:
+        count("launches." + wrapper.__name__)
 
 
 @dataclass

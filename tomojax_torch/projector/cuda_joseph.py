@@ -27,7 +27,9 @@ The plain versions are the 2-point gathers of the reference's XLA
 (``solvers/cuda_sart.py``) shares. A wrapper runs its plain version
 only when its tensors lie on the CPU; on CUDA tensors it launches the
 kernel or raises. Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches`` (and in the innermost open span of
+``tomojax_torch.profiling``); the cached `angle_tables` and K1's plan count
+each build (a cache miss) as ``plan_builds`` there.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import functools
 import numpy as np
 import torch
 
-from tomojax_torch import _build
+from tomojax_torch import _build, profiling
 from tomojax_torch.geometry import Geometry
 
 F32 = torch.float32
@@ -63,6 +65,7 @@ class AngleTables:
 
 @functools.lru_cache(maxsize=32)
 def angle_tables(geom: Geometry, device: torch.device) -> AngleTables:
+    profiling.count("plan_builds")  # the body runs on a cache miss only
     rd = geom.row_driven
     denom = np.where(rd, geom.cos, geom.sin)
     shear = np.where(rd, -geom.sin, geom.cos) / denom
@@ -165,6 +168,7 @@ def fp_plan(geom: Geometry, device: torch.device,
 
 @functools.lru_cache(maxsize=64)
 def _fp_plan(geom: Geometry, device: torch.device, group: int) -> FpPlan:
+    profiling.count("plan_builds")  # the body runs on a cache miss only
     tab = angle_tables(geom, torch.device("cpu")).fp.numpy()
     lo, hi = _fp_corner_windows(geom, tab)
     n = geom.n
@@ -359,7 +363,7 @@ def fp_sl(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
     _build.check(_build.lib().tj_fp(
         _p(x), _p(tab), _p(plan.table), plan.ng, plan.width, _p(ax), geom.n,
         geom.nray, geom.nproj, ns, _build.stream()), "tj_fp")
-    fp_sl.launches += 1
+    profiling.launched(fp_sl)
     return ax
 
 
@@ -391,7 +395,7 @@ def fp_resid_sl(x, geom: Geometry, b, ax_old, inv_row, beta):
         _p(ax_old), _p(inv_row), _p(beta), _p(ax), _p(resid), _p(partials),
         _p(ddsq), geom.n, geom.nray, geom.nproj, ns, _build.stream()),
         "tj_fp_resid")
-    fp_resid_sl.launches += 1
+    profiling.launched(fp_resid_sl)
     return ax, resid, ddsq
 
 
@@ -443,7 +447,7 @@ def bp_ab_sl(y, geom: Geometry, ab: int, y_vol=None, inv_col=None):
     _build.check(_build.lib().tj_bp_ab(
         _p(y), _p(tab), _p(y_vol), _p(inv_col), _p(out), geom.n, geom.nray,
         geom.nproj, ns, ab, _build.stream()), "tj_bp_ab")
-    bp_ab_sl.launches += 1
+    profiling.launched(bp_ab_sl)
     return out
 
 
@@ -458,7 +462,7 @@ def bp_sl(y: torch.Tensor, geom: Geometry, ab: int = 1) -> torch.Tensor:
     if ab > 1:
         return bp_ab_sl(y, geom, ab)
     out = _bp_launch(y, geom, None, None)
-    bp_sl.launches += 1
+    profiling.launched(bp_sl)
     return out
 
 
@@ -479,7 +483,7 @@ def bp_sirt_sl(resid, geom: Geometry, y_vol, inv_col, ab: int = 1):
     if ab > 1:
         return bp_ab_sl(resid, geom, ab, y_vol, inv_col)
     out = _bp_launch(resid, geom, y_vol, inv_col)
-    bp_sirt_sl.launches += 1
+    profiling.launched(bp_sirt_sl)
     return out
 
 

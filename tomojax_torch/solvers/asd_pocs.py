@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tomojax_torch import profiling
 from tomojax_torch.dist import SlabGroup, all_reduce_sum
 from tomojax_torch.projector.cuda_joseph import fp_resid_sl
 from tomojax_torch.solvers.base import System
@@ -123,15 +124,18 @@ def asd_pocs_host_loop(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
     beta, dpocs = p.beta0, 0.0
     out = np.zeros((3, p.niter), np.float32)
     for it in range(p.niter):
-        x, dp, dd, dg, tv0, dpocs_used = asd_pocs_iteration(
-            x, b_sl, sys, inv_col_a, beta, dpocs, orders[it].contiguous(),
-            p.ng, it == 0, p.alpha, group)
-        beta *= p.beta_red
-        dp, dd, dg = float(dp), float(dd), float(dg)
-        dpocs = float(dpocs_used)
-        out[:, it] = dd, float(tv0), dpocs
-        if dg > p.r_max * dp and dd > p.eps:
-            dpocs *= p.alpha_red
+        with profiling.annotate("solvers.iteration"):
+            x, dp, dd, dg, tv0, dpocs_used = asd_pocs_iteration(
+                x, b_sl, sys, inv_col_a, beta, dpocs,
+                orders[it].contiguous(), p.ng, it == 0, p.alpha, group)
+            beta *= p.beta_red
+            with profiling.annotate("solvers.read"):
+                profiling.count_reads(dp, dd, dg, dpocs_used, tv0)
+                dp, dd, dg = float(dp), float(dd), float(dg)
+                dpocs = float(dpocs_used)
+                out[:, it] = dd, float(tv0), dpocs
+            if dg > p.r_max * dp and dd > p.eps:
+                dpocs *= p.alpha_red
     return x, out[0], out[1], out[2]
 
 

@@ -40,7 +40,7 @@ import dataclasses
 
 import torch
 
-from tomojax_torch import ops
+from tomojax_torch import ops, profiling
 from tomojax_torch.dist import SlabGroup, all_reduce_sum
 from tomojax_torch.projector.cuda_joseph import (
     bp_sirt_sl, fp_resid_sl, fp_sl,
@@ -131,8 +131,9 @@ def fista_run_sl(state: FistaStateSL, b_sl: torch.Tensor, sys: System,
     """`n_iter` iterations; returns (state, metrics (n_iter, 3))."""
     metrics = []
     for _ in range(n_iter):
-        state, m = fista_step_sl(state, b_sl, sys, lam, n_tv_iter, momentum,
-                                 compat, compute_metrics, group)
+        with profiling.annotate("solvers.iteration"):
+            state, m = fista_step_sl(state, b_sl, sys, lam, n_tv_iter,
+                                     momentum, compat, compute_metrics, group)
         metrics.append(m)
     if not metrics:
         return state, torch.zeros((0, 3), dtype=torch.float32,

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from tomojax_torch import _build
+from tomojax_torch import _build, profiling
 from tomojax_torch import config
 from tomojax_torch.tv.cuda_tv_value import tv_value
 
@@ -133,7 +133,7 @@ def fgp_iter(x, p1, p2, p3, lam: float):
     if _build.on_cpu(x, p1, p2, p3):
         return fgp_iter_ref(x, p1, p2, p3, lam)
     q = _iter_launch("tj_fgp_iter", x, p1, p2, p3, lam)
-    fgp_iter.launches += 1
+    profiling.launched(fgp_iter)
     return q
 
 
@@ -144,7 +144,7 @@ def fgp_iter2(x, p1, p2, p3, lam: float):
     if _build.on_cpu(x, p1, p2, p3):
         return fgp_iter2_ref(x, p1, p2, p3, lam)
     q = _iter_launch("tj_fgp_iter2", x, p1, p2, p3, lam)
-    fgp_iter2.launches += 1
+    profiling.launched(fgp_iter2)
     return q
 
 
@@ -164,7 +164,7 @@ def fgp_grad(d, p1, p2, p3, lam: float):
         d.data_ptr(), p1.data_ptr(), p2.data_ptr(), p3.data_ptr(),
         q1.data_ptr(), q2.data_ptr(), q3.data_ptr(), n0, n1, n2,
         1.0 / (26.0 * float(lam)), _build.stream()), "tj_fgp_grad")
-    fgp_grad.launches += 1
+    profiling.launched(fgp_grad)
     return q1, q2, q3
 
 
@@ -188,7 +188,7 @@ def fgp_obj_mom(x, p1, p2, p3, lam: float, x_old=None, beta=None):
         x.data_ptr(), p1.data_ptr(), p2.data_ptr(), p3.data_ptr(), *ptr[:2],
         d.data_ptr(), ptr[2], n0, n1, n2, int(p1.dtype == torch.bfloat16),
         float(lam), _build.stream()), "tj_fgp_obj")
-    fgp_obj_mom.launches += 1
+    profiling.launched(fgp_obj_mom)
     return d, y
 
 
@@ -212,17 +212,18 @@ def tv_fgp_fused(x, n_iter: int, lam: float, dual_dtype=None, mom=None,
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     dual_dtype = config.fgp_dual_dtype if dual_dtype is None else dual_dtype
-    p = tuple(torch.zeros(x.shape, dtype=dual_dtype, device=x.device)
-              for _ in range(3))
-    m = n_iter - 1
-    pairs = m // 2 if fuse_pairs and m >= 2 else 0
-    for _ in range(pairs):
-        p = fgp_iter2(x, *p, lam)
-    for _ in range(m - 2 * pairs):
-        p = fgp_iter(x, *p, lam)
-    x_old, beta = (None, None) if mom is None else mom
-    d, y = fgp_obj_mom(x, *p, lam, x_old, beta)
-    return d if mom is None else (d, y)
+    with profiling.annotate("tv.prox"):
+        p = tuple(torch.zeros(x.shape, dtype=dual_dtype, device=x.device)
+                  for _ in range(3))
+        m = n_iter - 1
+        pairs = m // 2 if fuse_pairs and m >= 2 else 0
+        for _ in range(pairs):
+            p = fgp_iter2(x, *p, lam)
+        for _ in range(m - 2 * pairs):
+            p = fgp_iter(x, *p, lam)
+        x_old, beta = (None, None) if mom is None else mom
+        d, y = fgp_obj_mom(x, *p, lam, x_old, beta)
+        return d if mom is None else (d, y)
 
 
 def tv_fgp_two_pass(x, n_iter: int, lam: float):
@@ -233,12 +234,13 @@ def tv_fgp_two_pass(x, n_iter: int, lam: float):
     reference's last dual pass, whose result it discards, is not run."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
-    p = tuple(torch.zeros_like(x) for _ in range(3))
-    for i in range(n_iter):
-        d, _ = fgp_obj_mom(x, *p, lam)
-        if i < n_iter - 1:
-            p = fgp_grad(d, *p, lam)
-    return d, tv_value(x)
+    with profiling.annotate("tv.prox"):
+        p = tuple(torch.zeros_like(x) for _ in range(3))
+        for i in range(n_iter):
+            d, _ = fgp_obj_mom(x, *p, lam)
+            if i < n_iter - 1:
+                p = fgp_grad(d, *p, lam)
+        return d, tv_value(x)
 
 
 fgp_iter.launches = 0

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from tomojax_torch import _build
+from tomojax_torch import _build, profiling
 from tomojax_torch import config
 from tomojax_torch.dist import SlabGroup, halo_exchange
 from tomojax_torch.tv.cuda_fgp import (
@@ -93,7 +93,7 @@ def fgp_iter_halo(x, p1, p2, p3, lam: float, p3_lo, hi=None):
         q1.data_ptr(), q2.data_ptr(), q3.data_ptr(), p3_lo.data_ptr(), *hp,
         n0, n1, n2, int(p1.dtype == torch.bfloat16), float(lam),
         1.0 / (26.0 * float(lam)), _build.stream()), "tj_fgp_iter_halo")
-    fgp_iter_halo.launches += 1
+    profiling.launched(fgp_iter_halo)
     return q1, q2, q3
 
 
@@ -119,7 +119,7 @@ def fgp_obj_halo(x, p1, p2, p3, lam: float, p3_lo, x_old=None, beta=None):
         p3_lo.data_ptr(), *ptr[:2], d.data_ptr(), ptr[2], n0, n1, n2,
         int(p1.dtype == torch.bfloat16), float(lam), _build.stream()),
         "tj_fgp_obj_halo")
-    fgp_obj_halo.launches += 1
+    profiling.launched(fgp_obj_halo)
     return d, y
 
 
@@ -143,26 +143,27 @@ def tv_fgp_sharded(x, n_iter: int, lam: float, group: SlabGroup,
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     dual_dtype = config.fgp_dual_dtype if dual_dtype is None else dual_dtype
-    top = group.rank == group.size - 1
-    p = tuple(torch.zeros(x.shape, dtype=dual_dtype, device=x.device)
-              for _ in range(3))
-    # A chain of one rank has no neighbours: its halo below is zero, it has
-    # none above, and no planes need copying out.
-    solo = group.size == 1
-    zero = torch.zeros(x.shape[:2], dtype=dual_dtype, device=x.device)
-    # x's right halo is the same for every iteration
-    x_hi = None
-    if n_iter > 1 and not solo:
-        _, x_hi = halo_exchange(_first(x), None, group)
-    for _ in range(n_iter - 1):
-        p3_lo, p_hi = (zero, None) if solo else halo_exchange(
-            torch.stack([q[:, :, 0] for q in p]), _last(p[2]), group)
-        p = fgp_iter_halo(x, *p, lam, p3_lo,
-                          None if top else (x_hi, *p_hi))
-    p3_lo = zero if solo else halo_exchange(None, _last(p[2]), group)[0]
-    x_old, beta = (None, None) if mom is None else mom
-    d, y = fgp_obj_halo(x, *p, lam, p3_lo, x_old, beta)
-    return d if mom is None else (d, y)
+    with profiling.annotate("tv.prox"):
+        top = group.rank == group.size - 1
+        p = tuple(torch.zeros(x.shape, dtype=dual_dtype, device=x.device)
+                  for _ in range(3))
+        # A chain of one rank has no neighbours: its halo below is zero, it has
+        # none above, and no planes need copying out.
+        solo = group.size == 1
+        zero = torch.zeros(x.shape[:2], dtype=dual_dtype, device=x.device)
+        # x's right halo is the same for every iteration
+        x_hi = None
+        if n_iter > 1 and not solo:
+            _, x_hi = halo_exchange(_first(x), None, group)
+        for _ in range(n_iter - 1):
+            p3_lo, p_hi = (zero, None) if solo else halo_exchange(
+                torch.stack([q[:, :, 0] for q in p]), _last(p[2]), group)
+            p = fgp_iter_halo(x, *p, lam, p3_lo,
+                              None if top else (x_hi, *p_hi))
+        p3_lo = zero if solo else halo_exchange(None, _last(p[2]), group)[0]
+        x_old, beta = (None, None) if mom is None else mom
+        d, y = fgp_obj_halo(x, *p, lam, p3_lo, x_old, beta)
+        return d if mom is None else (d, y)
 
 
 fgp_iter_halo.launches = 0

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from tomojax_torch import _build
+from tomojax_torch import _build, profiling
 from tomojax_torch.tv.cuda_tv_value import EPS_TV
 
 F32 = torch.float32
@@ -64,7 +64,7 @@ def tv_grad(x: torch.Tensor):
     _build.check(lib.tj_tv_grad(x.data_ptr(), g.data_ptr(),
                                 partials.data_ptr(), gsq.data_ptr(), n0, n1,
                                 n2, _build.stream()), "tj_tv_grad")
-    tv_grad.launches += 1
+    profiling.launched(tv_grad)
     return g, gsq
 
 
@@ -90,19 +90,20 @@ def tv_step(x, g, gsq, dpocs, clamp: bool = False):
     _build.check(_build.lib().tj_tv_step(
         x.data_ptr(), g.data_ptr(), dp.data_ptr(), gsq.data_ptr(),
         out.data_ptr(), x.numel(), int(clamp), _build.stream()), "tj_tv_step")
-    tv_step.launches += 1
+    profiling.launched(tv_step)
     return out
 
 
 def tv_descent(x: torch.Tensor, ng: int, dpocs, grad=tv_grad):
     """`ng` normalised steps along `grad` (a function x -> (g, ||g||^2)),
     the last one clamped to x >= 0; with ng = 0 only the clamp."""
-    if ng == 0:
-        return torch.clamp_min(x, 0.0)
-    for k in range(ng):
-        g, gsq = grad(x)
-        x = tv_step(x, g, gsq, dpocs, clamp=k == ng - 1)
-    return x
+    with profiling.annotate("tv.descent"):
+        if ng == 0:
+            return torch.clamp_min(x, 0.0)
+        for k in range(ng):
+            g, gsq = grad(x)
+            x = tv_step(x, g, gsq, dpocs, clamp=k == ng - 1)
+        return x
 
 
 tv_grad.launches = 0
