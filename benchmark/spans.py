@@ -5,11 +5,12 @@ solvers and projector layers.
 While a torch profiler runs, the port records a span at each layer
 boundary it crosses (``api.*``, ``solvers.*``, ``tv.*``), on the
 profiler's host clock, with the counts made inside it (``reads``,
-``plan_builds``, ``launches.<wrapper>``, bytes copied). Only the traced
-window runs the profiler, so the store holds that window's spans. Each
-reader gives None off the card, without a trace, where the port records
-no spans (a port without the recorder) and where the store dropped some
-of the window's spans.
+``plan_builds``) and the time its children's instrumentation took
+outside their stamps (``inner_ns``). Only the traced window runs the
+profiler, so the store holds that window's spans. Each reader gives None
+off the card, without a trace, where the port records no spans (a port
+without the recorder) and where the store dropped some of the window's
+spans.
 """
 
 from __future__ import annotations
@@ -34,13 +35,16 @@ def window_spans(ctx):
 
 
 def api_host_pct(spans, window_s: float):
-    """The self time (duration less the direct child spans) of the api
-    spans that are not waits, over the window, in %."""
+    """The self time of the api spans that are not waits, over the window,
+    in %: a span's duration less its direct child spans and less the
+    entries and exits of those children (``inner_ns``), so that the count
+    of spans does not move it."""
     inner = collections.defaultdict(int)
     for s in spans:
         if s.parent is not None:
             inner[s.parent] += s.end_ns - s.start_ns
-    host = sum(s.end_ns - s.start_ns - inner[s.id] for s in spans
+    host = sum(s.end_ns - s.start_ns - inner[s.id] - s.inner_ns
+               for s in spans
                if s.name.startswith("api.") and s.name not in WAITS)
     return 100.0 * host / 1e9 / window_s
 

@@ -15,42 +15,45 @@ from benchmark import harness
 MS = 1_000_000  # ns
 
 
-def _span(name, sid, parent, root, start_ms, end_ms, **counts):
+def _span(name, sid, parent, root, start_ms, end_ms, inner_ms=0,
+          **counts):
     return types.SimpleNamespace(name=name, id=sid, parent=parent,
                                  root=root, start_ns=start_ms * MS,
-                                 end_ns=end_ms * MS, counts=counts)
+                                 end_ns=end_ms * MS, inner_ns=inner_ms * MS,
+                                 counts=counts)
 
 
 # Two jobs in a 0.5 s window. Job 1: construction 0-40 ms (a sinogram of
-# 20, a copy of 5, a system of 10: 5 of its own), the method 40-200 (two
-# iterations of 60 with a read of 2 reads each, a cost read of 30: 10 of
-# its own), get_recon 200-240 (a copy of 35: 5 of its own). Job 2: the
-# method 300-400 alone (one iteration of 90 with 3 reads: 10 of its own).
+# 20, a copy of 5, a system of 10, their entries and exits 1: 4 of its
+# own), the method 40-200 (two iterations of 60 with a read of 2 reads
+# each, a cost read of 30, their entries and exits 2: 8 of its own),
+# get_recon 200-240 (a copy of 35: 5 of its own). Job 2: the method
+# 300-400 alone (one iteration of 90 with 3 reads: 10 of its own).
 JOBS = [
     _span("api.sinogram", 2, 1, 1, 0, 20),
-    _span("api.h2d", 3, 1, 1, 20, 25, h2d_bytes=64),
+    _span("api.h2d", 3, 1, 1, 20, 25),
     _span("api.system", 4, 1, 1, 25, 35, plan_builds=2),
-    _span("api.TomoTorch", 1, None, 1, 0, 40),
+    _span("api.TomoTorch", 1, None, 1, 0, 40, inner_ms=1),
     _span("solvers.read", 7, 6, 5, 90, 95, reads=2),
     _span("solvers.iteration", 6, 5, 5, 40, 100),
     _span("solvers.iteration", 8, 5, 5, 100, 160, reads=2),
     _span("api.d2h", 9, 5, 5, 160, 190, reads=1),
-    _span("api.fista", 5, None, 5, 40, 200),
+    _span("api.fista", 5, None, 5, 40, 200, inner_ms=2),
     _span("api.d2h", 11, 10, 10, 200, 235, reads=1),
     _span("api.get_recon", 10, None, 10, 200, 240),
     _span("solvers.iteration", 13, 12, 12, 300, 390, reads=3),
     _span("api.asd_pocs", 12, None, 12, 300, 400),
 ]
-# host: 5 + 20 + 5 + 10 (construction), 10 (fista), 5 (get_recon), 10
-# (asd_pocs) = 65 ms; the waits (api.d2h) and the solvers' spans are not
-# the api's host work
-JOBS_HOST_PCT = 100.0 * 0.065 / 0.5
+# host: 4 + 20 + 5 + 10 (construction), 8 (fista), 5 (get_recon), 10
+# (asd_pocs) = 62 ms; the waits (api.d2h), the solvers' spans and the
+# children's entries and exits are not the api's host work
+JOBS_HOST_PCT = 100.0 * 0.062 / 0.5
 JOBS_READS_PER_ITER = (2 + 2 + 1 + 1 + 3) / 3
 
 # Two tilt updates in a 0.1 s window, each a new angle set: add 0-1 ms,
 # the round 1-40 (a system of 6 with 3 plan builds, a fill of 2, one
-# iteration of 25 with its read: 6 of its own); the second the same 50 ms
-# later with 2 plan builds.
+# iteration of 25 with its read, their entries and exits 1: 5 of its
+# own); the second the same 50 ms later with 2 plan builds.
 LIVE = []
 for k, t0 in enumerate((0, 50)):
     i = 10 * k
@@ -58,14 +61,14 @@ for k, t0 in enumerate((0, 50)):
         _span("api.add_projections", i + 1, None, i + 1, t0, t0 + 1),
         _span("api.system", i + 3, i + 2, i + 2, t0 + 1, t0 + 7,
               plan_builds=3 - k),
-        _span("api.fill", i + 4, i + 2, i + 2, t0 + 7, t0 + 9,
-              h2d_bytes=8),
+        _span("api.fill", i + 4, i + 2, i + 2, t0 + 7, t0 + 9),
         _span("solvers.read", i + 6, i + 5, i + 2, t0 + 30, t0 + 34,
               reads=1),
         _span("solvers.iteration", i + 5, i + 2, i + 2, t0 + 9, t0 + 34),
-        _span("api.iterate_cs", i + 2, None, i + 2, t0 + 1, t0 + 40),
+        _span("api.iterate_cs", i + 2, None, i + 2, t0 + 1, t0 + 40,
+              inner_ms=1),
     ]
-LIVE_HOST_PCT = 100.0 * 2 * (1 + 6 + 2 + 6) / 1e3 / 0.1
+LIVE_HOST_PCT = 100.0 * 2 * (1 + 6 + 2 + 5) / 1e3 / 0.1
 LIVE_BUILDS_PER_UPDATE = 5 / 2
 
 READERS = {

@@ -98,14 +98,13 @@ def _d2h(t: torch.Tensor) -> np.ndarray:
     """`t` as host numpy: one read, in an "api.d2h" span (a wait for the
     device's queue, then the copy)."""
     with profiling.annotate("api.d2h"):
-        profiling.count_reads(t)
+        profiling.count("reads")
         return t.cpu().numpy()
 
 
 def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """The host tensor `t` copied to `device`, in an "api.h2d" span."""
     with profiling.annotate("api.h2d"):
-        profiling.count("h2d_bytes", t.numel() * t.element_size())
         return t.to(device)
 
 
@@ -294,7 +293,7 @@ class TomoTorch:
         if show_convergence:
             dd = data_distance_sl(x, self.b_sl, self.sys, self.group)
             with profiling.annotate("api.d2h"):
-                profiling.count_reads(dd)
+                profiling.count("reads")
                 self.cost = np.asarray([float(dd)])
         self.x = from_sl(x)
         return self
@@ -336,7 +335,7 @@ class TomoTorch:
         if self.group is not None:
             all_reduce_max(bmax, self.group)
         with profiling.annotate("api.d2h"):
-            profiling.count_reads(bmax)
+            profiling.count("reads")
             bmax = float(bmax)
         b_kl = self.b_sl / bmax if bmax > 0 else self.b_sl
         x = to_sl(self.x)
@@ -387,17 +386,17 @@ class TomoTorch:
     def data_distance(self) -> float:
         """||A x - b|| of the current reconstruction (K1)."""
         dd = data_distance_sl(to_sl(self.x), self.b_sl, self.sys, self.group)
-        profiling.count_reads(dd)
+        profiling.count("reads")
         return float(dd)
 
     def tv(self) -> float:
         """Periodic isotropic TV of the current reconstruction (K5)."""
         tv = tvmod.tv(to_sl(self.x), self.group)
-        profiling.count_reads(tv)
+        profiling.count("reads")
         return float(tv)
 
     def lipschitz(self) -> float:
-        profiling.count_reads(self.sys.lipschitz)
+        profiling.count("reads")
         return float(self.sys.lipschitz)
 
     def _whole(self, a: torch.Tensor, axis: int) -> torch.Tensor:
@@ -498,14 +497,14 @@ class Simulator(TomoTorch):
         all-reduce)."""
         if self.group is None:
             err = ops.rmse(self.x, self._truth)
-            profiling.count_reads(err)
+            profiling.count("reads")
             return float(err)
         n_loc = self.x.shape[0]
         lo = self.group.rank * n_loc
         hi = min(lo + n_loc, self.Nslice)
         d = self.x[:max(hi - lo, 0)] - self._truth[lo:hi]
         sq = all_reduce_sum(torch.sum(d * d), self.group)
-        profiling.count_reads(sq)
+        profiling.count("reads")
         return float(torch.sqrt(sq / self._truth.numel()))
 
 
@@ -651,7 +650,7 @@ class ChemicalTomo:
                                             group=self.group)
                     with profiling.annotate("solvers.read"):
                         costs = torch.stack([ch, cc, tv0])
-                        profiling.count_reads(costs)
+                        profiling.count("reads")
                         m[i] = costs.cpu().numpy()
                     if (self.reduceLambda and i > 0
                             and m[i, 0] > m[i - 1, 0]):

@@ -14,10 +14,11 @@ throughput (counterpart of ``tomojax/profiling.py``), on
   profiler's host clock: a stamp lies at the trace's
   ``kineto_results.trace_start_ns()`` plus the event's microseconds), its
   id, its parent's id, the id of its outermost open span (its root: one
-  per public API call), and the counts made while it was the innermost
-  open span.
-* `count(name, n)`, `count_reads(*tensors)` and `launched(wrapper)` add to
-  the innermost open span, and do nothing when none is open.
+  per public API call), the counts made while it was the innermost open
+  span, and `inner_ns`: the host time its direct children's entries and
+  exits took outside their own stamps (the instrumentation inside it).
+* `count(name, n)` adds to the innermost open span, and does nothing when
+  none is open.
 * `spanned(name)` runs each call of a function inside `annotate(name)`.
 * `recorded()` is the store: at most `STORE_SPANS` spans, oldest first; a
   full store drops its oldest and counts them in ``spans_dropped``.
@@ -26,11 +27,9 @@ throughput (counterpart of ``tomojax/profiling.py``), on
   the reference's one-line summary.
 
 The port opens spans at its layer boundaries only (``api.*``,
-``solvers.*``, ``tv.*``), never one per kernel launch: a launch is counted
-(``launches.<wrapper>``). The other counters are ``reads`` and
-``d2h_bytes`` (each blocking device-to-host read the api, solvers, stream
-and fusion code make, counted where the code reads, whatever the device),
-``h2d_bytes`` (the api's copies of the data to the device) and
+``solvers.*``, ``tv.*``), never one per kernel launch. It counts
+``reads`` (each blocking device-to-host read the api, solvers, stream and
+fusion code make, counted where the code reads, whatever the device) and
 ``plan_builds`` (the bodies of the cached per-geometry tables of
 ``projector.cuda_joseph``, which run only on a miss).
 """
@@ -69,22 +68,26 @@ class Span:
     """One recorded span (and, while open, the context that records it)."""
 
     __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "root",
-                 "counts", "_rf")
+                 "counts", "inner_ns", "_outer", "_rf", "_enter_ns")
 
     def __init__(self, name: str):
         self.name = name
         self.counts = {}
+        self.inner_ns = 0
 
     def __enter__(self):
+        enter_ns = time.time_ns()
         stack = _open.spans
         outer = stack[-1] if stack else None
+        self._outer = outer
         self.id = next(_ids)
         self.parent = None if outer is None else outer.id
         self.root = self.id if outer is None else outer.root
         self._rf = torch.profiler.record_function(self.name)
         self._rf.__enter__()
-        self.start_ns = time.time_ns()
         stack.append(self)
+        self.start_ns = time.time_ns()
+        self._enter_ns = self.start_ns - enter_ns
         return self
 
     def __exit__(self, *exc):
@@ -93,6 +96,10 @@ class Span:
         self._rf.__exit__(*exc)
         self._rf = None
         _STORE.add(self)
+        outer, self._outer = self._outer, None
+        if outer is not None:
+            # the parent's self time holds this span's entry and exit
+            outer.inner_ns += self._enter_ns + time.time_ns() - self.end_ns
         return False
 
 
@@ -179,27 +186,6 @@ def count(name: str, n: int = 1) -> None:
     if stack:
         c = stack[-1].counts
         c[name] = c.get(name, 0) + n
-
-
-def count_reads(*tensors: torch.Tensor) -> None:
-    """One blocking device-to-host read of each tensor (``reads``) and its
-    bytes (``d2h_bytes``), in the innermost open span."""
-    stack = _open.spans
-    if stack:
-        c = stack[-1].counts
-        c["reads"] = c.get("reads", 0) + len(tensors)
-        c["d2h_bytes"] = (c.get("d2h_bytes", 0)
-                          + sum(t.numel() * t.element_size()
-                                for t in tensors))
-
-
-def launched(wrapper) -> None:
-    """One launch of `wrapper`'s kernel: ``wrapper.launches`` (read by
-    ``chip_smoke.py`` and the tests) and ``launches.<name>`` in the
-    innermost open span."""
-    wrapper.launches += 1
-    if _open.spans:
-        count("launches." + wrapper.__name__)
 
 
 @dataclass

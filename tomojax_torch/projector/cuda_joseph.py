@@ -27,9 +27,9 @@ The plain versions are the 2-point gathers of the reference's XLA
 (``solvers/cuda_sart.py``) shares. A wrapper runs its plain version
 only when its tensors lie on the CPU; on CUDA tensors it launches the
 kernel or raises. Each wrapper counts its kernel launches in
-``<wrapper>.launches`` (and in the innermost open span of
-``tomojax_torch.profiling``); the cached `angle_tables` and K1's plan count
-each build (a cache miss) as ``plan_builds`` there.
+``<wrapper>.launches``. The cached `angle_tables` and K1's plan count each
+build (a cache miss) as ``plan_builds`` in the innermost open span of
+``tomojax_torch.profiling``.
 """
 
 from __future__ import annotations
@@ -363,7 +363,7 @@ def fp_sl(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
     _build.check(_build.lib().tj_fp(
         _p(x), _p(tab), _p(plan.table), plan.ng, plan.width, _p(ax), geom.n,
         geom.nray, geom.nproj, ns, _build.stream()), "tj_fp")
-    profiling.launched(fp_sl)
+    fp_sl.launches += 1
     return ax
 
 
@@ -395,7 +395,7 @@ def fp_resid_sl(x, geom: Geometry, b, ax_old, inv_row, beta):
         _p(ax_old), _p(inv_row), _p(beta), _p(ax), _p(resid), _p(partials),
         _p(ddsq), geom.n, geom.nray, geom.nproj, ns, _build.stream()),
         "tj_fp_resid")
-    profiling.launched(fp_resid_sl)
+    fp_resid_sl.launches += 1
     return ax, resid, ddsq
 
 
@@ -447,7 +447,7 @@ def bp_ab_sl(y, geom: Geometry, ab: int, y_vol=None, inv_col=None):
     _build.check(_build.lib().tj_bp_ab(
         _p(y), _p(tab), _p(y_vol), _p(inv_col), _p(out), geom.n, geom.nray,
         geom.nproj, ns, ab, _build.stream()), "tj_bp_ab")
-    profiling.launched(bp_ab_sl)
+    bp_ab_sl.launches += 1
     return out
 
 
@@ -462,7 +462,7 @@ def bp_sl(y: torch.Tensor, geom: Geometry, ab: int = 1) -> torch.Tensor:
     if ab > 1:
         return bp_ab_sl(y, geom, ab)
     out = _bp_launch(y, geom, None, None)
-    profiling.launched(bp_sl)
+    bp_sl.launches += 1
     return out
 
 
@@ -483,7 +483,7 @@ def bp_sirt_sl(resid, geom: Geometry, y_vol, inv_col, ab: int = 1):
     if ab > 1:
         return bp_ab_sl(resid, geom, ab, y_vol, inv_col)
     out = _bp_launch(resid, geom, y_vol, inv_col)
-    profiling.launched(bp_sirt_sl)
+    bp_sirt_sl.launches += 1
     return out
 
 

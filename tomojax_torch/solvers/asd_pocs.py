@@ -130,7 +130,7 @@ def asd_pocs_host_loop(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
                 orders[it].contiguous(), p.ng, it == 0, p.alpha, group)
             beta *= p.beta_red
             with profiling.annotate("solvers.read"):
-                profiling.count_reads(dp, dd, dg, dpocs_used, tv0)
+                profiling.count("reads", 5)
                 dp, dd, dg = float(dp), float(dd), float(dg)
                 dpocs = float(dpocs_used)
                 out[:, it] = dd, float(tv0), dpocs

@@ -490,7 +490,6 @@ class DynamicReconstructor:
             if self.group is not None:
                 rows = shard_global(pad_slices(rows, self.group, 2)[0],
                                     self.group, 2)
-            profiling.count("h2d_bytes", rows.numel() * rows.element_size())
             self._buf[self._filled:n].copy_(rows)
             self._filled = n
 
@@ -523,7 +522,7 @@ class DynamicReconstructor:
              else gather_slabs(self._x, self.group, 2))
         ns = self._ns_orig or x.shape[2]
         x = from_sl(x[:, :, :ns])
-        profiling.count_reads(x)
+        profiling.count("reads")
         return x.cpu().numpy()
 
     # ---------------------------------------------------------- solve --
@@ -553,7 +552,7 @@ class DynamicReconstructor:
         if n_iter:
             dd_t = torch.sqrt(self._global_sum(ddsq)[0])
             with profiling.annotate("solvers.read"):
-                profiling.count_reads(dd_t)
+                profiling.count("reads")
                 dd = float(dd_t)
         self.dd_history.append(dd)
         return dd
@@ -588,50 +587,46 @@ class DynamicReconstructor:
         that."""
         sysd, b = self._system()
         self._volume()
+        geom, dev = sysd.geom, self.device
         x = self._x
         dpocs = self._dpocs
         dd = 0.0
         for _ in range(n_iter):
             with profiling.annotate("solvers.iteration"):
-                x, dpocs, dd = self._cs_iteration(
-                    x, dpocs, sysd, b, ng, alpha, alpha_red, r_max, eps)
+                first = dpocs == 0.0
+                # copied while the queue is empty (after the last host read),
+                # so that the copy does not wait for this iteration's launches
+                dpocs_t = (None if first
+                           else torch.tensor(dpocs, dtype=F32, device=dev))
+                x0 = x
+                _, resid, _ = fp_resid_sl(x, geom, b, b, sysd.inv_row,
+                                          self._zero)
+                x = bp_sirt_sl(resid, geom, x, sysd.inv_col)
+                dp = torch.sqrt(self._global_sum(torch.sum((x - x0) ** 2))[0])
+                if first:
+                    dpocs_t = alpha * dp
+                _, _, ddsq = fp_resid_sl(x, geom, b, b, sysd.inv_row,
+                                         self._zero)
+                x1 = x
+                if self.group is None:
+                    x = tv_descent(x, ng, dpocs_t)
+                else:
+                    x = tv_gd_sharded(x, ng, dpocs_t, self.group)
+                    x = x * self._slice_mask  # the pad slices stay 0
+                dd_dg = torch.sqrt(self._global_sum(ddsq,
+                                                    torch.sum((x - x1) ** 2)))
+                with profiling.annotate("solvers.read"):
+                    profiling.count("reads")
+                    scal = torch.stack([dp, dd_dg[0], dd_dg[1],
+                                        dpocs_t]).cpu()
+                dp, dd, dg, dpocs = (float(v) for v in scal)
+                if dg > r_max * dp and dd > eps:
+                    dpocs *= alpha_red
         self._x = x
         self._resid = None  # x was reassigned: the residual is stale
         self._dpocs = dpocs
         self.dd_history.append(dd)
         return dd
-
-    def _cs_iteration(self, x, dpocs: float, sysd, b, ng: int, alpha: float,
-                      alpha_red: float, r_max: float, eps: float):
-        """One iteration of `iterate_cs` from x with dPOCS `dpocs` (0.0
-        before the first): returns (x, the adapted dPOCS, dd)."""
-        geom = sysd.geom
-        first = dpocs == 0.0
-        # copied while the queue is empty (after the last host read),
-        # so that the copy does not wait for this iteration's launches
-        dpocs_t = (None if first
-                   else torch.tensor(dpocs, dtype=F32, device=self.device))
-        x0 = x
-        _, resid, _ = fp_resid_sl(x, geom, b, b, sysd.inv_row, self._zero)
-        x = bp_sirt_sl(resid, geom, x, sysd.inv_col)
-        dp = torch.sqrt(self._global_sum(torch.sum((x - x0) ** 2))[0])
-        if first:
-            dpocs_t = alpha * dp
-        _, _, ddsq = fp_resid_sl(x, geom, b, b, sysd.inv_row, self._zero)
-        x1 = x
-        if self.group is None:
-            x = tv_descent(x, ng, dpocs_t)
-        else:
-            x = tv_gd_sharded(x, ng, dpocs_t, self.group)
-            x = x * self._slice_mask  # the pad slices stay 0
-        dd_dg = torch.sqrt(self._global_sum(ddsq, torch.sum((x - x1) ** 2)))
-        scal = torch.stack([dp, dd_dg[0], dd_dg[1], dpocs_t])
-        with profiling.annotate("solvers.read"):
-            profiling.count_reads(scal)
-            dp, dd, dg, dpocs = (float(v) for v in scal.cpu())
-        if dg > r_max * dp and dd > eps:
-            dpocs *= alpha_red
-        return x, dpocs, dd
 
     # ------------------------------------------------- checkpoint/resume --
 
@@ -646,7 +641,7 @@ class DynamicReconstructor:
         hist = {"dd": np.asarray(self.dd_history, np.float32)}
         meta = {"n_angles": len(self.angles)}
         if self.group is None:
-            profiling.count_reads(self._x)
+            profiling.count("reads")
             tio.save_checkpoint(self.checkpoint_path, self.x.cpu().numpy(),
                                 hist, meta)
             return
