@@ -98,3 +98,68 @@ def test_fista_fused_runs_the_same_loop(monkeypatch):
         for fused in (False, True))
     np.testing.assert_array_equal(a.cost, b.cost)
     np.testing.assert_array_equal(a.get_recon(), b.get_recon())
+
+
+def _host_sinogram(a) -> np.ndarray:
+    """The slice-last sinogram as numpy reorders it on the host."""
+    return np.ascontiguousarray(np.transpose(np.asarray(a, np.float32),
+                                             (2, 1, 0)))
+
+
+def _host_normalised(a) -> np.ndarray:
+    """Clamped to >= 0 and over its maximum on the host, then reordered."""
+    c = np.maximum(np.asarray(a, np.float32), 0)
+    return _host_sinogram(c / max(c.max(), 1e-30))
+
+
+def _layout(base: np.ndarray, layout: str) -> np.ndarray:
+    """`base` as the caller may hand it over: float32 C-contiguous, float64,
+    a transposed view or a view with a negative stride."""
+    if layout == "float64":
+        return base.astype(np.float64)
+    if layout == "transposed":
+        return np.ascontiguousarray(base.transpose(2, 1, 0)).transpose(2, 1,
+                                                                       0)
+    if layout == "reversed":
+        return np.ascontiguousarray(base[::-1])[::-1]
+    return base
+
+
+@pytest.mark.parametrize("case, copies", [
+    ("float32", 0), ("float64", 1), ("transposed", 1), ("reversed", 1),
+    ("chemical", 0)])
+def test_sinograms_equal_the_host_reorder_bit_for_bit(case, copies):
+    """The series cross to the device in the caller's layout and are
+    reordered (ChemicalTomo: clamped and normalised) there: the sinograms
+    equal numpy's host transpose and normalisation bit for bit, and
+    "series_host_copies" counts the series numpy had to copy first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tomojax_torch import ChemicalTomo, profiling
+
+    rng = np.random.default_rng(5)
+    base = rng.uniform(-0.5, 2.0, (5, N, len(ANGLES))).astype(np.float32)
+    profiling.recorded().clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        if case == "chemical":
+            chem_deg = np.linspace(-60, 60, 7)
+            maps = {"c": rng.uniform(-0.5, 3.0, (5, N, 7)).astype(np.float32),
+                    "zn": np.zeros((5, N, 7), np.float32)}
+            got = ChemicalTomo(base, ANGLES, maps, chem_deg, device="cpu")
+        else:
+            got = TomoTorch(ANGLES, _layout(base, case), device="cpu")
+    spans = list(profiling.recorded().spans)
+    profiling.recorded().clear()
+    if case == "chemical":
+        pairs = [(got.b_haadf, _host_normalised(base)),
+                 (got.b_chem, np.stack([_host_normalised(m)
+                                        for m in maps.values()]))]
+    else:
+        pairs = [(got.b_sl, _host_sinogram(base))]
+    for t, want in pairs:
+        assert t.is_contiguous()
+        np.testing.assert_array_equal(t.numpy().view(np.uint32),
+                                      want.view(np.uint32))
+    counted = [s for s in spans if "series_host_copies" in s.counts]
+    assert sum(s.counts["series_host_copies"] for s in counted) == copies
+    assert all(s.name == "api.h2d" for s in counted)

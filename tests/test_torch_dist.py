@@ -360,6 +360,47 @@ def test_tomotorch_padded_slabs_match_tomotpu(problem, ranks):
                                rtol=2e-4, atol=2e-4)
 
 
+def _host_sinogram(a, normalise: bool) -> np.ndarray:
+    """The slice-last sinogram as numpy reordered it on the host, clamped
+    to >= 0 and over its maximum first with `normalise`."""
+    a = np.asarray(a, np.float32)
+    if normalise:
+        a = np.maximum(a, 0)
+        a = a / max(a.max(), 1e-30)
+    return np.ascontiguousarray(np.transpose(a, (2, 1, 0)))
+
+
+@pytest.mark.parametrize("k", WORLDS)
+def test_sinogram_slabs_equal_the_host_reorders_slabs(problem, ranks, k):
+    """Each rank's slab of TomoTorch's b_sl and ChemicalTomo's b_haadf and
+    b_chem, reordered and normalised on the rank's device from its slices
+    alone (the maxima all-reduced), equals the slab `pad_slices` and
+    `shard_global` cut from the whole sinogram reordered and normalised by
+    numpy on the host, bit for bit; Ns 6 is padded to 8 at 4 ranks (the
+    last rank's slab is padding only)."""
+    from tomojax_torch.dist import SlabGroup, pad_slices, shard_global
+
+    got = ranks(k)
+    chem = problem["ct_chem_uneven"]
+    whole = {
+        "sino_b_sl": (_host_sinogram(problem["tomo_series"], False), 2),
+        "sino_b_haadf": (_host_sinogram(problem["ct_haadf_uneven"], True),
+                         2),
+        "sino_b_chem": (np.stack([_host_sinogram(m, True) for m in chem]),
+                        3)}
+    for key, (host, axis) in whole.items():
+        assert got[key].shape[axis] % k == 0
+        n = got[key].shape[axis] // k
+        for r in range(k):
+            g = SlabGroup(rank=r, size=k, device=torch.device("cpu"))
+            want = shard_global(pad_slices(torch.from_numpy(host), g,
+                                           axis)[0], g, axis).numpy()
+            slab = np.take(got[key], range(r * n, (r + 1) * n), axis=axis)
+            np.testing.assert_array_equal(slab.view(np.uint32),
+                                          want.view(np.uint32),
+                                          err_msg=f"{key} rank {r}")
+
+
 def test_world_size_one_group_matches_unsharded_tomotorch(problem, ranks,
                                                          monkeypatch):
     """A group of one rank runs the sharded path (K9 plain versions, ring

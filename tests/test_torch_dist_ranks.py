@@ -143,6 +143,22 @@ def _tomo(group, p: dict) -> dict:
     return out
 
 
+def _sinograms(group, p: dict) -> dict:
+    """The sinogram slabs TomoTorch and ChemicalTomo build on each rank
+    before any solver runs, from the Ns 6 series (padded to 8 at 4 ranks),
+    gathered in rank order."""
+    from tomojax_torch import ChemicalTomo, TomoTorch
+
+    tomo = TomoTorch(p["tomo_angles_deg"], p["tomo_series"], group=group)
+    chem = p["ct_chem_uneven"]
+    ct = ChemicalTomo(p["ct_haadf_uneven"], p["fu_h_deg"],
+                      {"c": chem[0], "zn": chem[1]}, p["fu_c_deg"],
+                      group=group)
+    return {"sino_b_sl": _gather(tomo.b_sl, group, 2),
+            "sino_b_haadf": _gather(ct.b_haadf, group, 2),
+            "sino_b_chem": _gather(ct.b_chem, group, 3)}
+
+
 def _stream(group, p: dict, work: str) -> dict:
     """The streaming reconstructor with a group: SIRT rounds at Ns 3 (padded to
     4) with a sharded checkpoint after each, resumed with and without the
@@ -337,6 +353,7 @@ def _compute(group, p: dict, work: str) -> dict:
     out.update(_tv(group, p))
     out.update(_solvers(group, p))
     out.update(_tomo(group, p))
+    out.update(_sinograms(group, p))
     out.update(_fusion(group, p))
     if group.size == 2:  # the streaming cases run in the 2-rank spawn only
         os.makedirs(work, exist_ok=True)

@@ -351,3 +351,38 @@ def test_spanned_keeps_the_function_and_opens_its_span():
     assert (outer.name, inner.name) == ("api.job", "api.inner")
     assert inner.parent == outer.id
     profiling.recorded().clear()
+
+
+@pytest.mark.cuda
+def test_series_reorder_on_the_card_equals_the_host_transpose():
+    """On the card at the job cells' sizes: a (256, 256, 77) float32 series
+    crosses with no host copy ("series_host_copies" reads 0) and b_sl
+    equals numpy's transpose bit for bit; ChemicalTomo's clamp, division
+    by the maximum and reorder of a (128, 256, 77) HAADF series and two
+    (128, 256, 9) maps (one all zero) equal numpy's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def host(a, normalise=False):
+        if normalise:
+            a = np.maximum(a, 0)
+            a = a / max(a.max(), 1e-30)
+        return np.ascontiguousarray(np.transpose(a, (2, 1, 0)))
+
+    def same_bits(t, want):
+        assert t.is_cuda and t.is_contiguous()
+        np.testing.assert_array_equal(t.cpu().numpy().view(np.uint32),
+                                      want.view(np.uint32))
+
+    rng = np.random.default_rng(7)
+    deg, chem_deg = np.linspace(-76.0, 76.0, 77), np.linspace(-60, 60, 9)
+    ts = rng.uniform(-0.5, 2.0, (256, 256, 77)).astype(np.float32)
+    maps = {"c": rng.uniform(-0.5, 3.0, (128, 256, 9)).astype(np.float32),
+            "zn": np.zeros((128, 256, 9), np.float32)}
+    (tomo, ct), spans, _ = _profiled(lambda: (
+        TomoTorch(deg, ts, device="cuda"),
+        ChemicalTomo(ts[:128], deg, maps, chem_deg, device="cuda")))
+    assert sum(s.counts.get("series_host_copies", 0) for s in spans) == 0
+    same_bits(tomo.b_sl, host(ts))
+    same_bits(ct.b_haadf, host(ts[:128], True))
+    same_bits(ct.b_chem, np.stack([host(m, True) for m in maps.values()]))

@@ -48,8 +48,7 @@ import torch
 from tomojax_torch import ops, profiling, viz
 from tomojax_torch import tv as tvmod
 from tomojax_torch.dist import (
-    SlabGroup, all_reduce_max, all_reduce_sum, gather_slabs, pad_slices,
-    shard_global, unpad_slices,
+    SlabGroup, all_reduce_max, all_reduce_sum, gather_slabs, unpad_slices,
 )
 from tomojax_torch.fusion import (
     data_fusion_run,
@@ -88,10 +87,12 @@ from tomojax_torch.tv import tv_fgp_4d
 # Spans (`profiling.annotate`; recorded only while a torch profiler runs):
 # one root per public call that does device work ("api.<class>" around a
 # construction, "api.<method>" around a solver method or get_recon), and
-# inside it "api.sinogram" (the host transpose and normalisation),
-# "api.h2d" (the series' copy to the device), "api.system" (the
-# projector's system and weights), "api.d2h" (a copy of results to the
-# host: a wait) and the solvers' "solvers.iteration" / "solvers.read".
+# inside it "api.h2d" (the series' copy to the device in the caller's
+# layout), "api.sinogram" (the layout change and normalisation on the
+# device), "api.system" (the projector's system and weights), "api.d2h" (a
+# copy of results to the host: a wait) and the solvers' "solvers.iteration"
+# / "solvers.read". "api.h2d" counts "series_host_copies": the series
+# numpy had to copy before the device copy.
 
 
 def _d2h(t: torch.Tensor) -> np.ndarray:
@@ -100,12 +101,6 @@ def _d2h(t: torch.Tensor) -> np.ndarray:
     with profiling.annotate("api.d2h"):
         profiling.count("reads")
         return t.cpu().numpy()
-
-
-def _h2d(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """The host tensor `t` copied to `device`, in an "api.h2d" span."""
-    with profiling.annotate("api.h2d"):
-        return t.to(device)
 
 
 def _device(device, owner: str) -> torch.device:
@@ -119,17 +114,36 @@ def _device(device, owner: str) -> torch.device:
     return device
 
 
-def _slab(a: torch.Tensor, group: SlabGroup, axis: int) -> torch.Tensor:
-    """This rank's slab of the whole host tensor `a` on `axis`, padded
-    first with zero slices to a multiple of the group size."""
-    return shard_global(pad_slices(a, group, axis)[0], group, axis)
+def _host_series(a) -> np.ndarray:
+    """`a` as a C-contiguous float32 numpy array: `a` itself where it is
+    one, else a host copy, counted in "series_host_copies"."""
+    h = np.ascontiguousarray(a, np.float32)
+    if not (isinstance(a, np.ndarray) and np.may_share_memory(a, h)):
+        profiling.count("series_host_copies")
+    return h
 
 
-def _to_sinogram(tilt_series: np.ndarray) -> np.ndarray:
-    """(Nslice, Nray, Nangles) -> the slice-last sinogram (Nangles, Nray,
-    Nslice), contiguous float32."""
-    return np.ascontiguousarray(
-        np.transpose(np.asarray(tilt_series, np.float32), (2, 1, 0)))
+def _series_to_device(series: list, shape: tuple, device: torch.device,
+                      group: SlabGroup | None) -> torch.Tensor:
+    """The host series (each C-contiguous float32 of `shape`, slices on
+    axis 0) stacked on `device` in that layout: (len(series), *shape).
+    With a group, only this rank's slab of the slices crosses: the slice
+    axis padded with zero slices to a multiple of the group size and cut
+    into one contiguous block per rank, as `pad_slices` and `shard_global`
+    cut it."""
+    ns = shape[0]
+    lo, n = 0, ns
+    if group is not None:
+        n = -(-ns // group.size)
+        lo = min(group.rank * n, ns)
+    real = min(lo + n, ns) - lo
+    out = torch.empty((len(series), n, *shape[1:]), dtype=torch.float32,
+                      device=device)
+    for o, h in zip(out, series):
+        o[:real].copy_(torch.from_numpy(h[lo:lo + real]))
+    if real < n:
+        out[:, real:].zero_()
+    return out
 
 
 class TomoTorch:
@@ -159,24 +173,23 @@ class TomoTorch:
 
     def set_tilt_series(self, tilt_series):
         """(Nslice, Nray, Nangles), tilt axis on dim 0."""
-        ts = np.asarray(tilt_series, np.float32)
-        if ts.ndim != 3 or ts.shape[2] != len(self.tilt_angles):
-            raise ValueError(
-                f"tilt series {ts.shape} must be (Nslice, Nray, Nangles) "
-                f"with Nangles = {len(self.tilt_angles)}")
-        self.Nslice, self.Nray, self.Nangles = ts.shape
+        with profiling.annotate("api.h2d"):
+            ts = _host_series(tilt_series)
+            if ts.ndim != 3 or ts.shape[2] != len(self.tilt_angles):
+                raise ValueError(
+                    f"tilt series {ts.shape} must be (Nslice, Nray, "
+                    f"Nangles) with Nangles = {len(self.tilt_angles)}")
+            self.Nslice, self.Nray, self.Nangles = ts.shape
+            series = _series_to_device([ts], ts.shape, self.device,
+                                       self.group)[0]
+        # slice-last sinogram (Nangles, Nray, Nslice), or this rank's slab
+        # of it after padding to a multiple of the group size
+        with profiling.annotate("api.sinogram"):
+            self.b_sl = series.permute(2, 1, 0).contiguous()
         with profiling.annotate("api.system"):
             self.geom = Geometry.make(self.Nray,
                                       np.deg2rad(self.tilt_angles))
             self.sys = make_system(self.geom, self.device)
-        # slice-last sinogram (Nangles, Nray, Nslice), or this rank's slab
-        # of it after padding to a multiple of the group size
-        with profiling.annotate("api.sinogram"):
-            b_sl = torch.from_numpy(_to_sinogram(ts))
-        if self.group is None:
-            self.b_sl = _h2d(b_sl, self.device)
-        else:
-            self.b_sl = _slab(b_sl, self.group, 2)
         self._sart_w = None
         self.restart_recon()
 
@@ -488,7 +501,8 @@ class Simulator(TomoTorch):
                                                       np.float64)))
         self._truth = torch.from_numpy(self.original).to(dev)
         b = create_projections(self._truth, geom, snr=snr)
-        super().__init__(tilt_angles, b.permute(0, 2, 1).cpu().numpy(),
+        super().__init__(tilt_angles,
+                         b.permute(0, 2, 1).contiguous().cpu().numpy(),
                          device=device, group=group)
 
     def rmse(self) -> float:
@@ -515,10 +529,11 @@ class ChemicalTomo:
 
     haadf: the HAADF tilt series (Nslice, Nray, NaH); chem: element symbol
     -> its tilt series (Nslice, Nray, NaC); angles in degrees. Both are
-    clamped to >= 0 and normalised to max 1 on the host, as the reference
-    does. The state lives slice-last on `device` (default "cuda", which
-    raises where torch finds no CUDA): x (Nel, Nray, Nray, Nslice), the
-    sinograms (NaH, Nray, Nslice) and (Nel, NaC, Nray, Nslice).
+    clamped to >= 0 and normalised to max 1 (on the device), as the
+    reference does. The state lives slice-last on `device` (default
+    "cuda", which raises where torch finds no CUDA): x (Nel, Nray, Nray,
+    Nslice), the sinograms (NaH, Nray, Nslice) and (Nel, NaC, Nray,
+    Nslice).
 
     With a group (then no device), every rank passes the whole series and
     keeps its slab of each stack: the slice axis is padded with zero slices
@@ -538,34 +553,38 @@ class ChemicalTomo:
         self.group = group
         self.device = _device(device if group is None else group.device,
                               "ChemicalTomo")
-        haadf = np.asarray(haadf, np.float32)
-        if haadf.ndim != 3 or haadf.shape[2] != len(haadfTiltAngles):
-            raise ValueError(f"haadf {haadf.shape} must be (Nslice, Nray, "
-                             f"NaH) with NaH = {len(haadfTiltAngles)}")
+        with profiling.annotate("api.h2d"):
+            haadf = _host_series(haadf)
+            if haadf.ndim != 3 or haadf.shape[2] != len(haadfTiltAngles):
+                raise ValueError(f"haadf {haadf.shape} must be (Nslice, "
+                                 f"Nray, NaH) with NaH = "
+                                 f"{len(haadfTiltAngles)}")
+            h = _series_to_device([haadf], haadf.shape, self.device, group)
         self.nx, self.ny, _ = haadf.shape
         self.elements = list(chem)
         self.nel = len(self.elements)
         self.gamma, self.sigmaMethod = gamma, sigmaMethod
         self.reduceLambda = True
         want = (self.nx, self.ny, len(chemTiltAngles))
-        with profiling.annotate("api.sinogram"):
-            stack = []
+        with profiling.annotate("api.h2d"):
+            maps = []
             for el in self.elements:
-                c = np.maximum(np.asarray(chem[el], np.float32), 0)
-                if c.shape != want:
+                maps.append(_host_series(chem[el]))
+                if maps[-1].shape != want:
                     raise ValueError(
-                        f"chem[{el!r}] {c.shape}, expected {want}")
-                stack.append(_to_sinogram(c / max(c.max(), 1e-30)))
-            h = np.maximum(haadf, 0)
-            b_haadf = torch.from_numpy(
-                _to_sinogram(h / max(h.max(), 1e-30)))
-            b_chem = torch.from_numpy(np.stack(stack))
-        if group is None:
-            self.b_haadf = _h2d(b_haadf, self.device)
-            self.b_chem = _h2d(b_chem, self.device)
-        else:
-            self.b_haadf = _slab(b_haadf, group, 2)
-            self.b_chem = _slab(b_chem, group, 3)
+                        f"chem[{el!r}] {maps[-1].shape}, expected {want}")
+            c = _series_to_device(maps, want, self.device, group)
+        # clamped to >= 0, each series over its maximum (over every slab:
+        # one all-reduce with a group), then slice-last
+        with profiling.annotate("api.sinogram"):
+            h.clamp_min_(0)
+            c.clamp_min_(0)
+            peak = torch.cat([h.amax(dim=(1, 2, 3)), c.amax(dim=(1, 2, 3))])
+            if group is not None:
+                all_reduce_max(peak, group)
+            peak = peak.clamp_min_(1e-30)[:, None, None, None]
+            self.b_haadf = (h / peak[:1])[0].permute(2, 1, 0).contiguous()
+            self.b_chem = (c / peak[1:]).permute(0, 3, 2, 1).contiguous()
         with profiling.annotate("api.system"):
             self.fsys = make_fusion_system(
                 self.ny, np.deg2rad(np.asarray(haadfTiltAngles, np.float64)),
