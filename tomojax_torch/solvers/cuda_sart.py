@@ -36,8 +36,10 @@ in block order), so its result is within rounding of the plain version's,
 not bit-equal; the update is the same arithmetic. ``sart_sweep_sl`` runs
 the plain version only when its tensors lie on the CPU; on CUDA tensors it
 launches ``csrc/sart.cu`` or raises, and a resident launch that fails
-raises rather than take the other route. One call is one sweep and counts
-one in ``sart_sweep_sl.launches``.
+raises rather than take the other route. One call is one sweep. On the
+card it runs inside the span ``solvers.sart`` and counts its kernel
+launches (1 on the resident route, 2 a step on the streaming one) in
+the counter ``sart_launches`` and in ``sart_sweep_sl.launches``.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
-from tomojax_torch import _build
+from tomojax_torch import _build, profiling
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.projector.cuda_joseph import (
     angle_tables, bp_angle_ref, fp_angle_ref,
@@ -225,17 +227,23 @@ def sart_sweep_sl(x, b, geom: Geometry, inv_row, inv_col_a, beta, order):
         return sart_sweep_sl_ref(x, b, geom, inv_row, inv_col_a, beta, order)
     ns = x.shape[-1]
     n, nt, na = geom.n, geom.nray, geom.nproj
-    tabs = angle_tables(geom, x.device)
-    resid = (torch.empty((nt, ns), dtype=F32, device=x.device)
-             if sart_route(n, nt) == "streaming" else None)
-    out = torch.empty_like(x)
-    p = torch.Tensor.data_ptr
-    _build.check(_build.lib().tj_sart_sweep(
-        p(x), p(tabs.fp), p(tabs.bp), p(b), p(inv_row), p(inv_col_a),
-        p(beta), p(order), order.numel(),
-        None if resid is None else p(resid), p(out), n, nt, na, ns,
-        _build.stream()), "tj_sart_sweep")
-    sart_sweep_sl.launches += 1
+    route = sart_route(n, nt)
+    with profiling.annotate("solvers.sart"):
+        tabs = angle_tables(geom, x.device)
+        resid = (torch.empty((nt, ns), dtype=F32, device=x.device)
+                 if route == "streaming" else None)
+        out = torch.empty_like(x)
+        p = torch.Tensor.data_ptr
+        _build.check(_build.lib().tj_sart_sweep(
+            p(x), p(tabs.fp), p(tabs.bp), p(b), p(inv_row), p(inv_col_a),
+            p(beta), p(order), order.numel(),
+            None if resid is None else p(resid), p(out), n, nt, na, ns,
+            _build.stream()), "tj_sart_sweep")
+        # csrc/sart.cu: resident_sweep launches once, streaming_sweep
+        # sart_fp_kernel and sart_update_kernel once a step
+        launches = 1 if route == "resident" else 2 * order.numel()
+        profiling.count("sart_launches", launches)
+    sart_sweep_sl.launches += launches
     return out
 
 
