@@ -30,9 +30,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    from random x, 1e-5 max|x|; one sweep from zero on nanocube
    projections, 1e-4 max|x|; the rmse after 5 sweeps within 1e-4 of the
    plain version's), with two sweeps identical and out-of-range order
-   entries leaving x: the resident route at 256^3 x 90 and at N 33, Na 7,
-   Ns 5, the streaming route at 128 x 512^2 x 90; each with its clusters,
-   waves and shared memory a block (resident), its ms a sweep over 10
+   entries leaving x: the resident route on (8, 4) at 256^3 x 90 and at N
+   33, Na 7, Ns 5, on (16, 2) at 128 x 512^2 x 90 and x 77, the streaming
+   route at 8 x 544^2 x 13; each with its cluster shape, clusters, waves
+   and shared memory a block (resident), its ms a sweep over 10
    back-to-back sweeps (CUDA events) beside its bound and (resident) the
    phase cycles of the kernel's timed instantiation;
    the slab kernels K9a/K9b/K9c (and K5's right halo) on a 256^3 volume
@@ -115,9 +116,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       the split FULL - NOHAT, FULL - NODOT) held against its plain
       version at 256^3 x 90 (bound 1e-5 max|out|, torch.sparse.mm beside
       the forms that compute A x or A^T y); E3 (the SART modes TAPS_F32,
-      TAPS_BF16, TABLE_BF16, NOHAT, NOFP, NOUPD on K8's route: resident at
-      256^3 x 90, one launch a sweep; TAPS_F32 and TAPS_BF16 streaming at
-      128 x 512^2 x 90) and E4 (TAPS_F32, TAPS_BF16, TABLE_BF16 at every
+      TAPS_BF16, TABLE_BF16, NOHAT, NOFP, NOUPD on E3's route: resident
+      at 256^3 x 90, one launch a sweep; TAPS_F32 and TAPS_BF16 streaming
+      at 128 x 512^2 x 90, where K8 runs (16, 2)) and E4 (TAPS_F32,
+      TAPS_BF16, TABLE_BF16 at every
       cluster shape of 8 or 16 blocks and 1, 2 or 4 slices that fits, at
       both shapes) over one sweep from zero on nanocube projections, each
       equal bit for bit to the plain version in its own band order and
@@ -191,6 +193,15 @@ the PyTorch step expression, K5 and K11 (bf16 duals) beside two K3 launches
 at 256^3 (K3 also at 256^2 x 128), and K5 on the 3 x 128 x 256^2 fusion
 stack, one launch (where the tree takes a 4D stack) and the per-element
 loop, in the same way beside another tree.
+
+    python3 chip_smoke.py --sart-times
+
+times only K8, ms a sweep over 10 back-to-back sweeps from zero on
+nanocube projections, at 128 x 512^2 x 77 and x 90, 128 x 320^2 x 77 and
+256^3 x 90, with each route and cluster shape and a hash of one sweep's
+output, in the same way beside another tree (an older tree's streaming
+sweep at 512^2 and 320^2 is then timed in the same call, and equal 256^3
+hashes show the (8, 4) sweep unchanged).
 
     python3 chip_smoke.py --art-times
 
@@ -1065,7 +1076,9 @@ def _sart_levels(geom, ns: int, x) -> dict:
     dev = x.device
     n, na = geom.n, geom.nproj
     route = cuda_sart.sart_route(n, geom.nray)
-    tag = f"K8 ({route}) at {ns} x {n}^2 x {na}"
+    shape = cuda_sart.sart_shape(n, geom.nray)
+    on = route if shape is None else f"{route} {shape}"
+    tag = f"K8 ({on}) at {ns} x {n}^2 x {na}"
     sysd = make_system(geom, dev)
     vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
     args = (fp_sl(vol, geom), geom, sysd.inv_row, make_sart_weights(sysd))
@@ -1100,7 +1113,8 @@ def _sart_levels(geom, ns: int, x) -> dict:
     require(abs(rk - rp) <= 1e-4,
             f"{tag}: rmse after 5 sweeps kernel {rk:.6f}, plain "
             f"{rp:.6f}")
-    return {"route": route, "tag": tag, "args": args, "x0": x0, "seq": seq,
+    return {"route": route, "shape": shape, "tag": tag, "args": args,
+            "x0": x0, "seq": seq,
             "one": one, "sweep_err": sweep_err, "sweep_tol": sweep_tol,
             "text": (f"one {na}-angle sweep from zero on nanocube "
                      f"projections {sweep_err:.2e} <= {sweep_tol:.2e} (1e-4 "
@@ -1125,8 +1139,10 @@ def _sart_route_line(geom, ns: int, lv: dict, nnz: int, card: str) -> None:
     launch = "two launches a step"
     if lv["route"] == "resident":
         c = cuda_sart.resident_clusters(geom.n, geom.nray, ns)
-        launch = (f"{c['clusters']} clusters of {cuda_sart.BAND_BLOCKS} "
-                  f"blocks, {c['active']} at once "
+        require((c["blocks"], c["slices"]) == lv["shape"] and c["active"] > 0,
+                f"{lv['tag']}: launch {c}")
+        launch = (f"{c['clusters']} clusters of {c['blocks']} blocks, "
+                  f"{c['slices']} slices a pixel, {c['active']} at once "
                   f"(cudaOccupancyMaxActiveClusters), {c['waves']} waves, "
                   f"{c['smem']} B shared memory a block")
     bound_ms, bound_by = bound(*sart_work(geom, ns, nnz))
@@ -1146,28 +1162,29 @@ def _sart_route_line(geom, ns: int, lv: dict, nnz: int, card: str) -> None:
 
 
 def _check_sart(geom, ns: int, uni, report, nnz: int, card: str) -> None:
-    """K8 on both routes at _sart_levels' three levels: resident at this
-    shape (the row's numbers) and at N 33, Na 7, Ns 5 (a ragged slab, the
-    last band empty), streaming at 128 x 512^2 x 90; each with its launch
-    and ms a sweep beside its bound."""
+    """K8 on both routes at _sart_levels' three levels: resident on (8, 4)
+    at this shape (the row's numbers) and at N 33, Na 7, Ns 5 (a ragged
+    slab, the last band empty), on (16, 2) at 128 x 512^2 x 90 and x 77
+    (`haadf512`'s tilts), streaming at 8 x 544^2 x 13; each with its
+    launch and ms a sweep beside its bound."""
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector.oracle import joseph_nnz
     from tomojax_torch.solvers import cuda_sart
 
     n = geom.n
     lv = _sart_levels(geom, ns, uni(n, n, ns))
-    require(lv["route"] == "resident", f"K8 at {n}^2: route {lv['route']}")
+    require(lv["shape"] == (8, 4), f"K8 at {n}^2: shape {lv['shape']}")
     _sart_route_line(geom, ns, lv, nnz, card)
     sweep, plain = cuda_sart.sart_sweep_sl, cuda_sart.sart_sweep_sl_ref
     args = (lv["x0"], *lv["args"], lv["one"], lv["seq"])
     report("K8_sart_sweep", lv["sweep_err"], lv["sweep_tol"],
            time_ms(lambda: sweep(*args), 5), time_ms(lambda: plain(*args), 2),
            f" (resident route; {lv['text']})", work=sart_work(geom, ns, nnz))
-    for n2, na2, ns2, want in ((33, 7, 5, "resident"),
-                               (512, 90, 128, "streaming")):
+    for n2, na2, ns2, want in ((33, 7, 5, (8, 4)), (512, 90, 128, (16, 2)),
+                               (512, 77, 128, (16, 2)), (544, 13, 8, None)):
         g2 = Geometry.make(n2, np.deg2rad(np.linspace(-76, 76, na2)))
         lv2 = _sart_levels(g2, ns2, uni(n2, n2, ns2))
-        require(lv2["route"] == want, f"K8 at {n2}^2: route {lv2['route']}")
+        require(lv2["shape"] == want, f"K8 at {n2}^2: shape {lv2['shape']}")
         _sart_route_line(g2, ns2, lv2, joseph_nnz(g2, "cuda"), card)
 
 
@@ -3105,8 +3122,10 @@ def _sart_work(geom, ns: int, nnz: int, mode: str, table_bytes: int):
 def _check_sart_experiments(card: str) -> dict:
     """E3 in its six modes at 256^3 x 90 (the resident route) and in
     TAPS_F32 and TAPS_BF16 at 128 x 512^2 x 90 (the streaming route), and
-    E4 in its three modes at every cluster shape that fits at both, over
-    one sweep from zero on nanocube projections (real SART weights): each
+    E4 in its three modes at every cluster shape that fits at both (E3
+    keeps its own route, `csv.e3_route`: at 512^2 it streams where K8
+    runs (16, 2)), over one sweep from zero on nanocube projections (real
+    SART weights): each
     launched and equal to the plain version in its own order
     (sart_variant_ref with bands = its blocks, 1 on the streaming route)
     bit for bit, and within K8's bounds of the driving order (bands = 1):
@@ -3144,7 +3163,8 @@ def _check_sart_experiments(card: str) -> dict:
         xr = torch.rand((n, n, ns), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3))
         tables = csv.sart_tables(geom, dev)
-        route = cuda_sart.sart_route(n, nt)
+        route = csv.e3_route(n, nt)
+        k8_route = cuda_sart.sart_shape(n, nt) or "streaming"
         shape_tag = f"{ns} x {n}^2 x {na}"
         k8 = cuda_sart.sart_sweep_sl
         k8_ms = batch_ms(lambda: k8(x0, *base, seq), 10, dev)
@@ -3152,7 +3172,7 @@ def _check_sart_experiments(card: str) -> dict:
         for _ in range(10):
             xk = k8(xk, *base, seq)
         r32 = float(ops.rmse(xk, vol))
-        print(f"K8 ({route}) at {shape_tag}: {k8_ms:.4f} ms/sweep over 10 "
+        print(f"K8 ({k8_route}) at {shape_tag}: {k8_ms:.4f} ms/sweep over 10 "
               f"back-to-back sweeps (CUDA events), rmse after 10 sweeps "
               f"{r32:.6f} [{card}]")
         refs = {}
@@ -3219,7 +3239,7 @@ def _check_sart_experiments(card: str) -> dict:
             print(f"{key} at {shape_tag}: max|kernel - plain (bands "
                   f"{bands})| {err:.1e} (0.0 required); {k8_text}; "
                   f"{sweep_ms:.4f} ms/sweep over 10 back-to-back sweeps "
-                  f"(K8 {route} {k8_ms:.4f}), one call {ms:.3f} ms, plain "
+                  f"(K8 {k8_route} {k8_ms:.4f}), one call {ms:.3f} ms, plain "
                   f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                   f"{launch} [{card}]")
             return sweep_ms
@@ -3761,6 +3781,55 @@ def art_times_main() -> int:
     return 0
 
 
+def sart_times_main() -> int:
+    """`--sart-times`: only K8's ms a sweep (CUDA events over 10
+    back-to-back sweeps from zero on nanocube projections) at 128 x 512^2
+    x 77 and x 90, 128 x 320^2 x 77 and 256^3 x 90, each with its route,
+    its cluster shape where the tree has `sart_shape`, and the first 16 hex
+    digits of a SHA-256 of one sweep's output, with the tomojax_torch
+    package beside this file; a copy of this file beside another tree
+    times that tree's sweep."""
+    import hashlib
+
+    from tomojax_torch.experiments.timing import batch_ms
+    from tomojax_torch.geometry import Geometry
+    from tomojax_torch.projector.cuda_joseph import fp_sl
+    from tomojax_torch.sim import nanocube_phantom
+    from tomojax_torch.solvers import (
+        cuda_sart, make_sart_weights, make_system, to_sl,
+    )
+
+    card = phase_device()
+    phase_build()
+    dev = torch.device("cuda")
+    shape_of = getattr(cuda_sart, "sart_shape", lambda n, nt: None)
+    times = {}
+    for ns, n, na in ((128, 512, 77), (128, 512, 90), (128, 320, 77),
+                      (256, 256, 90)):
+        geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
+        sysd = make_system(geom, dev)
+        vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
+        x0 = torch.zeros_like(vol)
+        args = (x0, fp_sl(vol, geom), geom, sysd.inv_row,
+                make_sart_weights(sysd), torch.tensor(1.0, device=dev),
+                torch.arange(na, dtype=torch.int32, device=dev))
+        out = cuda_sart.sart_sweep_sl(*args)
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        ms = batch_ms(lambda: cuda_sart.sart_sweep_sl(*args), 10, dev)
+        route = cuda_sart.sart_route(n, geom.nray)
+        shape = shape_of(n, geom.nray)
+        key = f"{ns}x{n}^2x{na}"
+        times[key] = {"ms": ms, "route": route, "shape": shape,
+                      "sha256": digest}
+        print(f"K8 [{ROOT.name}] at {ns} x {n}^2 x {na}: {route}"
+              f"{'' if shape is None else f' {shape}'} {ms:.4f} ms/sweep "
+              f"over 10 back-to-back sweeps (CUDA events), output sha256 "
+              f"{digest}; SM clock after it, max: {sm_clock()} [{card}]")
+        del sysd, vol, x0, args, out
+    print(json.dumps({"sart_ms": times, "tree": str(ROOT)}))
+    return 0
+
+
 def gap_study_main() -> int:
     """`--gap-study`: only `_sharded_gap_study` on phase 4c's ASD-POCS
     problem (256^3 x 90, defaults), with 16 profiled windows each way."""
@@ -3803,6 +3872,8 @@ def main() -> int:
         return gap_study_main()
     if sys.argv[1:] == ["--art-times"]:
         return art_times_main()
+    if sys.argv[1:] == ["--sart-times"]:
+        return sart_times_main()
     try:
         card = phase_device()
         phase_build()

@@ -1,15 +1,16 @@
 """The 512-class deployment `haadf512` and its cell `haadf512.asd_pocs`.
 
-On the CPU: K8's route at the cell's shape (streaming at 512², resident
-at 256²); the `solvers.sart` span and its `sart_launches` counter,
+On the CPU: K8's route at the cell's shape (resident (16, 2) at 512²,
+(8, 4) at 256²); the `solvers.sart` span and its `sart_launches` counter,
 against a stand-in for the kernel library on the CUDA branch of
 `sart_sweep_sl`; the reader `sart.launches_per_sweep.recon` on a
 synthetic store; the cell at the tiny size of `benchmark/tests/tiny.py`
 through `harness.run`, in this process and in a clean interpreter (no
 module of jax loaded); the bfloat16 control against the cell's limits;
 the configuration file's cut. On the card (`cuda`): `TomoTorch.asd_pocs`
-at a streaming shape against the benchmark's plain reference under the
-cell's limits.
+at a shape of each of the routes that no 256² cell takes, resident (16, 2)
+and streaming, against the benchmark's plain reference under the cell's
+limits.
 
 This file imports no jax, so that its `cuda` test runs on the card."""
 
@@ -50,10 +51,10 @@ def root(tmp_path_factory):
 # ------------------------------------------------------------- the route
 
 
-@pytest.mark.parametrize("n, route", [(512, "streaming"),
-                                      (256, "resident")])
-def test_route_at_the_cells_planes(n, route):
-    assert cuda_sart.sart_route(n, n) == route
+@pytest.mark.parametrize("n, shape", [(512, (16, 2)), (256, (8, 4))])
+def test_route_at_the_cells_planes(n, shape):
+    assert cuda_sart.sart_route(n, n) == "resident"
+    assert cuda_sart.sart_shape(n, n) == shape
 
 
 # ------------------------------------------------- the span and counter
@@ -103,14 +104,17 @@ def _profiled(fn):
     return spans
 
 
-@pytest.mark.parametrize("n, steps, want", [(512, 5, 10), (512, 3, 6),
-                                            (256, 5, 1)])
+@pytest.mark.parametrize("n, steps, want", [(544, 5, 10), (544, 3, 6),
+                                            (256, 5, 1), (512, 5, 1),
+                                            (512, 3, 1)])
 def test_a_sweep_counts_its_launches_in_its_span(card_branch, n, steps,
                                                  want):
+    """1 launch a sweep on either resident shape (N <= 528), 2 a step
+    streaming; only the streaming route is handed a residual plane."""
     args = _operands(n, steps=steps)
     before = cuda_sart.sart_sweep_sl.launches
     spans = _profiled(lambda: cuda_sart.sart_sweep_sl(*args))
-    assert card_branch.calls == [(steps, n > 288)]
+    assert card_branch.calls == [(steps, n > 528)]
     sart = [s for s in spans if s.name == "solvers.sart"]
     assert len(sart) == 1
     # a first sweep at a geometry also counts the angle tables' build
@@ -121,12 +125,22 @@ def test_a_sweep_counts_its_launches_in_its_span(card_branch, n, steps,
 
 
 def test_off_the_profiler_nothing_is_recorded(card_branch):
-    args = _operands(512)
+    args = _operands(544)
     profiling.recorded().clear()
     before = cuda_sart.sart_sweep_sl.launches
     cuda_sart.sart_sweep_sl(*args)
     assert list(profiling.recorded().spans) == []
     assert cuda_sart.sart_sweep_sl.launches == before + 10
+
+
+def test_off_the_profiler_a_resident_sweep_at_512_counts_one(card_branch):
+    args = _operands(512)
+    profiling.recorded().clear()
+    before = cuda_sart.sart_sweep_sl.launches
+    cuda_sart.sart_sweep_sl(*args)
+    assert list(profiling.recorded().spans) == []
+    assert card_branch.calls == [(5, False)]
+    assert cuda_sart.sart_sweep_sl.launches == before + 1
 
 
 def test_the_plain_path_counts_no_launch():
@@ -273,11 +287,11 @@ def test_configuration_states_its_cut():
 # ------------------------------------------------------------ the card
 
 
-@pytest.mark.cuda
-def test_asd_pocs_on_the_streaming_route_matches_the_reference_on_card():
-    """TomoTorch.asd_pocs (4 iterations) at 8 x 320^2 x 13 tilts, a shape
-    on K8's streaming route, against the benchmark's plain reference
-    under the cell's limits; 2 launches a tilt step."""
+def _small_job_on_card(n: int, shape, launches_a_sweep: int) -> None:
+    """TomoTorch.asd_pocs (4 iterations) at 8 x n^2 x 13 tilts, where K8
+    takes cluster shape `shape` (None: streaming), against the
+    benchmark's plain reference under the cell's limits, with
+    `launches_a_sweep` kernel launches a sweep."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from benchmark import found
@@ -287,18 +301,32 @@ def test_asd_pocs_on_the_streaming_route_matches_the_reference_on_card():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = json.loads(CONFIG.read_text())
-    cfg["nslice"], cfg["n"] = 8, 320
+    cfg["nslice"], cfg["n"] = 8, n
     cfg["series"]["haadf"]["angles"]["num"] = 13
     cfg["solvers"]["asd_pocs"]["Niter"] = 4
-    assert cuda_sart.sart_route(320, 320) == "streaming"
+    assert cuda_sart.sart_shape(n, n) == shape
     inp, = data.make(cfg, SEED, 1, dev)
     before = cuda_sart.sart_sweep_sl.launches
     tomo = TomoTorch(inp["angles"], inp["series"], device=dev)
     tomo.asd_pocs(**cfg["solvers"]["asd_pocs"])
     prog = {"recon": tomo.get_recon(), "dd_vec": np.asarray(tomo.dd_vec),
             "tv_vec": np.asarray(tomo.tv_vec)}
-    assert cuda_sart.sart_sweep_sl.launches == before + 4 * 2 * 13
+    assert cuda_sart.sart_sweep_sl.launches == before + 4 * launches_a_sweep
     ref = found.module("reference", "asd_pocs").run(
         inp, cfg["solvers"], dev, torch.float32)
     ok, checks = check.verdict(check.numbers([(prog, ref)]), LIMITS, 0)
     assert ok, checks
+
+
+@pytest.mark.cuda
+def test_asd_pocs_on_the_streaming_route_matches_the_reference_on_card():
+    """At 8 x 544^2 x 13, above every resident shape: 2 launches a tilt
+    step."""
+    _small_job_on_card(544, None, 2 * 13)
+
+
+@pytest.mark.cuda
+def test_asd_pocs_on_the_resident_16_2_route_matches_the_reference_on_card():
+    """At 8 x 320^2 x 13, on K8's (16, 2) cluster shape: 1 launch a
+    sweep."""
+    _small_job_on_card(320, (16, 2), 1)

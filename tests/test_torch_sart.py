@@ -207,11 +207,12 @@ def test_sart_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_sart_routes_match_plain_on_card():
-    """Both routes of csrc/sart.cu against the plain version: resident at
-    N 33, Na 7, Ns 5 (a ragged slab, empty last band) and N 40 with 5
-    extra bins, streaming at N 320; the C route is the Python helper's, an
-    out-of-range order entry leaves x as it was, and two runs agree bit
-    for bit (no float atomics)."""
+    """Both routes of csrc/sart.cu against the plain version: resident
+    (8, 4) at N 33, Na 7, Ns 5 (a ragged slab, empty last band) and N 40
+    with 5 extra bins, resident (16, 2) at N 320, Ns 3 (an odd slab),
+    streaming at N 544; the C route is the Python helper's (at the turns
+    288/289 and 528/529 too), an out-of-range order entry leaves x as it
+    was, and two runs agree bit for bit (no float atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from tomojax_torch import _build
@@ -221,16 +222,20 @@ def test_sart_routes_match_plain_on_card():
     dev = torch.device("cuda")
     lib = _build.lib()
     for n, nt in ((16, 16), (256, 256), (256, 263), (288, 288), (289, 289),
-                  (512, 512)):
-        assert bool(lib.tj_sart_route(n, nt)) == (
-            cuda_sart.sart_route(n, nt) == "resident"), (n, nt)
+                  (320, 320), (512, 512), (528, 528), (529, 529),
+                  (544, 544)):
+        shape = cuda_sart.sart_shape(n, nt)
+        want = 0 if shape is None else cuda_sart.K8_SHAPES.index(shape) + 1
+        assert lib.tj_sart_route(n, nt) == want, (n, nt)
     rng = np.random.default_rng(4)
-    for n, na, ns, extra, route in ((33, 7, 5, 0, "resident"),
-                                    (40, 15, 4, 5, "resident"),
-                                    (320, 5, 3, 0, "streaming")):
+    for n, na, ns, extra, shape in ((33, 7, 5, 0, (8, 4)),
+                                    (40, 15, 4, 5, (8, 4)),
+                                    (320, 5, 3, 0, (16, 2)),
+                                    (544, 5, 3, 0, None)):
         geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)),
                              nray=n + extra)
-        assert cuda_sart.sart_route(n, geom.nray) == route
+        assert cuda_sart.sart_shape(n, geom.nray) == shape
+        route = cuda_sart.sart_route(n, geom.nray)
         sys_c = make_system(geom, dev)
         w = make_sart_weights(sys_c)
         vol = to_sl(torch.from_numpy(
@@ -245,13 +250,13 @@ def test_sart_routes_match_plain_on_card():
             got = sart_sweep_sl(x, *args, order)
             ref = sart_sweep_sl_ref(x, *args, order)
             assert float((got - ref).abs().max()) <= 1e-5 * float(
-                ref.abs().max()), (route, a)
+                ref.abs().max()), (shape, a)
         seq = torch.arange(na, dtype=torch.int32, device=dev)
         x0 = torch.zeros_like(x)
         got = sart_sweep_sl(x0, *args, seq)
         ref = sart_sweep_sl_ref(x0, *args, seq)
         assert float((got - ref).abs().max()) <= 1e-4 * float(
-            ref.abs().max()), route
+            ref.abs().max()), shape
         assert torch.equal(sart_sweep_sl(x0, *args, seq), got)
         skip = torch.tensor([na, -1], dtype=torch.int32, device=dev)
         assert torch.equal(sart_sweep_sl(x, *args, skip), x)
@@ -260,3 +265,6 @@ def test_sart_routes_match_plain_on_card():
             phases = cuda_sart.resident_phases(x0, *args, seq)
             assert sum(v["steps"] for v in phases.values()) == na
             assert all(v["FP"] > 0 for v in phases.values() if v["steps"])
+            launch = cuda_sart.resident_clusters(n, geom.nray, ns)
+            assert (launch["blocks"], launch["slices"]) == shape
+            assert launch["active"] > 0

@@ -1,7 +1,9 @@
 """K8's resident route (csrc/sart.cu sart_resident_kernel), emulated.
 
-A cluster of `BAND_BLOCKS` blocks keeps 4 slices of the volume for the
-whole sweep, block r the rows [r R, (r + 1) R), R = ceil(N / blocks). Per
+A cluster of 8 blocks keeps 4 slices of the volume for the whole sweep
+(K8's first shape, (8, 4)), or 16 blocks keep 2 (its second, (16, 2),
+for 289 <= N <= 528), block r the rows [r R, (r + 1) R), R = ceil(N /
+blocks). Per
 step each block sums every ray's taps that lie in its own rows: a
 row-driven angle's steps over its rows, a column-driven angle's steps in
 the closed-form range of `cuda_sart.column_steps`, reading 0 for a tap row
@@ -11,9 +13,10 @@ outside the band. The blocks' partials are added in block order, scaled by
 These tests show, on the host, that every in-volume tap of every (angle,
 bin, step) falls in exactly one band, for clusters of 8 and 16 blocks (so
 the partials add up to the ray),
-hold a torch emulation of the sweep against the plain version
-`sart_sweep_sl_ref` within the bounds `chip_smoke.py` applies to the
-kernel, and check the route helper.
+hold a torch emulation of the sweep at 8 and 16 bands against the plain
+version `sart_sweep_sl_ref` within the bounds `chip_smoke.py` applies to
+the kernel, and check the route helper against the sources' list of
+shapes.
 """
 
 import re
@@ -165,6 +168,20 @@ def test_emulated_sweep_within_chip_smoke_bounds(n, na, ns, extra,
     row-driven angle) from random x within 1e-5 max|x|; one sweep from zero
     on consistent projections within 1e-4 max|x|; rmse against the phantom
     after 5 sweeps within 1e-4 of the plain version's."""
+    _held_to_chip_smoke_bounds(n, na, ns, extra, order_kind, cs.BAND_BLOCKS)
+
+
+@pytest.mark.parametrize("order_kind", ["ordered", "permuted"])
+@pytest.mark.parametrize("n,na,ns,extra", [(33, 7, 5, 0), (40, 15, 3, 5)])
+def test_emulated_sweep_at_16_bands_within_chip_smoke_bounds(n, na, ns, extra,
+                                                             order_kind):
+    """The same three levels with the ray summed over the 16 bands of
+    K8's second cluster shape, (16, 2)."""
+    assert cs.K8_SHAPES[1][0] == 16
+    _held_to_chip_smoke_bounds(n, na, ns, extra, order_kind, 16)
+
+
+def _held_to_chip_smoke_bounds(n, na, ns, extra, order_kind, blocks):
     geom, sysd, vol, b, w = _problem(n, na, ns, extra)
     args = (b, geom, sysd.inv_row, w, torch.tensor(1.0))
     x = torch.from_numpy(np.random.default_rng(n).random(
@@ -172,7 +189,7 @@ def test_emulated_sweep_within_chip_smoke_bounds(n, na, ns, extra,
     for a in (0, na // 2):
         order = torch.tensor([a], dtype=torch.int32)
         ref = cs.sart_sweep_sl_ref(x, *args, order)
-        got = emulate_resident_sweep(x, *args, order)
+        got = emulate_resident_sweep(x, *args, order, blocks)
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     order = torch.arange(na, dtype=torch.int32)
     if order_kind == "permuted":
@@ -180,11 +197,11 @@ def test_emulated_sweep_within_chip_smoke_bounds(n, na, ns, extra,
             np.random.default_rng(5).permutation(na).astype(np.int32))
     x0 = torch.zeros_like(vol)
     ref = cs.sart_sweep_sl_ref(x0, *args, order)
-    got = emulate_resident_sweep(x0, *args, order)
+    got = emulate_resident_sweep(x0, *args, order, blocks)
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     xe = xp = x0
     for _ in range(5):
-        xe = emulate_resident_sweep(xe, *args, order)
+        xe = emulate_resident_sweep(xe, *args, order, blocks)
         xp = cs.sart_sweep_sl_ref(xp, *args, order)
     assert abs(float(ops.rmse(xe, vol)) - float(ops.rmse(xp, vol))) <= 1e-4
 
@@ -216,14 +233,50 @@ def test_phase_timing_checks_its_operands():
 
 
 def test_route_depends_on_the_shape_alone():
+    """The first of K8's shapes that fits: (8, 4) up to N = 288, (16, 2)
+    up to N = 528, then streaming."""
+    assert cs.K8_SHAPES == ((8, 4), (16, 2))
     assert cs.resident_smem_bytes(256, 256) == (32 * 260 * 16 + 32 * 256 * 4
                                                 + 256 * 68)
+    assert cs.resident_smem_bytes(512, 512, 16, 2) == 216064
+    assert cs.resident_smem_bytes(528, 528, 16, 2) == 229152
+    assert cs.resident_smem_bytes(529, 529, 16, 2) == 235964
     for n in (16, 33, 64, 128, 256, 288):
+        assert cs.sart_shape(n, n) == (8, 4), n
         assert cs.sart_route(n, n) == "resident", n
-    for n in (289, 320, 512, 1024):
+    for n in (289, 320, 512, 528):
+        assert cs.sart_shape(n, n) == (16, 2), n
+        assert cs.sart_route(n, n) == "resident", n
+    for n in (529, 1024):
+        assert cs.sart_shape(n, n) is None, n
         assert cs.sart_route(n, n) == "streaming", n
     assert cs.sart_route(256, 256 + 7) == "resident"
     assert cs.band_rows(256) == 32 and cs.band_rows(33) == 5
+    assert cs.band_rows(512, 16) == 32
+
+
+def test_resident_launch_helpers_refuse_the_streaming_route():
+    """`resident_clusters` and `resident_phases` take the shape that
+    launches, and raise before any call into the library where K8
+    streams."""
+    with pytest.raises(ValueError, match="streams at N 544"):
+        cs.resident_clusters(544, 544, 8)
+    with pytest.raises(ValueError, match="streams at N 529"):
+        cs._resident_shape(529, 529)
+    assert cs._resident_shape(512, 512) == (16, 2)
+
+
+def test_e3_keeps_its_own_route():
+    """E3 (exp_sart.cu) has only K8's first shape: resident where (8, 4)
+    fits, streaming above, where K8 runs (16, 2)."""
+    from tomojax_torch.experiments import cuda_sart_variants as csv
+
+    assert csv.e3_bands(512, 512) == 1 and csv.e3_bands(256, 256) == 8
+    for n in (16, 256, 288, 289, 320, 512, 528, 529, 1024):
+        want = "resident" if n <= 288 else "streaming"
+        assert csv.e3_route(n, n) == want, n
+        assert (want == "resident") == (
+            cs.sart_shape(n, n) == cs.K8_SHAPES[0]), n
 
 
 # the generalised resident_smem_bytes(n, nt, blocks, sb) at N = Nt: the
@@ -255,8 +308,9 @@ def test_resident_smem_of_every_cluster_shape(n):
 
 def test_resident_constants_match_the_source():
     """The Python mirrors of the resident sweep's constants equal the
-    sources' (sart_resident.cuh for the sweep, sart.cu for K8's shape,
-    exp_sart.cu for E3's, exp_sart_shapes.cu for E4's)."""
+    sources' (sart_resident.cuh for the sweep, sart.cu for K8's list of
+    shapes, exp_sart.cu for E3's one shape, exp_sart_shapes.cu for
+    E4's)."""
     from tomojax_torch.experiments import cuda_sart_variants as csv
 
     csrc = Path(cs.__file__).resolve().parents[1] / "csrc"
@@ -268,12 +322,17 @@ def test_resident_constants_match_the_source():
         assert m is not None and int(m.group(1)) == value, name
     m = re.search(r"constexpr float STEP_SLACK = ([0-9.e+-]+)f;", text)
     assert m is not None and float(m.group(1)) == cs.STEP_SLACK
-    for src, prefix in (("sart.cu", "R"), ("exp_sart.cu", "E")):
-        body = (csrc / src).read_text()
-        for name, value in ((f"{prefix}_BLOCKS", cs.BAND_BLOCKS),
-                            (f"{prefix}_SLICES", cs.CLUSTER_SLICES)):
-            m = re.search(rf"constexpr int {name} = (\d+);", body)
-            assert m is not None and int(m.group(1)) == value, (src, name)
+    m = re.search(r"constexpr int R_SHAPES\[(\d+)\]\[2\] = \{(.*)\};",
+                  (csrc / "sart.cu").read_text())
+    assert m is not None
+    listed = tuple((int(b), int(s)) for b, s in re.findall(
+        r"\{(\d+), (\d+)\}", m.group(2)))
+    assert listed == cs.K8_SHAPES and int(m.group(1)) == len(listed)
+    body = (csrc / "exp_sart.cu").read_text()
+    for name, value in (("E_BLOCKS", cs.BAND_BLOCKS),
+                        ("E_SLICES", cs.CLUSTER_SLICES)):
+        m = re.search(rf"constexpr int {name} = (\d+);", body)
+        assert m is not None and int(m.group(1)) == value, name
     shapes = (csrc / "exp_sart_shapes.cu").read_text()
     found = set(map(tuple, re.findall(
         r"if \(blocks == (\d+) && sb == (\d+)\) return", shapes)))

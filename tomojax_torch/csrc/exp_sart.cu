@@ -16,11 +16,11 @@
 // tap pair, built once per geometry by
 // experiments/cuda_sart_variants.py:sart_tables).
 //
-// E3 takes K8's routes, chosen by the shape alone as K8 chooses
-// (cuda_sart.sart_route):
+// E3 takes two routes, chosen by the shape alone (cuda_sart_variants.
+// e3_route); K8 has a second resident shape, (16, 2), that E3 has not:
 //   resident   (N <= 288 at Nt = N) K8's cluster-resident sweep of
-//              sart_resident.cuh at K8's shape, 8 blocks a cluster and 4
-//              slices a pixel, in the mode's arithmetic (exp_sart.cuh
+//              sart_resident.cuh at K8's first shape, 8 blocks a cluster and
+//              4 slices a pixel, in the mode's arithmetic (exp_sart.cuh
 //              SartTaps): one launch a sweep. So TAPS_F32 - NOHAT is the
 //              hat's share of K8's step, TAPS_F32 - NOFP the FP's,
 //              TAPS_F32 - NOUPD the update's, TAPS_BF16 - TAPS_F32 what bf16
@@ -28,7 +28,7 @@
 //              Bound as K8's: the FP's and the update's shared-memory reads
 //              and a cluster barrier a step; device memory sees the volume
 //              once a sweep (and the tables, 94.4 MB at 256^3 x 90).
-//   streaming  (above: 512^2 for one) K8's two launches per angle,
+//   streaming  (above: 512^2 for one) the streaming route's two launches,
 //              exp_sart_fp_kernel and exp_sart_update_kernel below; bound by
 //              device memory (the volume read by the FP and read and written
 //              by the update at every step, ~17 GB a sweep at 256^3 x 90
@@ -42,7 +42,7 @@ using namespace tj::xp;
 
 constexpr int S_BS = 32;  // slices per block (threadIdx.x)
 constexpr int S_BY = 8;   // bins (FP) or columns (update) per block
-constexpr int E_BLOCKS = 8;  // the resident route's cluster: K8's shape
+constexpr int E_BLOCKS = 8;  // the resident route's cluster: K8's first
 constexpr int E_SLICES = 4;
 
 // E3 replaces scripts/exp_sart_pipeline.py _dbuf_kernel (TAPS_F32),
@@ -214,9 +214,9 @@ int tj::xp::e3_resident(int mode, const SweepArgs& g, long long* prof) {
                          : resident_mode<true>(mode, g, prof);
 }
 
-// E3: one sweep over order[0 .. steps) in `mode` (a Mode) on K8's route at
-// this shape (tj_sart_route); x (N, N, Ns) input, out (N, N, Ns) result
-// (may not alias x); fp_tab / bp_tab the (Na, 4) tables of
+// E3: one sweep over order[0 .. steps) in `mode` (a Mode) on E3's route at
+// this shape (resident where (8, 4) fits); x (N, N, Ns) input, out (N, N,
+// Ns) result (may not alias x); fp_tab / bp_tab the (Na, 4) tables of
 // cuda_joseph.angle_tables; b (Na, Nt, Ns); inv_row (Na, Nt); inv_col_a
 // (Na, N, N); beta 1 float and order `steps` ints on the device; resid
 // (Nt, Ns) floats of scratch for the streaming route (may be null on the

@@ -10,13 +10,16 @@
 // for the host; an order entry outside [0, Na) leaves x unchanged (no read
 // out of bounds); the input is left as it was. One host call is one sweep.
 //
-// Two routes, chosen by the shape alone (tj::sr::resident_smem;
-// cuda_sart.sart_route mirrors it):
+// Two routes, chosen by the shape alone (tj::sr::resident_smem over
+// R_SHAPES; cuda_sart.sart_shape mirrors it):
 //
-// Resident (the block's share fits the card's 227 KB): sart_resident.cuh's
-// cluster-resident sweep at K8's shape, R_BLOCKS = 8 blocks (bands of rows)
-// a cluster and R_SLICES = 4 slices (a float4 a pixel): 130 KB of band a
-// block at N = 256, in K8's arithmetic (K8Taps): tj::fp_ray's positions and
+// Resident (a block's share fits the card's 227 KB at one of K8's cluster
+// shapes): sart_resident.cuh's cluster-resident sweep at the first shape of
+// R_SHAPES that fits, (8, 4) = 8 blocks (bands of rows) a cluster and 4
+// slices (a float4 a pixel) up to N = 288 at Nt = N (130 KB of band a block
+// at N = 256), then (16, 2) = 16 blocks (a non-portable cluster) and 2
+// slices (a float2 a pixel) up to N = 528 (216,064 B a block at N = 512),
+// in K8's arithmetic (K8Taps): tj::fp_ray's positions and
 // fmaf chain over the taps of each band, the partials added in rank order,
 // scaled by 1/D into (b - ax) inv_row, and K8's update chain (tj::bp_angle's
 // taps and fmaf pair, then max(x + beta inv_col_a upd, 0) with the same
@@ -30,7 +33,7 @@
 // The experiment sweeps E3/E4 (exp_sart.cu) run the same template in the
 // experiment modes, to split this route's time.
 //
-// Streaming (larger N, 512^2 for one): each step is two launches on the
+// Streaming (N above 528 at Nt = N): each step is two launches on the
 // caller's stream,
 //   sart_fp_kernel      one thread per (bin, slice): the driving-axis walk
 //                       of K1 (tj::fp_ray) and the residual into a
@@ -187,23 +190,46 @@ struct K8Taps {
   }
 };
 
-// K8's shape: 8 blocks (bands) a cluster, 4 slices (a float4 a pixel)
-constexpr int R_BLOCKS = 8;
-constexpr int R_SLICES = 4;
+// K8's cluster shapes, {blocks (bands) a cluster, slices a pixel}, in the
+// order the route tries them: the first that fits runs. (8, 4) for N <= 288
+// at Nt = N; (16, 2), whose bands have half the rows and pixels half the
+// slices, for 289 <= N <= 528; streaming above.
+constexpr int R_SHAPES[2][2] = {{8, 4}, {16, 2}};
+constexpr int R_NSHAPES = sizeof(R_SHAPES) / sizeof(R_SHAPES[0]);
+static_assert(R_NSHAPES == 2, "resident_sweep and tj_sart_active_clusters "
+                              "dispatch on every shape");
 
-bool resident_route(int n, int nt) {
-  return tj::sr::resident_fits(n, nt, R_BLOCKS, R_SLICES);
+// 1 + the index in R_SHAPES of the shape the resident route takes at this
+// shape, or 0 where none fits (the streaming route).
+int resident_shape(int n, int nt) {
+  for (int i = 0; i < R_NSHAPES; ++i) {
+    if (tj::sr::resident_fits(n, nt, R_SHAPES[i][0], R_SHAPES[i][1])) {
+      return i + 1;
+    }
+  }
+  return 0;
 }
 
 template <bool PROF>
-int resident_sweep(const float* x, const float4* ft, const float4* bt,
-                   const float* b, const float* inv_row,
+int resident_sweep(int shape, const float* x, const float4* ft,
+                   const float4* bt, const float* b, const float* inv_row,
                    const float* inv_col_a, const float* beta,
                    const int* order, int steps, float* out, int n, int nt,
                    int na, int ns, long long* prof, cudaStream_t st) {
-  return tj::sr::resident_sweep<K8Taps, R_BLOCKS, R_SLICES, PROF>(
-      x, ft, bt, b, inv_row, inv_col_a, beta, order, steps, out, n, nt, na,
-      ns, prof, K8Taps::Params{}, st);
+  switch (shape) {
+    case 1:
+      return tj::sr::resident_sweep<K8Taps, R_SHAPES[0][0], R_SHAPES[0][1],
+                                    PROF>(x, ft, bt, b, inv_row, inv_col_a,
+                                          beta, order, steps, out, n, nt, na,
+                                          ns, prof, K8Taps::Params{}, st);
+    case 2:
+      return tj::sr::resident_sweep<K8Taps, R_SHAPES[1][0], R_SHAPES[1][1],
+                                    PROF>(x, ft, bt, b, inv_row, inv_col_a,
+                                          beta, order, steps, out, n, nt, na,
+                                          ns, prof, K8Taps::Params{}, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -227,19 +253,21 @@ TJ_API int tj_sart_sweep(const float* x, const float* fp_tab,
   auto st = static_cast<cudaStream_t>(stream);
   const auto* ft = reinterpret_cast<const float4*>(fp_tab);
   const auto* bt = reinterpret_cast<const float4*>(bp_tab);
-  if (!resident_route(n, nt)) {
+  const int shape = resident_shape(n, nt);
+  if (shape == 0) {
     return streaming_sweep(x, ft, bt, b, inv_row, inv_col_a, beta, order,
                            steps, resid, out, n, nt, na, ns, st);
   }
-  return resident_sweep<false>(x, ft, bt, b, inv_row, inv_col_a, beta, order,
-                               steps, out, n, nt, na, ns, nullptr, st);
+  return resident_sweep<false>(shape, x, ft, bt, b, inv_row, inv_col_a,
+                               beta, order, steps, out, n, nt, na, ns,
+                               nullptr, st);
 }
 
-// tj_sart_sweep's resident route with its phases timed: prof holds, per
-// block (8 a cluster, a cluster per 4 slices), {row-driven, column-driven}
-// x {copy issue, FP, copy wait + cluster barrier, residual, update, steps}
-// int64s (clock64 cycles of thread 0; the FP ends at a block barrier of its
-// own).
+// tj_sart_sweep's resident route with its phases timed, at the shape
+// tj_sart_route names: prof holds, per block (blocks a cluster, a cluster
+// per slices a pixel), {row-driven, column-driven} x {copy issue, FP, copy
+// wait + cluster barrier, residual, update, steps} int64s (clock64 cycles
+// of thread 0; the FP ends at a block barrier of its own).
 TJ_API int tj_sart_resident_phases(const float* x, const float* fp_tab,
                                    const float* bp_tab, const float* b,
                                    const float* inv_row,
@@ -247,28 +275,37 @@ TJ_API int tj_sart_resident_phases(const float* x, const float* fp_tab,
                                    const int* order, int steps, float* out,
                                    int n, int nt, int na, int ns,
                                    long long* prof, void* stream) {
-  if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || steps <= 0 ||
-      !resident_route(n, nt)) {
+  const int shape = n > 0 && nt > 0 ? resident_shape(n, nt) : 0;
+  if (na <= 0 || ns <= 0 || steps <= 0 || shape == 0) {
     return cudaErrorInvalidValue;
   }
   return resident_sweep<true>(
-      x, reinterpret_cast<const float4*>(fp_tab),
+      shape, x, reinterpret_cast<const float4*>(fp_tab),
       reinterpret_cast<const float4*>(bp_tab), b, inv_row, inv_col_a, beta,
       order, steps, out, n, nt, na, ns, prof,
       static_cast<cudaStream_t>(stream));
 }
 
-// 1 where tj_sart_sweep takes the resident route at this shape, else 0.
+// The route tj_sart_sweep takes at this shape: 1 + the index in R_SHAPES
+// of its resident cluster shape, or 0 for the streaming route.
 TJ_API int tj_sart_route(int n, int nt) {
-  return n > 0 && nt > 0 && resident_route(n, nt) ? 1 : 0;
+  return n > 0 && nt > 0 ? resident_shape(n, nt) : 0;
 }
 
 // *clusters: how many clusters of the resident route the card holds at
-// once (cudaOccupancyMaxActiveClusters) for a launch at this shape.
+// once (cudaOccupancyMaxActiveClusters) for a launch at this shape, at the
+// cluster shape tj_sart_route names.
 TJ_API int tj_sart_active_clusters(int n, int nt, int ns, int* clusters) {
-  if (n <= 0 || nt <= 0 || ns <= 0 || !resident_route(n, nt)) {
-    return cudaErrorInvalidValue;
+  const int shape = n > 0 && nt > 0 ? resident_shape(n, nt) : 0;
+  if (ns <= 0) return cudaErrorInvalidValue;
+  switch (shape) {
+    case 1:
+      return tj::sr::active_clusters<K8Taps, R_SHAPES[0][0], R_SHAPES[0][1]>(
+          n, nt, ns, clusters);
+    case 2:
+      return tj::sr::active_clusters<K8Taps, R_SHAPES[1][0], R_SHAPES[1][1]>(
+          n, nt, ns, clusters);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return tj::sr::active_clusters<K8Taps, R_BLOCKS, R_SLICES>(n, nt, ns,
-                                                              clusters);
 }

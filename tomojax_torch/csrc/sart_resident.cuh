@@ -38,7 +38,8 @@
 //
 // Shared memory of a block (resident_smem): band R (N + R_PAD) Vec<SB>,
 // inv_col_a rows R N floats, partials, residual and b[a] 4 Nt Vec<SB>,
-// inv_row[a] Nt floats; 183,296 B at N = Nt = 256 for K8's (8, 4). The time
+// inv_row[a] Nt floats; 183,296 B at N = Nt = 256 for K8's (8, 4), 216,064
+// B at N = Nt = 512 for its (16, 2). The time
 // of a step is its FP's and update's shared-memory reads and the cluster
 // barrier; the volume is read and written once a sweep.
 #pragma once

@@ -25,11 +25,12 @@ and K2's BP taps. `MODES` (csrc/exp_hat.cuh):
   weight 0.01), NOFP (no FP walk: resid = b[a] inv_row[a]) and NOUPD (the
   FP walks, x is returned unchanged).
 
-* E3 ``sart_variant`` (``csrc/exp_sart.cu``): any mode on K8's route at
-  this shape (``cuda_sart.sart_route``): resident (N <= 288 at Nt = N) as
-  K8's cluster-resident sweep (``csrc/sart_resident.cuh``) at K8's shape,
-  8 blocks (bands of rows) a cluster and 4 slices a pixel, one launch a
-  sweep; streaming above, two launches a step. On the resident route
+* E3 ``sart_variant`` (``csrc/exp_sart.cu``): any mode on its own route
+  at this shape (`e3_route`): resident (N <= 288 at Nt = N) as K8's
+  cluster-resident sweep (``csrc/sart_resident.cuh``) at K8's first
+  shape, 8 blocks (bands of rows) a cluster and 4 slices a pixel, one
+  launch a sweep; streaming above, two launches a step (K8 itself runs
+  (16, 2) up to N = 528: E3 has no such shape). On the resident route
   TAPS_F32 - NOHAT is the hat's share of K8's step, TAPS_F32 - NOFP the
   FP's, TAPS_F32 - NOUPD the update's.
 * E4 ``sart_resident`` (``csrc/exp_sart_shapes.cu``): the resident sweep in
@@ -67,7 +68,7 @@ from tomojax_torch.geometry import Geometry
 from tomojax_torch.projector.cuda_joseph import angle_tables
 from tomojax_torch.solvers.cuda_sart import (
     BAND_BLOCKS, CLUSTER_SLICES, PHASES, RESIDENT_SMEM_MAX, band_rows,
-    column_steps, phase_cycles, resident_smem_bytes, sart_route,
+    column_steps, phase_cycles, resident_smem_bytes, shape_fits,
 )
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -79,21 +80,23 @@ E4_SHAPES = tuple((blk, sb) for blk in E4_BLOCKS for sb in E4_SLICES)
 NOHAT_WEIGHT = 0.01  # exp_sart_ablate.py's constant
 
 
-def shape_fits(n: int, nt: int, blocks: int, sb: int) -> bool:
-    """Whether a block of the resident sweep with `blocks` blocks a cluster
-    and `sb` slices a pixel fits the card's shared memory at N, Nt."""
-    return resident_smem_bytes(n, nt, blocks, sb) <= RESIDENT_SMEM_MAX
-
-
 def e4_shapes(n: int, nt: int) -> list:
     """The shapes of `E4_SHAPES` that fit at N, Nt."""
     return [s for s in E4_SHAPES if shape_fits(n, nt, *s)]
 
 
+def e3_route(n: int, nt: int) -> str:
+    """The route ``tj_exp_sart_sweep`` takes at this shape: 'resident'
+    where E3's one cluster shape (`BAND_BLOCKS`, `CLUSTER_SLICES`: K8's
+    first, exp_sart.cu E_BLOCKS, E_SLICES) fits, else 'streaming'."""
+    return ("resident" if shape_fits(n, nt, BAND_BLOCKS, CLUSTER_SLICES)
+            else "streaming")
+
+
 def e3_bands(n: int, nt: int) -> int:
-    """The bands E3 sums a ray over at this shape: K8's 8 on the resident
+    """The bands E3 sums a ray over at this shape: 8 on its resident
     route, 1 (the driving order) on the streaming one."""
-    return BAND_BLOCKS if sart_route(n, nt) == "resident" else 1
+    return BAND_BLOCKS if e3_route(n, nt) == "resident" else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,7 +308,7 @@ def _table_ptrs(mode: str, tables: SartTables | None):
 
 def sart_variant(x, b, geom: Geometry, inv_row, inv_col_a, beta, order,
                  mode: str = "TAPS_F32", tables: SartTables | None = None):
-    """E3: `sart_variant_ref` on the card on K8's route at this shape (one
+    """E3: `sart_variant_ref` on the card on `e3_route` (one
     launch a sweep on the resident route, two launches a step, one for
     NOUPD, on the streaming one); summed over `e3_bands` bands. Entries of
     order must lie in [0, Na): the plain version raises on others, the
@@ -317,7 +320,7 @@ def sart_variant(x, b, geom: Geometry, inv_row, inv_col_a, beta, order,
                                 mode, tables, e3_bands(n, nt))
     tabs = angle_tables(geom, x.device)
     resid = (torch.empty((nt, x.shape[-1]), dtype=F32, device=x.device)
-             if sart_route(n, nt) == "streaming" else None)
+             if e3_route(n, nt) == "streaming" else None)
     out = torch.empty_like(x)
     p = torch.Tensor.data_ptr
     _build.check(_build.lib().tj_exp_sart_sweep(
@@ -402,7 +405,7 @@ def resident_phases(x, b, geom: Geometry, inv_row, inv_col_a, beta, order,
               MODES):
         raise ValueError("resident_phases times the kernel: pass CUDA "
                          "tensors")
-    if sart_route(n, nt) != "resident":
+    if e3_route(n, nt) != "resident":
         raise ValueError(f"E3 streams at N {n}, Nt {nt}: no resident "
                          f"phases")
     blocks = BAND_BLOCKS * -(-ns // CLUSTER_SLICES)

@@ -3,9 +3,9 @@
     python -m tomojax_torch.experiments.sart_ablate [n] [ns] [--device cpu]
 
 The port of scripts/exp_sart_ablate.py (n = ns = 256, 90 angles over
-+-76 deg by default). Each of the script's variants is a mode of E3 (K8's
-route at this shape: K8's cluster-resident sweep up to N = 288, K8's two
-launches per angle above), named in its row:
++-76 deg by default). Each of the script's variants is a mode of E3
+(`csv.e3_route`: K8's cluster-resident sweep at (8, 4) up to N = 288, K8's
+two launches per angle above), named in its row:
 
   full, rot, phase   TAPS_F32  (rot and phase only restructure the TPU's
                                 chunk loop)
@@ -37,15 +37,17 @@ ABLATIONS = {"full": "TAPS_F32", "nohat": "NOHAT", "nofp": "NOFP",
 
 
 def run(n: int, ns: int, device, card: str, reps: int | None = None) -> dict:
-    from tomojax_torch.solvers.cuda_sart import sart_route
+    from tomojax_torch.experiments.cuda_sart_variants import e3_route
+    from tomojax_torch.solvers.cuda_sart import sart_shape
 
     reps = reps or (3 if device.type == "cuda" else 1)
     pb = Problems(n, ns, NA, device)
-    route = sart_route(n, pb.geom.nray)
+    route = e3_route(n, pb.geom.nray)
     k8 = sweep_of("K8", None, None)
     k8_ms = timing.batch_ms(lambda: pb.random_sweep(k8), reps, device)
-    print(f"device: {card}  {n}^2x{ns}; E3 and K8 on the {route} route, K8 "
-          f"{k8_ms:.3f} ms", flush=True)
+    print(f"device: {card}  {n}^2x{ns}; E3 on the {route} route, K8 on "
+          f"{sart_shape(n, pb.geom.nray) or 'streaming'} {k8_ms:.3f} ms",
+          flush=True)
     rows, ref = {}, None
     for name, mode in ABLATIONS.items():
         sweep = sweep_of("E3", mode, None)

@@ -5,10 +5,11 @@ resident sweep's cluster shapes, against the production K8.
 
 The port of scripts/exp_sart_pipeline.py (n = ns = 256, 90 angles over
 +-76 deg by default; also run at 512 128). Each of the script's TPU
-variants is a mode of E3 (K8's route at this shape: K8's cluster-resident
-sweep, 8 blocks a cluster and 4 slices a pixel, up to N = 288; K8's two
-launches per angle above) or E4 (the resident sweep at a cluster shape of
-(blocks, slices a pixel)), named in its row:
+variants is a mode of E3 (`csv.e3_route`: K8's cluster-resident sweep, 8
+blocks a cluster and 4 slices a pixel, up to N = 288; K8's two launches per
+angle above, where K8 itself runs (16, 2) up to N = 528) or E4 (the
+resident sweep at a cluster shape of (blocks, slices a pixel)), named in
+its row:
 
   dbuf, wv_f32           E3 TAPS_F32    (the TPU's pipelining of one step)
   wvmem, wv_rebuild,     E3 TAPS_BF16   (W, x and the residual in bf16)
@@ -120,13 +121,14 @@ class Problems:
 
 
 def run(n: int, ns: int, device, card: str, reps: int | None = None) -> dict:
-    from tomojax_torch.solvers.cuda_sart import sart_route
+    from tomojax_torch.solvers.cuda_sart import sart_shape
 
     reps = reps or (3 if device.type == "cuda" else 1)
     pb = Problems(n, ns, NA, device)
-    route = sart_route(n, pb.geom.nray)
-    print(f"device: {card}  {n}^2x{ns}, {NA} angles; K8 and E3 on the "
-          f"{route} route", flush=True)
+    route = csv.e3_route(n, pb.geom.nray)
+    k8_route = sart_shape(n, pb.geom.nray) or "streaming"
+    print(f"device: {card}  {n}^2x{ns}, {NA} angles; K8 on {k8_route}, E3 "
+          f"on the {route} route", flush=True)
     t0 = time.perf_counter()
     tables = csv.sart_tables(pb.geom, device)
     if device.type == "cuda":
@@ -141,7 +143,7 @@ def run(n: int, ns: int, device, card: str, reps: int | None = None) -> dict:
     ref = pb.random_sweep(base)
     k8_ms = timing.batch_ms(lambda: pb.random_sweep(base), reps, device)
     rows["base"] = {"ms": k8_ms, "rmse10": pb.rmse10(base)}
-    print(f"base          (K8 {route}): {k8_ms:8.3f} ms  "
+    print(f"base          (K8 {k8_route}): {k8_ms:8.3f} ms  "
           f"rmse@10={rows['base']['rmse10']:.5f} [{card}]", flush=True)
     for name, (kernel, mode, shape) in VARIANTS.items():
         launch = ""

@@ -16,20 +16,22 @@ is K1's and K2's one-angle plain bodies (``cuda_joseph.fp_angle_ref``,
 ``cuda_joseph.angle_tables``, so the plain version and the kernel pick
 the same taps.
 
-``csrc/sart.cu`` has two routes, chosen by the shape alone (`sart_route`,
-which ``tj_sart_route`` mirrors):
+``csrc/sart.cu`` has two routes, chosen by the shape alone (`sart_shape`,
+which ``tj_sart_route`` mirrors; `sart_route` names the route):
 
 * resident, where one block's share fits the card's shared memory
-  (`resident_smem_bytes` <= 227 KB: N <= 288 at Nt = N): one launch a
-  sweep. A thread-block cluster of `BAND_BLOCKS` blocks keeps
-  `CLUSTER_SLICES` slices of the volume in shared memory for the whole
-  sweep, block r the rows [r R, (r + 1) R), R = `band_rows` (N); per step
-  each block sums every ray's taps in its own rows (column-driven angles
-  over the steps of `column_steps`), the partials are added in block
-  order through distributed shared memory, and each block updates its rows
-  (``csrc/sart_resident.cuh``, which the experiment sweeps E3/E4 share);
-* streaming otherwise (N = 512 for one): two launches a step, the volume
-  in device memory.
+  (`resident_smem_bytes` <= 227 KB) at a cluster shape of `K8_SHAPES`,
+  the first that fits: (8, 4) for N <= 288 at Nt = N, (16, 2) for
+  289 <= N <= 528. One launch a sweep. A thread-block cluster of `blocks`
+  blocks keeps `slices` slices of the volume in shared memory for the whole
+  sweep, block r the rows [r R, (r + 1) R), R = `band_rows` (N, blocks);
+  per step each block sums every ray's taps in its own rows (column-driven
+  angles over the steps of `column_steps`), the partials are added in
+  block order through distributed shared memory, and each block updates
+  its rows (``csrc/sart_resident.cuh``, which the experiment sweeps E3/E4
+  share);
+* streaming otherwise (N above 528 at Nt = N): two launches a step, the
+  volume in device memory.
 
 Only the resident FP's sum order differs (the ray as band partials added
 in block order), so its result is within rounding of the plain version's,
@@ -56,12 +58,16 @@ from tomojax_torch.projector.cuda_joseph import (
 )
 
 F32 = torch.float32
-# the resident route's tiling (csrc/sart.cu R_BLOCKS, R_SLICES;
-# csrc/sart_resident.cuh RESIDENT_SMEM_MAX, STEP_SLACK, R_PAD): blocks of a
-# cluster, slices of a cluster, the shared memory of one block on an H100
-# (opt-in), the margin of the column-driven step range (2^-20 positions per
-# unit of 2N + Nt + 8), and the pixels after each band row
-BAND_BLOCKS, CLUSTER_SLICES = 8, 4
+# the resident route's cluster shapes (csrc/sart.cu R_SHAPES), (blocks a
+# cluster, slices a pixel) in the order the route tries them; the first is
+# also E3's (csrc/exp_sart.cu E_BLOCKS, E_SLICES) and the default of the
+# shape arguments below
+K8_SHAPES = ((8, 4), (16, 2))
+BAND_BLOCKS, CLUSTER_SLICES = K8_SHAPES[0]
+# csrc/sart_resident.cuh RESIDENT_SMEM_MAX, STEP_SLACK, R_PAD: the shared
+# memory of one block on an H100 (opt-in), the margin of the column-driven
+# step range (2^-20 positions per unit of 2N + Nt + 8), and the pixels
+# after each band row
 RESIDENT_SMEM_MAX = 232448
 STEP_SLACK = 2.0 ** -20
 BAND_PAD = 4
@@ -86,11 +92,25 @@ def resident_smem_bytes(n: int, nt: int, blocks: int = BAND_BLOCKS,
             + nt * (16 * sb + 4))
 
 
+def shape_fits(n: int, nt: int, blocks: int, sb: int) -> bool:
+    """Whether a block of the resident sweep with `blocks` blocks a cluster
+    and `sb` slices a pixel fits the card's shared memory at N, Nt
+    (csrc/sart_resident.cuh resident_fits)."""
+    return resident_smem_bytes(n, nt, blocks, sb) <= RESIDENT_SMEM_MAX
+
+
+def sart_shape(n: int, nt: int) -> tuple[int, int] | None:
+    """The cluster shape (blocks, slices) of `K8_SHAPES` that
+    ``tj_sart_sweep`` runs at this shape, the first that fits
+    (`shape_fits`), or None where none fits (the streaming route)."""
+    return next((shape for shape in K8_SHAPES if shape_fits(n, nt, *shape)),
+                None)
+
+
 def sart_route(n: int, nt: int) -> str:
-    """'resident' where `resident_smem_bytes` fits `RESIDENT_SMEM_MAX`,
-    else 'streaming': the route ``tj_sart_sweep`` takes at this shape."""
-    return ("resident" if resident_smem_bytes(n, nt) <= RESIDENT_SMEM_MAX
-            else "streaming")
+    """'resident' where `sart_shape` finds a shape, else 'streaming': the
+    route ``tj_sart_sweep`` takes at this shape."""
+    return "streaming" if sart_shape(n, nt) is None else "resident"
 
 
 def column_steps(u, shear: float, n: int, nt: int, r0: int, r1: int):
@@ -125,18 +145,28 @@ def column_steps(u, shear: float, n: int, nt: int, r0: int, r1: int):
     return k0.astype(np.int64), k1.astype(np.int64)
 
 
+def _resident_shape(n: int, nt: int) -> tuple[int, int]:
+    shape = sart_shape(n, nt)
+    if shape is None:
+        raise ValueError(f"K8 streams at N {n}, Nt {nt}: no resident launch")
+    return shape
+
+
 def resident_clusters(n: int, nt: int, ns: int) -> dict:
-    """The resident route's launch at this shape on the current card:
-    clusters (one per `CLUSTER_SLICES` slices), how many the card holds at
-    once (cudaOccupancyMaxActiveClusters), the waves that makes, and the
-    shared memory of a block."""
+    """The resident route's launch at this shape on the current card: its
+    cluster shape (`sart_shape`: blocks a cluster, slices a pixel), clusters
+    (one per `slices` slices), how many the card holds at once
+    (cudaOccupancyMaxActiveClusters), the waves that makes, and the shared
+    memory of a block. Raises where K8 streams."""
+    blocks, slices = _resident_shape(n, nt)
     active = ctypes.c_int(0)
     _build.check(_build.lib().tj_sart_active_clusters(
         n, nt, ns, ctypes.byref(active)), "tj_sart_active_clusters")
-    clusters = -(-ns // CLUSTER_SLICES)
-    return {"clusters": clusters, "active": active.value,
+    clusters = -(-ns // slices)
+    return {"blocks": blocks, "slices": slices, "clusters": clusters,
+            "active": active.value,
             "waves": -(-clusters // max(active.value, 1)),
-            "smem": resident_smem_bytes(n, nt)}
+            "smem": resident_smem_bytes(n, nt, blocks, slices)}
 
 
 def _checked_on_cpu(x, b, geom: Geometry, inv_row, inv_col_a, beta,
@@ -167,12 +197,14 @@ def resident_phases(x, b, geom: Geometry, inv_row, inv_col_a, beta,
     PROF instantiation; operands as `sart_sweep_sl`'s, on the card): for
     row- and column-driven steps, their count and the mean clock64 cycles
     a step of each of `PHASES` over the blocks (thread 0 of each; the FP
-    ends at a block barrier of its own). Counts in no launch count."""
+    ends at a block barrier of its own), at the cluster shape of
+    `sart_shape`. Raises where K8 streams. Counts in no launch count."""
     if _checked_on_cpu(x, b, geom, inv_row, inv_col_a, beta, order):
         raise ValueError("resident_phases times the kernel: pass CUDA "
                          "tensors")
     n, nt, na, ns = geom.n, geom.nray, geom.nproj, x.shape[-1]
-    blocks = BAND_BLOCKS * -(-ns // CLUSTER_SLICES)
+    per_cluster, slices = _resident_shape(n, nt)
+    blocks = per_cluster * -(-ns // slices)
     prof = torch.zeros((blocks, 2, len(PHASES) + 1), dtype=torch.int64,
                        device=x.device)
     tabs = angle_tables(geom, x.device)
