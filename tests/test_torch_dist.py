@@ -401,6 +401,30 @@ def test_sinogram_slabs_equal_the_host_reorders_slabs(problem, ranks, k):
                                           err_msg=f"{key} rank {r}")
 
 
+@pytest.mark.parametrize("k", WORLDS)
+def test_live_buffer_slabs_equal_the_host_layout(problem, ranks, k):
+    """Each rank's slab of the live reconstructor's buffer, its tilts'
+    slabs copied to the rank's device and reordered there, equals the slab
+    `pad_slices` and `shard_global` cut from the projections stacked and
+    transposed by numpy on the host, bit for bit, filled one tilt at a time
+    and in one batch; Ns 6 is padded to 8 at 4 ranks."""
+    from tomojax_torch.dist import SlabGroup, pad_slices, shard_global
+
+    got = ranks(k)
+    series = problem["tomo_series"]
+    host = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [series[:, :, i] for i in range(series.shape[2])]).transpose(
+            0, 2, 1)))
+    want = []
+    for r in range(k):
+        g = SlabGroup(rank=r, size=k, device=torch.device("cpu"))
+        want.append(shard_global(pad_slices(host, g, 2)[0], g, 2).numpy())
+    want = np.concatenate(want, axis=2)
+    for way in ("one", "batch"):
+        np.testing.assert_array_equal(got[f"live_buf_{way}"].view(np.uint32),
+                                      want.view(np.uint32), err_msg=way)
+
+
 def test_world_size_one_group_matches_unsharded_tomotorch(problem, ranks,
                                                          monkeypatch):
     """A group of one rank runs the sharded path (K9 plain versions, ring

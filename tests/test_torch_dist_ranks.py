@@ -159,6 +159,24 @@ def _sinograms(group, p: dict) -> dict:
             "sino_b_chem": _gather(ct.b_chem, group, 3)}
 
 
+def _live_buffer(group, p: dict) -> dict:
+    """The live reconstructor's measurement buffer filled from the Ns 6
+    series (padded to 8 at 4 ranks) one tilt at a time and in one batch:
+    each rank's slab, gathered in rank order."""
+    from tomojax_torch.stream import DynamicReconstructor
+
+    series, ang = p["tomo_series"], p["tomo_angles_deg"]
+    out = {}
+    for way, step in (("one", 1), ("batch", len(ang))):
+        rec = DynamicReconstructor(series.shape[1], len(ang), group=group)
+        for lo in range(0, len(ang), step):
+            rec.add_projections([(float(ang[i]), series[:, :, i])
+                                 for i in range(lo, lo + step)])
+            rec._fill()
+        out[f"live_buf_{way}"] = _gather(rec._buf[:len(ang)], group, 2)
+    return out
+
+
 def _stream(group, p: dict, work: str) -> dict:
     """The streaming reconstructor with a group: SIRT rounds at Ns 3 (padded to
     4) with a sharded checkpoint after each, resumed with and without the
@@ -354,6 +372,7 @@ def _compute(group, p: dict, work: str) -> dict:
     out.update(_solvers(group, p))
     out.update(_tomo(group, p))
     out.update(_sinograms(group, p))
+    out.update(_live_buffer(group, p))
     out.update(_fusion(group, p))
     if group.size == 2:  # the streaming cases run in the 2-rank spawn only
         os.makedirs(work, exist_ok=True)

@@ -156,11 +156,11 @@ def test_asd_pocs_job_span_tree_and_reads_per_iteration():
     for it in its:
         assert _names(kids[it.id]) == ["tv.descent", "solvers.read"]
         read = kids[it.id][1]
-        # dp, dd, dg, the dPOCS used and the TV value: five 0-dim reads
-        assert read.counts == {"reads": 5}
+        # dp, dd, dg, the dPOCS used and the TV value in one stacked read
+        assert read.counts == {"reads": 1}
     n_it = sum(s.name == "solvers.iteration" for s in spans)
     reads = sum(s.counts.get("reads", 0) for s in spans)
-    assert reads == 5 * n_it + 1  # and the volume
+    assert reads == n_it + 1  # and the volume
 
 
 def test_chemical_tomo_job_span_tree_and_reads_per_iteration():
@@ -194,8 +194,11 @@ def test_live_updates_span_tree_and_plan_builds_per_angle_set():
     _root_of(spans)
     kids = _children(spans)
     roots = kids[None]
-    assert _names(roots) == ["api.add_projections", "api.iterate_cs"] * NA
-    for r in roots[1::2]:
+    # the rounds, then get_recon's read of the volume
+    assert _names(roots) == (["api.add_projections", "api.iterate_cs"] * NA
+                             + ["api.d2h"])
+    assert roots[-1].counts == {"reads": 1}
+    for r in roots[1:-1:2]:
         assert _names(kids[r.id]) == (["api.system", "api.fill"]
                                       + ["solvers.iteration"] * LIVE_IT)
         assert kids[r.id][1].counts == {}  # the fill

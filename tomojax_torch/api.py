@@ -45,10 +45,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tomojax_torch import ops, profiling, viz
+from tomojax_torch import host, ops, profiling, viz
 from tomojax_torch import tv as tvmod
 from tomojax_torch.dist import (
-    SlabGroup, all_reduce_max, all_reduce_sum, gather_slabs, unpad_slices,
+    SlabGroup, all_reduce_max, all_reduce_sum, gather_slabs, slab,
+    unpad_slices,
 )
 from tomojax_torch.fusion import (
     data_fusion_run,
@@ -89,61 +90,11 @@ from tomojax_torch.tv import tv_fgp_4d
 # construction, "api.<method>" around a solver method or get_recon), and
 # inside it "api.h2d" (the series' copy to the device in the caller's
 # layout), "api.sinogram" (the layout change and normalisation on the
-# device), "api.system" (the projector's system and weights), "api.d2h" (a
-# copy of results to the host: a wait) and the solvers' "solvers.iteration"
-# / "solvers.read". "api.h2d" counts "series_host_copies": the series
-# numpy had to copy before the device copy.
-
-
-def _d2h(t: torch.Tensor) -> np.ndarray:
-    """`t` as host numpy: one read, in an "api.d2h" span (a wait for the
-    device's queue, then the copy)."""
-    with profiling.annotate("api.d2h"):
-        profiling.count("reads")
-        return t.cpu().numpy()
-
-
-def _device(device, owner: str) -> torch.device:
-    """torch.device(device), "cuda" when None; raises for CUDA where torch
-    finds none (no automatic move to the CPU)."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{owner}(device='cuda'): torch finds no CUDA device; pass "
-            f"device='cpu' to run the plain PyTorch versions")
-    return device
-
-
-def _host_series(a) -> np.ndarray:
-    """`a` as a C-contiguous float32 numpy array: `a` itself where it is
-    one, else a host copy, counted in "series_host_copies"."""
-    h = np.ascontiguousarray(a, np.float32)
-    if not (isinstance(a, np.ndarray) and np.may_share_memory(a, h)):
-        profiling.count("series_host_copies")
-    return h
-
-
-def _series_to_device(series: list, shape: tuple, device: torch.device,
-                      group: SlabGroup | None) -> torch.Tensor:
-    """The host series (each C-contiguous float32 of `shape`, slices on
-    axis 0) stacked on `device` in that layout: (len(series), *shape).
-    With a group, only this rank's slab of the slices crosses: the slice
-    axis padded with zero slices to a multiple of the group size and cut
-    into one contiguous block per rank, as `pad_slices` and `shard_global`
-    cut it."""
-    ns = shape[0]
-    lo, n = 0, ns
-    if group is not None:
-        n = -(-ns // group.size)
-        lo = min(group.rank * n, ns)
-    real = min(lo + n, ns) - lo
-    out = torch.empty((len(series), n, *shape[1:]), dtype=torch.float32,
-                      device=device)
-    for o, h in zip(out, series):
-        o[:real].copy_(torch.from_numpy(h[lo:lo + real]))
-    if real < n:
-        out[:, real:].zero_()
-    return out
+# device), "api.system" (the projector's system and weights), the
+# solvers' "solvers.iteration", and the spans of the reads, which `host`
+# opens (`host.to_host`, `host.read_scalars`). "api.h2d" counts
+# "series_host_copies": the series numpy had to copy before the device
+# copy.
 
 
 class TomoTorch:
@@ -155,12 +106,8 @@ class TomoTorch:
                  group: SlabGroup | None = None):
         """device: default "cuda". group: run slab-sharded over its ranks,
         on the group's device (then pass no device)."""
-        if group is not None and device is not None:
-            raise ValueError("pass a device or a group, not both: a group's "
-                             "tensors live on group.device")
         self.group = group
-        self.device = _device(device if group is None else group.device,
-                              "TomoTorch")
+        self.device = host.device(device, group, "TomoTorch")
         self.tilt_angles = np.asarray(tilt_angles_deg, np.float64)
         self.recon = None
         self.cost = None
@@ -174,14 +121,14 @@ class TomoTorch:
     def set_tilt_series(self, tilt_series):
         """(Nslice, Nray, Nangles), tilt axis on dim 0."""
         with profiling.annotate("api.h2d"):
-            ts = _host_series(tilt_series)
+            ts = host.host_series(tilt_series)
             if ts.ndim != 3 or ts.shape[2] != len(self.tilt_angles):
                 raise ValueError(
                     f"tilt series {ts.shape} must be (Nslice, Nray, "
                     f"Nangles) with Nangles = {len(self.tilt_angles)}")
             self.Nslice, self.Nray, self.Nangles = ts.shape
-            series = _series_to_device([ts], ts.shape, self.device,
-                                       self.group)[0]
+            series = host.series_to_device([ts], ts.shape, self.device,
+                                           self.group)[0]
         # slice-last sinogram (Nangles, Nray, Nslice), or this rank's slab
         # of it after padding to a multiple of the group size
         with profiling.annotate("api.sinogram"):
@@ -241,7 +188,7 @@ class TomoTorch:
                                    Niter, nTViter, momentum, compat,
                                    compute_metrics=show_convergence,
                                    group=self.group)
-        self.cost = _d2h(metrics[:, 0])
+        self.cost = host.to_host(metrics[:, 0])
         self.x = from_sl(st.x)
         return self
 
@@ -264,7 +211,7 @@ class TomoTorch:
             if show_convergence:
                 dds.append(data_distance_sl(x, self.b_sl, self.sys,
                                             self.group))
-        self.cost = (_d2h(torch.stack(dds)) if dds
+        self.cost = (host.to_host(torch.stack(dds)) if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
         return self
@@ -290,7 +237,7 @@ class TomoTorch:
             if show_convergence:
                 dds.append(data_distance_sl(x, self.b_sl, self.sys,
                                             self.group))
-        self.cost = (_d2h(torch.stack(dds)) if dds
+        self.cost = (host.to_host(torch.stack(dds)) if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
         return self
@@ -305,9 +252,7 @@ class TomoTorch:
                                         Niter), 0.0)
         if show_convergence:
             dd = data_distance_sl(x, self.b_sl, self.sys, self.group)
-            with profiling.annotate("api.d2h"):
-                profiling.count("reads")
-                self.cost = np.asarray([float(dd)])
+            self.cost = np.asarray([float(host.to_host(dd))])
         self.x = from_sl(x)
         return self
 
@@ -329,7 +274,7 @@ class TomoTorch:
             if show_convergence:
                 dds.append(data_distance_sl(x, self.b_sl, self.sys,
                                             self.group))
-        self.cost = (_d2h(torch.stack(dds)) if dds
+        self.cost = (host.to_host(torch.stack(dds)) if dds
                      else np.zeros(Niter, np.float32))
         self.x = from_sl(x)
         return self
@@ -347,9 +292,7 @@ class TomoTorch:
         bmax = torch.max(self.b_sl)
         if self.group is not None:
             all_reduce_max(bmax, self.group)
-        with profiling.annotate("api.d2h"):
-            profiling.count("reads")
-            bmax = float(bmax)
+        bmax = float(host.to_host(bmax))
         b_kl = self.b_sl / bmax if bmax > 0 else self.b_sl
         x = to_sl(self.x)
         costs = []
@@ -360,7 +303,7 @@ class TomoTorch:
             cost = torch.stack(costs)
             if self.group is not None:
                 all_reduce_sum(cost, self.group)
-            self.cost = _d2h(cost)
+            self.cost = host.to_host(cost)
         else:
             self.cost = np.zeros(Niter, np.float32)
         self.x = from_sl(x * bmax if bmax > 0 else x)
@@ -388,8 +331,8 @@ class TomoTorch:
                 params, self._orders(init, Niter), self.group)
         if fused:
             x, dd_vec, tv_vec = asd_pocs_run(*args)
-            self.dd_vec = _d2h(dd_vec)
-            self.tv_vec = _d2h(tv_vec)
+            self.dd_vec = host.to_host(dd_vec)
+            self.tv_vec = host.to_host(tv_vec)
         else:
             x, self.dd_vec, self.tv_vec, _ = asd_pocs_host_loop(*args)
         self.cost = self.dd_vec
@@ -398,19 +341,15 @@ class TomoTorch:
 
     def data_distance(self) -> float:
         """||A x - b|| of the current reconstruction (K1)."""
-        dd = data_distance_sl(to_sl(self.x), self.b_sl, self.sys, self.group)
-        profiling.count("reads")
-        return float(dd)
+        return float(host.to_host(data_distance_sl(to_sl(self.x), self.b_sl,
+                                                   self.sys, self.group)))
 
     def tv(self) -> float:
         """Periodic isotropic TV of the current reconstruction (K5)."""
-        tv = tvmod.tv(to_sl(self.x), self.group)
-        profiling.count("reads")
-        return float(tv)
+        return float(host.to_host(tvmod.tv(to_sl(self.x), self.group)))
 
     def lipschitz(self) -> float:
-        profiling.count("reads")
-        return float(self.sys.lipschitz)
+        return float(host.to_host(self.sys.lipschitz))
 
     def _whole(self, a: torch.Tensor, axis: int) -> torch.Tensor:
         """`a`, sliced on `axis`, as the whole array without the padding:
@@ -425,20 +364,20 @@ class TomoTorch:
         """The reconstruction, (Nslice, Nray, Nray) float32 numpy; with a
         group the gathered slabs without the padding, on every rank."""
         if self.recon is None:
-            self.recon = _d2h(self._whole(self.x, 0))
+            self.recon = host.to_host(self._whole(self.x, 0))
         return self.recon
 
     def get_projections(self) -> np.ndarray:
         """The measured sinogram (Nslice, Nangles, Nray) (the reference's
         sinogram layout, not the tilt series'); a collective with a
         group."""
-        return _d2h(from_sl(self._whole(self.b_sl, 2)))
+        return host.to_host(from_sl(self._whole(self.b_sl, 2)))
 
     def get_model_projections(self) -> np.ndarray:
         """A x of the current reconstruction (K1), (Nslice, Nangles, Nray);
         a collective with a group."""
-        return _d2h(from_sl(self._whole(fp_sl(to_sl(self.x), self.geom),
-                                        2)))
+        ax = fp_sl(to_sl(self.x), self.geom)
+        return host.to_host(from_sl(self._whole(ax, 2)))
 
     def plot_convergence(self, path: str | None = None):
         """Scatter of ``self.cost`` against the iteration (`viz`); saved to
@@ -495,8 +434,7 @@ class Simulator(TomoTorch):
             self.original = np.where(self.original == 0, np.float32(1.0),
                                      self.original).astype(np.float32)
         n = self.original.shape[1]
-        dev = _device(device if group is None else group.device,
-                      "Simulator")
+        dev = host.device(device, group, "Simulator")
         geom = Geometry.make(n, np.deg2rad(np.asarray(tilt_angles,
                                                       np.float64)))
         self._truth = torch.from_numpy(self.original).to(dev)
@@ -510,16 +448,11 @@ class Simulator(TomoTorch):
         `original` (with a group over all ranks' real slices, an
         all-reduce)."""
         if self.group is None:
-            err = ops.rmse(self.x, self._truth)
-            profiling.count("reads")
-            return float(err)
-        n_loc = self.x.shape[0]
-        lo = self.group.rank * n_loc
-        hi = min(lo + n_loc, self.Nslice)
-        d = self.x[:max(hi - lo, 0)] - self._truth[lo:hi]
+            return float(host.to_host(ops.rmse(self.x, self._truth)))
+        s = slab(self.Nslice, self.group)
+        d = self.x[:s.real] - self._truth[s.lo:s.lo + s.real]
         sq = all_reduce_sum(torch.sum(d * d), self.group)
-        profiling.count("reads")
-        return float(torch.sqrt(sq / self._truth.numel()))
+        return float(host.to_host(torch.sqrt(sq / self._truth.numel())))
 
 
 class ChemicalTomo:
@@ -547,19 +480,16 @@ class ChemicalTomo:
     def __init__(self, haadf, haadfTiltAngles, chem: dict, chemTiltAngles,
                  gamma: float = 1.6, sigmaMethod: int = 3, device=None,
                  group: SlabGroup | None = None):
-        if group is not None and device is not None:
-            raise ValueError("pass a device or a group, not both: a group's "
-                             "tensors live on group.device")
         self.group = group
-        self.device = _device(device if group is None else group.device,
-                              "ChemicalTomo")
+        self.device = host.device(device, group, "ChemicalTomo")
         with profiling.annotate("api.h2d"):
-            haadf = _host_series(haadf)
+            haadf = host.host_series(haadf)
             if haadf.ndim != 3 or haadf.shape[2] != len(haadfTiltAngles):
                 raise ValueError(f"haadf {haadf.shape} must be (Nslice, "
                                  f"Nray, NaH) with NaH = "
                                  f"{len(haadfTiltAngles)}")
-            h = _series_to_device([haadf], haadf.shape, self.device, group)
+            h = host.series_to_device([haadf], haadf.shape, self.device,
+                                      group)
         self.nx, self.ny, _ = haadf.shape
         self.elements = list(chem)
         self.nel = len(self.elements)
@@ -569,11 +499,11 @@ class ChemicalTomo:
         with profiling.annotate("api.h2d"):
             maps = []
             for el in self.elements:
-                maps.append(_host_series(chem[el]))
+                maps.append(host.host_series(chem[el]))
                 if maps[-1].shape != want:
                     raise ValueError(
                         f"chem[{el!r}] {maps[-1].shape}, expected {want}")
-            c = _series_to_device(maps, want, self.device, group)
+            c = host.series_to_device(maps, want, self.device, group)
         # clamped to >= 0, each series over its maximum (over every slab:
         # one all-reduce with a group), then slice-last
         with profiling.annotate("api.sinogram"):
@@ -616,7 +546,7 @@ class ChemicalTomo:
                                                self.fsys, lambdaCHEM,
                                                self.group)
             costs.append(c)
-        self.costCHEM = (_d2h(torch.stack(costs)) if costs
+        self.costCHEM = (host.to_host(torch.stack(costs)) if costs
                          else np.zeros(Niter, np.float32))
         self.chemistry_reconstructed = True
         self.reconTotal = None
@@ -655,7 +585,7 @@ class ChemicalTomo:
                 lambdaCHEM, Niter, iterSIRT, tvIter, lambdaTV,
                 self.reduceLambda, normalize_haadf, method, sart_w,
                 self.group)
-            m = _d2h(metrics)
+            m = host.to_host(metrics)
         else:
             m = np.zeros((Niter, 3), np.float32)
             lam_chem = lambdaCHEM
@@ -667,10 +597,7 @@ class ChemicalTomo:
                         method, sart_w, self.group)
                     self.x, tv0 = tv_fgp_4d(self.x, tvIter, lambdaTV,
                                             group=self.group)
-                    with profiling.annotate("solvers.read"):
-                        costs = torch.stack([ch, cc, tv0])
-                        profiling.count("reads")
-                        m[i] = costs.cpu().numpy()
+                    m[i] = host.read_scalars(ch, cc, tv0)
                     if (self.reduceLambda and i > 0
                             and m[i, 0] > m[i - 1, 0]):
                         lam_chem *= 0.95
@@ -690,7 +617,7 @@ class ChemicalTomo:
         truth; a collective with a group."""
         gt = torch.as_tensor(np.asarray(ground_truth, np.float32),
                              device=self.device)
-        return _d2h(ops.rmse_per_element(from_sl(self._whole()), gt))
+        return host.to_host(ops.rmse_per_element(from_sl(self._whole()), gt))
 
     @profiling.spanned("api.get_recon")
     def get_recon(self) -> np.ndarray:
@@ -698,7 +625,7 @@ class ChemicalTomo:
         (reconstructor.py:238-249); with a group the gathered slabs without
         the padding, on every rank."""
         if self.reconTotal is None:
-            self.reconTotal = _d2h(from_sl(self._whole()))
+            self.reconTotal = host.to_host(from_sl(self._whole()))
         return self.reconTotal
 
     def display_recon(self, path: str | None = None):

@@ -5,8 +5,8 @@ The volume is split on its slice axis into one contiguous slab per rank,
 as the reference's MPI ranks split it (mpi_astra_ctvlib.cpp:53-64) and
 as ``tomojax`` shards it over a 1-D ``'z'`` mesh. Rank r of a group of
 size R holds slices ``[r n_loc, (r + 1) n_loc)`` of the volume padded to
-a multiple of R. The port keeps every slab slice-last, so a rank's volume
-is (N, N, n_loc) and its sinogram (Na, Nt, n_loc):
+a multiple of R (`slab`). The port keeps every slab slice-last, so a
+rank's volume is (N, N, n_loc) and its sinogram (Na, Nt, n_loc):
 
 * the data term (FP, BP, the SART sweep) treats slices as a batch and runs
   on each slab unchanged;
@@ -26,6 +26,7 @@ branch only on all-reduced values, which every rank reads alike.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -72,6 +73,22 @@ def init_distributed(init_method: str, world_size: int, rank: int,
     return SlabGroup(dist.get_rank(), dist.get_world_size(), device)
 
 
+Slab = NamedTuple("Slab", [("lo", int), ("n", int), ("real", int)])
+
+
+def slab(ns: int, group: SlabGroup | None) -> Slab:
+    """This rank's slab of `ns` slices: the axis padded with zero slices at
+    the high end to a multiple of the group size and cut into one
+    contiguous block per rank, in rank order (without a group, the whole
+    axis). Its first slice `lo`, its length `n` and its `real` slices,
+    the first of the block, below `ns` (the rest are padding)."""
+    if group is None:
+        return Slab(0, ns, ns)
+    n = -(-ns // group.size)
+    lo = group.rank * n
+    return Slab(lo, n, max(0, min(n, ns - lo)))
+
+
 def pad_slices(x: torch.Tensor, group: SlabGroup, axis: int = 0):
     """Zero slices at the high end of `axis` up to a multiple of the group
     size (``tomojax.dist.pad_slices``). Returns (padded, original count).
@@ -79,7 +96,7 @@ def pad_slices(x: torch.Tensor, group: SlabGroup, axis: int = 0):
     The periodic TV wrap then couples the last real slice to a zero slice
     instead of slice 0; see ``TomoTorch``."""
     ns = x.shape[axis]
-    pad = (-ns) % group.size
+    pad = slab(ns, group).n * group.size - ns
     if pad:
         shape = list(x.shape)
         shape[axis] = pad
@@ -101,9 +118,9 @@ def shard_global(x, group: SlabGroup, axis: int = 0) -> torch.Tensor:
     if n % group.size:
         raise ValueError(f"axis {axis} of length {n} does not divide into "
                          f"{group.size} slabs; pad_slices first")
-    n_loc = n // group.size
-    slab = torch.narrow(x, axis, group.rank * n_loc, n_loc)
-    return slab.to(device=group.device, dtype=torch.float32).contiguous()
+    s = slab(n, group)
+    part = torch.narrow(x, axis, s.lo, s.n)
+    return part.to(device=group.device, dtype=torch.float32).contiguous()
 
 
 def gather_slabs(x: torch.Tensor, group: SlabGroup,

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tomojax_torch.dist import slab
+
 
 # ------------------------------------------------------------ loaders -----
 
@@ -184,7 +186,7 @@ def load_sharded(directory: str, group=None,
     with open(os.path.join(directory, _MANIFEST)) as f:
         meta = json.load(f)
     saved, axis = meta["world_size"], meta["axis"]
-    rank, size = (0, 1) if group is None else (group.rank, group.size)
+    size = 1 if group is None else group.size
     device = torch.device("cpu") if group is None else group.device
     files = {}
 
@@ -201,7 +203,8 @@ def load_sharded(directory: str, group=None,
         if n % size:
             raise ValueError(f"{name}: a slab axis of {n} does not divide "
                              f"into {size} slabs")
-        lo, hi = rank * (n // size), (rank + 1) * (n // size)
+        s = slab(n, group)
+        lo, hi = s.lo, s.lo + s.n
         end = min(hi, total)  # [lo, end) comes from the files
         s_loc = total // saved
         parts = []

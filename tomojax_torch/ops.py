@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tomojax_torch.dist import all_reduce_sum
+from tomojax_torch.dist import all_reduce_sum, slab
 
 
 def positivity(x: torch.Tensor) -> torch.Tensor:
@@ -142,4 +142,4 @@ def poisson_noise(b: torch.Tensor, n_counts: int, seed: int = 0,
         return b
     return poisson_noise_slab(b, n_counts, seed, total,
                               b.numel() * group.size,
-                              group.rank * b.shape[2])
+                              slab(b.shape[2] * group.size, group).lo)

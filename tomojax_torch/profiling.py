@@ -28,8 +28,8 @@ throughput (counterpart of ``tomojax/profiling.py``), on
 
 The port opens spans at its layer boundaries only (``api.*``,
 ``solvers.*``, ``tv.*``), never one per kernel launch. It counts
-``reads`` (each blocking device-to-host read the api, solvers, stream and
-fusion code make, counted where the code reads, whatever the device) and
+``reads`` (each blocking device-to-host read the api, solvers and stream
+code make, whatever the device: all go through ``tomojax_torch.host``) and
 ``plan_builds`` (the bodies of the cached per-geometry tables of
 ``projector.cuda_joseph``, which run only on a miss).
 """
@@ -222,7 +222,7 @@ class IterationMeter:
 
     @property
     def mean_s(self) -> float:
-        # skip the first lap (compile)
+        # the first lap is dropped to match tomojax/profiling.py:62
         laps = self.times[1:] if len(self.times) > 1 else self.times
         return sum(laps) / max(len(laps), 1)
 

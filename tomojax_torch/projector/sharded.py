@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from tomojax_torch.dist import SlabGroup
+from tomojax_torch.dist import SlabGroup, slab
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.projector.joseph import bp, fp
 
@@ -22,7 +22,7 @@ def _check_slab(t: torch.Tensor, group: SlabGroup, tail: tuple,
                 nslice: int | None, name: str) -> None:
     """Raise unless `t` is a (n_loc, *tail) slab on the group's device,
     with n_loc = ceil(nslice / group.size) where `nslice` is given."""
-    n_loc = None if nslice is None else -(-nslice // group.size)
+    n_loc = None if nslice is None else slab(nslice, group).n
     if (t.device != group.device or t.dim() != 3
             or tuple(t.shape[1:]) != tail
             or (n_loc is not None and t.shape[0] != n_loc)):

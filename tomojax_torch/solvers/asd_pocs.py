@@ -33,6 +33,7 @@ import torch
 
 from tomojax_torch import profiling
 from tomojax_torch.dist import SlabGroup, all_reduce_sum
+from tomojax_torch.host import read_scalars
 from tomojax_torch.projector.cuda_joseph import fp_resid_sl
 from tomojax_torch.solvers.base import System
 from tomojax_torch.solvers.cuda_sart import sart_sweep_sl
@@ -114,7 +115,7 @@ def asd_pocs_host_loop(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
                        group: SlabGroup | None = None):
     """`params.niter` iterations, adapting beta and dpocs in Python after
     reading dp, dd and dg back from every iteration (the reference's
-    driver loop).
+    driver loop): the five scalars in one host read an iteration.
 
     orders: as for `asd_pocs_run`. Returns (x, dd_vec, tv_vec, dpocs_vec),
     the vectors (niter,) float32 numpy arrays; dpocs_vec holds the value
@@ -129,11 +130,8 @@ def asd_pocs_host_loop(x: torch.Tensor, b_sl: torch.Tensor, sys: System,
                 x, b_sl, sys, inv_col_a, beta, dpocs,
                 orders[it].contiguous(), p.ng, it == 0, p.alpha, group)
             beta *= p.beta_red
-            with profiling.annotate("solvers.read"):
-                profiling.count("reads", 5)
-                dp, dd, dg = float(dp), float(dd), float(dg)
-                dpocs = float(dpocs_used)
-                out[:, it] = dd, float(tv0), dpocs
+            dp, dd, dg, dpocs, tv0 = read_scalars(dp, dd, dg, dpocs_used, tv0)
+            out[:, it] = dd, tv0, dpocs
             if dg > p.r_max * dp and dd > p.eps:
                 dpocs *= p.alpha_red
     return x, out[0], out[1], out[2]

@@ -48,12 +48,10 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tomojax_torch import dm, profiling
+from tomojax_torch import dm, host, profiling
 from tomojax_torch import io as tio
-from tomojax_torch.api import _device
 from tomojax_torch.dist import (
-    SlabGroup, all_reduce_sum, gather_slabs, pad_slices, process_zero_value,
-    shard_global,
+    SlabGroup, all_reduce_sum, gather_slabs, process_zero_value, slab,
 )
 from tomojax_torch.geometry import Geometry
 from tomojax_torch.projector.cuda_joseph import bp_sirt_sl, fp_resid_sl
@@ -391,11 +389,7 @@ class DynamicReconstructor:
         device=None,
         group: SlabGroup | None = None,
     ):
-        if group is not None and device is not None:
-            raise ValueError("pass a device or a group, not both: a group's "
-                             "tensors live on group.device")
-        self.device = _device(device if group is None else group.device,
-                              "DynamicReconstructor")
+        self.device = host.device(device, group, "DynamicReconstructor")
         self.nray = nray
         self.max_angles = max_angles
         self.angle_bucket = angle_bucket
@@ -421,7 +415,7 @@ class DynamicReconstructor:
     def add_projections(self, new: Sequence[Tuple[float, np.ndarray]]):
         for ang, img in new:
             self.angles.append(float(ang))
-            self.projections.append(np.asarray(img, np.float32))
+            self.projections.append(host.host_series(img))
 
     def _bucketed(self) -> int:
         """Buffer capacity, the angle count rounded up to the bucket size.
@@ -462,39 +456,33 @@ class DynamicReconstructor:
 
     def _fill(self):
         """Copy the projections that arrived since the last round into the
-        buffer, once each; reallocate it (moving the filled rows on the
-        device) when the bucketed capacity grows, and from scratch when
-        the projections' shape changes."""
+        buffer, once each (this rank's slab of their slices, reordered to
+        slice-last on the device); reallocate the buffer (moving the
+        filled rows on the device) when the bucketed capacity grows, and
+        from scratch when the projections' shape changes."""
         ns, nt = self.projections[0].shape
-        n_loc = -(-ns // self._size())  # slices a slab, padded
+        s = slab(ns, self.group)
         cap = self._bucketed()
         if (self._buf is None or self._ns_orig != ns
-                or self._buf.shape[1:] != (nt, n_loc)):
-            self._buf = torch.empty((cap, nt, n_loc), dtype=F32,
+                or self._buf.shape[1:] != (nt, s.n)):
+            self._buf = torch.empty((cap, nt, s.n), dtype=F32,
                                     device=self.device)
             self._filled = 0
             self._ns_orig = ns
             if self.group is not None:
-                lo = self.group.rank * n_loc
-                real = torch.arange(lo, lo + n_loc, device=self.device) < ns
-                self._slice_mask = real.to(F32).reshape(1, 1, n_loc)
+                real = torch.arange(s.n, device=self.device) < s.real
+                self._slice_mask = real.to(F32).reshape(1, 1, s.n)
         elif self._buf.shape[0] < cap:
-            grown = torch.empty((cap, nt, n_loc), dtype=F32,
+            grown = torch.empty((cap, nt, s.n), dtype=F32,
                                 device=self.device)
             grown[:self._filled] = self._buf[:self._filled]
             self._buf = grown
         n = len(self.angles)
         if n > self._filled:
-            rows = torch.from_numpy(np.ascontiguousarray(np.stack(
-                self.projections[self._filled:n]).transpose(0, 2, 1)))
-            if self.group is not None:
-                rows = shard_global(pad_slices(rows, self.group, 2)[0],
-                                    self.group, 2)
-            self._buf[self._filled:n].copy_(rows)
+            rows = host.series_to_device(self.projections[self._filled:n],
+                                         (ns, nt), self.device, self.group)
+            self._buf[self._filled:n].copy_(rows.transpose(1, 2))
             self._filled = n
-
-    def _size(self) -> int:
-        return 1 if self.group is None else self.group.size
 
     def _volume(self):
         """Zero volume where there is none of the buffer's slab shape."""
@@ -521,9 +509,7 @@ class DynamicReconstructor:
         x = (self._x if self.group is None
              else gather_slabs(self._x, self.group, 2))
         ns = self._ns_orig or x.shape[2]
-        x = from_sl(x[:, :, :ns])
-        profiling.count("reads")
-        return x.cpu().numpy()
+        return host.to_host(from_sl(x[:, :, :ns]))
 
     # ---------------------------------------------------------- solve --
 
@@ -550,10 +536,7 @@ class DynamicReconstructor:
                                                    sysd.inv_row, self._zero)
         dd = 0.0
         if n_iter:
-            dd_t = torch.sqrt(self._global_sum(ddsq)[0])
-            with profiling.annotate("solvers.read"):
-                profiling.count("reads")
-                dd = float(dd_t)
+            dd, = host.read_scalars(torch.sqrt(self._global_sum(ddsq)[0]))
         self.dd_history.append(dd)
         return dd
 
@@ -615,11 +598,8 @@ class DynamicReconstructor:
                     x = x * self._slice_mask  # the pad slices stay 0
                 dd_dg = torch.sqrt(self._global_sum(ddsq,
                                                     torch.sum((x - x1) ** 2)))
-                with profiling.annotate("solvers.read"):
-                    profiling.count("reads")
-                    scal = torch.stack([dp, dd_dg[0], dd_dg[1],
-                                        dpocs_t]).cpu()
-                dp, dd, dg, dpocs = (float(v) for v in scal)
+                dp, dd, dg, dpocs = host.read_scalars(dp, dd_dg[0], dd_dg[1],
+                                                      dpocs_t)
                 if dg > r_max * dp and dd > eps:
                     dpocs *= alpha_red
         self._x = x
@@ -641,8 +621,7 @@ class DynamicReconstructor:
         hist = {"dd": np.asarray(self.dd_history, np.float32)}
         meta = {"n_angles": len(self.angles)}
         if self.group is None:
-            profiling.count("reads")
-            tio.save_checkpoint(self.checkpoint_path, self.x.cpu().numpy(),
+            tio.save_checkpoint(self.checkpoint_path, host.to_host(self.x),
                                 hist, meta)
             return
         x = self.x
@@ -680,15 +659,13 @@ class DynamicReconstructor:
                 "DynamicReconstructor to restore it")
         if self.group is not None and "sharded_shape" in meta:
             ns = int(meta.get("ns_orig", meta["sharded_shape"][0]))
-            self.x = tio.load_sharded(self.checkpoint_path + ".shards",
-                                      self.group,
-                                      ns + (-ns) % self.group.size)["x"]
+            self.x = tio.load_sharded(
+                self.checkpoint_path + ".shards", self.group,
+                slab(ns, self.group).n * self.group.size)["x"]
             self._ns_orig = ns
         elif recon is not None:
-            x = torch.from_numpy(recon)
-            if self.group is not None:
-                x = shard_global(pad_slices(x, self.group)[0], self.group)
-            self.x = x
+            self.x = host.series_to_device([recon], recon.shape, self.device,
+                                           self.group)[0]
             self._ns_orig = recon.shape[0]
         return True
 
