@@ -210,6 +210,15 @@ instantiation angle-major and random, and the variants and phases where
 the tree has them) and prints A1's registers and spills from the build,
 in the same way beside another tree.
 
+    python3 chip_smoke.py --d2h-times
+
+times only `host.to_host` of a float32 CUDA volume of 2^26 and 2^27 B
+(the job cells' results), host clock around each blocking call: the
+pageable copy (`t.cpu().numpy()`), the pinned route with a fresh
+`cudaHostAlloc` (each result kept) and with a block from torch's host
+cache (each result dropped), with the tomojax_torch package beside the
+file.
+
     python3 chip_smoke.py --gap-study
 
 runs only phase 4c's gap study (`_sharded_gap_study`) on the 256^3 x 90
@@ -3830,6 +3839,53 @@ def sart_times_main() -> int:
     return 0
 
 
+def d2h_times_main(reps: int = 10) -> int:
+    """`--d2h-times`: ms of one read of a result volume to the host at 2^26
+    and 2^27 B, the median of `reps` blocking calls on the host clock:
+    the pageable copy, then `host.to_host` keeping every result (each
+    read a `cudaHostAlloc`: the cache has no free block of the size),
+    then `host.to_host` dropping each result before the next (each read
+    a block from the cache); every result equal to the pageable copy."""
+    from tomojax_torch import host
+
+    card = phase_device()
+    dev = torch.device("cuda")
+    times = {}
+    for shape in ((256, 256, 256), (128, 512, 512)):
+        t = torch.rand(shape, device=dev)
+        want = t.cpu().numpy()
+
+        def timed(read, kept: list | None = None):
+            ms = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = read()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                require(np.array_equal(a, want), "to_host changed a value")
+                if kept is not None:
+                    kept.append(a)
+                del a
+            return statistics.median(ms), ms
+
+        kept = []
+        row = {"pageable": timed(lambda: t.cpu().numpy()),
+               "pinned_alloc": timed(lambda: host.to_host(t), kept)}
+        pinned = torch.from_numpy(kept[0]).is_pinned()
+        kept.clear()
+        row["pinned_cached"] = timed(lambda: host.to_host(t))
+        nbytes = t.numel() * t.element_size()
+        for name, (med, ms) in row.items():
+            print(f"to_host {nbytes} B {name}: {med:.4f} ms median of "
+                  f"{reps} ({nbytes / med / 1e6:.2f} GB/s); each "
+                  f"{[round(m, 4) for m in ms]} [{card}]")
+        times[str(nbytes)] = {k: v[0] for k, v in row.items()}
+        times[str(nbytes)]["result_pinned"] = pinned
+        del t, want
+    print(json.dumps({"d2h_ms": times, "tree": str(ROOT)}))
+    return 0
+
+
 def gap_study_main() -> int:
     """`--gap-study`: only `_sharded_gap_study` on phase 4c's ASD-POCS
     problem (256^3 x 90, defaults), with 16 profiled windows each way."""
@@ -3874,6 +3930,8 @@ def main() -> int:
         return art_times_main()
     if sys.argv[1:] == ["--sart-times"]:
         return sart_times_main()
+    if sys.argv[1:] == ["--d2h-times"]:
+        return d2h_times_main()
     try:
         card = phase_device()
         phase_build()

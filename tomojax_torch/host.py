@@ -1,7 +1,8 @@
 """The port's host boundary: the device a reconstructor is built on, the
 series' copy to it (with a group, only this rank's slab crosses) and the
 only reads of a value back to the host (`to_host`, `read_scalars`), each
-in its span and counted as one ``reads``."""
+in its span and counted as one ``reads``; a result's read lands in
+pinned memory (`to_host`)."""
 
 from __future__ import annotations
 
@@ -54,11 +55,30 @@ def series_to_device(series: list, shape: tuple, device: torch.device,
     return out
 
 
+PINNED_MIN_BYTES = 1 << 20  # a CUDA read this large lands in pinned memory
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """`t` as host numpy: one read, in an "api.d2h" span (a wait for the
-    device's queue, then the copy)."""
+    """`t` as host numpy, with the shape, dtype, strides and values that
+    ``t.cpu().numpy()`` gives: one read, in an "api.d2h" span (a wait for
+    the device's queue, then the copy).
+
+    A CUDA tensor of at least `PINNED_MIN_BYTES` (a result volume or
+    sinogram) is copied into page-locked memory from torch's process-wide
+    host cache, at the link's speed, and counted in "d2h_pinned". The
+    returned array owns that block: it goes back to the cache only when
+    the caller drops the array's last reference, and a later read reuses
+    it. The cache rounds a block up to a power of two and keeps the
+    page-locked memory for the process's life, so a caller who keeps k
+    results holds about k such blocks (up to twice their bytes).
+    Smaller reads (costs, single values) are bound by latency and stay on
+    ``t.cpu()``'s pageable route."""
     with profiling.annotate("api.d2h"):
         profiling.count("reads")
+        if t.is_cuda and t.numel() * t.element_size() >= PINNED_MIN_BYTES:
+            profiling.count("d2h_pinned")
+            out = torch.empty_like(t, device="cpu", pin_memory=True)
+            return out.copy_(t).numpy()
         return t.cpu().numpy()
 
 
