@@ -29,7 +29,10 @@ only when its tensors lie on the CPU; on CUDA tensors it launches the
 kernel or raises. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``. The cached `angle_tables` and K1's plan count each
 build (a cache miss) as ``plan_builds`` in the innermost open span of
-``tomojax_torch.profiling``.
+``tomojax_torch.profiling``; each K1 launch (``fp_sl``, ``fp_resid_sl``)
+counts there the angles it projects, ``fp_angles``, and its plan's angle
+groups, ``fp_groups``, so their ratio is the angles a group of K1's blocks
+shares (each group stages its own window of x).
 """
 
 from __future__ import annotations
@@ -350,6 +353,13 @@ def _p(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _count_groups(geom: Geometry, plan: FpPlan) -> None:
+    """A K1 launch's angles and its plan's groups, in the innermost open
+    span."""
+    profiling.count("fp_angles", geom.nproj)
+    profiling.count("fp_groups", plan.ng)
+
+
 def fp_sl(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
     """``A x``: (N, N, Ns) -> (Na, Nt, Ns); K1 with the epilogue off."""
     ns = x.shape[-1]
@@ -364,6 +374,7 @@ def fp_sl(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
         _p(x), _p(tab), _p(plan.table), plan.ng, plan.width, _p(ax), geom.n,
         geom.nray, geom.nproj, ns, _build.stream()), "tj_fp")
     fp_sl.launches += 1
+    _count_groups(geom, plan)
     return ax
 
 
@@ -396,6 +407,7 @@ def fp_resid_sl(x, geom: Geometry, b, ax_old, inv_row, beta):
         _p(ddsq), geom.n, geom.nray, geom.nproj, ns, _build.stream()),
         "tj_fp_resid")
     fp_resid_sl.launches += 1
+    _count_groups(geom, plan)
     return ax, resid, ddsq
 
 
