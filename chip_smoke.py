@@ -31,9 +31,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    projections, 1e-4 max|x|; the rmse after 5 sweeps within 1e-4 of the
    plain version's), with two sweeps identical and out-of-range order
    entries leaving x: the resident route on (8, 4) at 256^3 x 90 and at N
-   33, Na 7, Ns 5, on (16, 2) at 128 x 512^2 x 90 and x 77, the streaming
-   route at 8 x 544^2 x 13; each with its cluster shape, clusters, waves
-   and shared memory a block (resident), its ms a sweep over 10
+   33, Na 7, Ns 5, on (16, 2) at 128 x 512^2 x 90 and x 77, on (16, 1)
+   spilling at 8 x 544^2 x 13 and 64 x 1024^2 x 77, the streaming route
+   at 8 x 1056^2 x 13; each with its cluster shape, clusters, waves, shared
+   memory and spilled rows a block (resident), its ms a sweep over 10
    back-to-back sweeps (CUDA events) beside its bound and (resident) the
    phase cycles of the kernel's timed instantiation;
    the slab kernels K9a/K9b/K9c (and K5's right halo) on a 256^3 volume
@@ -197,11 +198,13 @@ loop, in the same way beside another tree.
     python3 chip_smoke.py --sart-times
 
 times only K8, ms a sweep over 10 back-to-back sweeps from zero on
-nanocube projections, at 128 x 512^2 x 77 and x 90, 128 x 320^2 x 77 and
-256^3 x 90, with each route and cluster shape and a hash of one sweep's
-output, in the same way beside another tree (an older tree's streaming
-sweep at 512^2 and 320^2 is then timed in the same call, and equal 256^3
-hashes show the (8, 4) sweep unchanged).
+nanocube projections, at 64 x 1024^2 x 77, 128 x 512^2 x 77 and x 90,
+128 x 320^2 x 77 and 256^3 x 90, with each route and cluster shape, the
+bound and a hash of one sweep's output (at 1024^2 also the resident
+launch and the phase cycles with the row-driven rays walked together and
+one after another), in the same way beside another tree (an older tree's streaming
+sweep at 1024^2 is then timed in the same call, and equal 256^3 and
+512^2 hashes show the (8, 4) and (16, 2) sweeps unchanged).
 
     python3 chip_smoke.py --art-times
 
@@ -235,6 +238,7 @@ import bisect
 import collections
 import contextlib
 import functools
+import inspect
 import json
 import os
 import statistics
@@ -1150,21 +1154,40 @@ def _sart_route_line(geom, ns: int, lv: dict, nnz: int, card: str) -> None:
         c = cuda_sart.resident_clusters(geom.n, geom.nray, ns)
         require((c["blocks"], c["slices"]) == lv["shape"] and c["active"] > 0,
                 f"{lv['tag']}: launch {c}")
-        launch = (f"{c['clusters']} clusters of {c['blocks']} blocks, "
-                  f"{c['slices']} slices a pixel, {c['active']} at once "
-                  f"(cudaOccupancyMaxActiveClusters), {c['waves']} waves, "
-                  f"{c['smem']} B shared memory a block")
+        launch = _launch_text(c)
     bound_ms, bound_by = bound(*sart_work(geom, ns, nnz))
     print(f"{lv['tag']}: {lv['text']}; {launch}; {sweep_ms:.4f} ms/sweep "
           f"over 10 back-to-back sweeps (CUDA events; SM clock after it, "
           f"max: {sm_clock()}), bound "
           f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
     if lv["route"] == "resident":
-        phases = cuda_sart.resident_phases(lv["x0"], *lv["args"], lv["one"],
-                                           lv["seq"])
-        print(f"  phases (the timed instantiation: clock64 cycles a step, "
-              f"mean over blocks; SM clock after it, max: {sm_clock()}): "
-              + "; ".join(
+        _print_phases(lv["x0"], (*lv["args"], lv["one"], lv["seq"]),
+                      cuda_sart.K8_SPILL[cuda_sart.K8_SHAPES.index(
+                          lv["shape"])])
+
+
+def _launch_text(c: dict) -> str:
+    """A resident launch (`cuda_sart.resident_clusters`) in words."""
+    return (f"{c['clusters']} clusters of {c['blocks']} blocks, "
+            f"{c['slices']} slices a pixel, {c['active']} at once "
+            f"(cudaOccupancyMaxActiveClusters), {c['waves']} waves, "
+            f"{c['smem']} B shared memory a block, "
+            f"{c.get('spill_rows', 0)} band rows a block in device memory")
+
+
+def _print_phases(x0, args, both: bool) -> None:
+    """Print the resident sweep's phase cycles (the timed instantiation);
+    `both`: also with the spilling shape's row-driven rays walked one
+    after another instead of together."""
+    from tomojax_torch.solvers import cuda_sart
+
+    for serial in ((False, True) if both else (False,)):
+        kw = {"serial_fp": True} if serial else {}
+        phases = cuda_sart.resident_phases(x0, *args, **kw)
+        walk = "rays one after another" if serial else "the route's FP"
+        print(f"  phases ({walk}; the timed instantiation: clock64 cycles "
+              f"a step, mean over blocks; SM clock after it, max: "
+              f"{sm_clock()}): " + "; ".join(
                   f"{kind} ({v['steps']} steps) " + ", ".join(
                       f"{name} {v[name]:.0f}" for name in cuda_sart.PHASES)
                   for kind, v in phases.items()))
@@ -1174,8 +1197,9 @@ def _check_sart(geom, ns: int, uni, report, nnz: int, card: str) -> None:
     """K8 on both routes at _sart_levels' three levels: resident on (8, 4)
     at this shape (the row's numbers) and at N 33, Na 7, Ns 5 (a ragged
     slab, the last band empty), on (16, 2) at 128 x 512^2 x 90 and x 77
-    (`haadf512`'s tilts), streaming at 8 x 544^2 x 13; each with its
-    launch and ms a sweep beside its bound."""
+    (`haadf512`'s tilts), on (16, 1) spilling at 8 x 544^2 x 13 (no row
+    spilled) and 64 x 1024^2 x 77 (`haadf1024`'s), streaming at 8 x
+    1056^2 x 13; each with its launch and ms a sweep beside its bound."""
     from tomojax_torch.geometry import Geometry
     from tomojax_torch.projector.oracle import joseph_nnz
     from tomojax_torch.solvers import cuda_sart
@@ -1190,7 +1214,8 @@ def _check_sart(geom, ns: int, uni, report, nnz: int, card: str) -> None:
            time_ms(lambda: sweep(*args), 5), time_ms(lambda: plain(*args), 2),
            f" (resident route; {lv['text']})", work=sart_work(geom, ns, nnz))
     for n2, na2, ns2, want in ((33, 7, 5, (8, 4)), (512, 90, 128, (16, 2)),
-                               (512, 77, 128, (16, 2)), (544, 13, 8, None)):
+                               (512, 77, 128, (16, 2)), (544, 13, 8, (16, 1)),
+                               (1024, 77, 64, (16, 1)), (1056, 13, 8, None)):
         g2 = Geometry.make(n2, np.deg2rad(np.linspace(-76, 76, na2)))
         lv2 = _sart_levels(g2, ns2, uni(n2, n2, ns2))
         require(lv2["shape"] == want, f"K8 at {n2}^2: shape {lv2['shape']}")
@@ -3808,13 +3833,15 @@ def sart_times_main() -> int:
         cuda_sart, make_sart_weights, make_system, to_sl,
     )
 
+    from tomojax_torch.projector.oracle import joseph_nnz
+
     card = phase_device()
     phase_build()
     dev = torch.device("cuda")
     shape_of = getattr(cuda_sart, "sart_shape", lambda n, nt: None)
     times = {}
-    for ns, n, na in ((128, 512, 77), (128, 512, 90), (128, 320, 77),
-                      (256, 256, 90)):
+    for ns, n, na in ((64, 1024, 77), (128, 512, 77), (128, 512, 90),
+                      (128, 320, 77), (256, 256, 90)):
         geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)))
         sysd = make_system(geom, dev)
         vol = to_sl(torch.from_numpy(nanocube_phantom(ns, n)).to(dev))
@@ -3827,13 +3854,22 @@ def sart_times_main() -> int:
         ms = batch_ms(lambda: cuda_sart.sart_sweep_sl(*args), 10, dev)
         route = cuda_sart.sart_route(n, geom.nray)
         shape = shape_of(n, geom.nray)
+        bound_ms, bound_by = bound(*sart_work(geom, ns,
+                                              joseph_nnz(geom, "cuda")))
         key = f"{ns}x{n}^2x{na}"
         times[key] = {"ms": ms, "route": route, "shape": shape,
-                      "sha256": digest}
+                      "sha256": digest, "bound_ms": bound_ms}
         print(f"K8 [{ROOT.name}] at {ns} x {n}^2 x {na}: {route}"
               f"{'' if shape is None else f' {shape}'} {ms:.4f} ms/sweep "
-              f"over 10 back-to-back sweeps (CUDA events), output sha256 "
-              f"{digest}; SM clock after it, max: {sm_clock()} [{card}]")
+              f"over 10 back-to-back sweeps (CUDA events), bound "
+              f"{bound_ms:.4f} ms ({bound_by}), output sha256 {digest}; SM "
+              f"clock after it, max: {sm_clock()} [{card}]")
+        if n == 1024 and route == "resident":
+            c = cuda_sart.resident_clusters(n, geom.nray, ns)
+            times[key]["launch"] = c
+            print(f"  launch: {_launch_text(c)}")
+            _print_phases(x0, args[1:], "serial_fp" in inspect.signature(
+                cuda_sart.resident_phases).parameters)
         del sysd, vol, x0, args, out
     print(json.dumps({"sart_ms": times, "tree": str(ROOT)}))
     return 0

@@ -1,8 +1,9 @@
 """The 1024-class deployment `haadf1024` and its cells `haadf1024.fista`
 and `haadf1024.asd_pocs`.
 
-On the CPU: K8's route at the cells' planes (streaming at 1024², resident
-at 512² and 256²); K1's plan at 77 tilts (31 angle groups at 1024², 10 at
+On the CPU: K8's route at the cells' planes (resident at all three: the
+spilling (16, 1) shape at 1024², 13 band rows a block in device memory);
+K1's plan at 77 tilts (31 angle groups at 1024², 10 at
 256²); the counters `fp_angles` and `fp_groups` that each K1 launch makes
 in the innermost open span, against a stand-in for the kernel library on
 the CUDA branch of `fp_sl` and `fp_resid_sl`, and their absence off the
@@ -59,17 +60,24 @@ def root(tmp_path_factory):
 # ------------------------------------------------- the route and the plan
 
 
-@pytest.mark.parametrize("n, route, shape", [(1024, "streaming", None),
-                                             (512, "resident", (16, 2)),
-                                             (256, "resident", (8, 4))])
-def test_k8_route_at_the_cells_planes(n, route, shape):
-    """No cluster shape holds a 1024² plane's share (825,344 B at (16, 2)
-    against 227 KB), so K8 streams there."""
-    assert cuda_sart.sart_route(n, n) == route
+@pytest.mark.parametrize("n, shape, spilled", [(1024, (16, 1), 13),
+                                              (512, (16, 2), 0),
+                                              (256, (8, 4), 0)])
+def test_k8_route_at_the_cells_planes(n, shape, spilled):
+    """No staged cluster shape holds a 1024² plane's share (825,344 B at
+    (16, 2) against 227 KB), so K8 runs the spilling (16, 1) shape there:
+    51 band rows a block in shared memory (230,192 B), 13 in device
+    memory."""
+    assert cuda_sart.sart_route(n, n) == "resident"
     assert cuda_sart.sart_shape(n, n) == shape
-    fits = (cuda_sart.resident_smem_bytes(n, n, 16, 2)
+    assert cuda_sart.route_spill_rows(n, n) == spilled
+    staged = (cuda_sart.resident_smem_bytes(n, n, 16, 2)
+              <= cuda_sart.RESIDENT_SMEM_MAX)
+    assert staged is (n <= 512)
+    spill = cuda_sart.K8_SPILL[cuda_sart.K8_SHAPES.index(shape)]
+    assert spill is (n == 1024)
+    assert (cuda_sart.resident_smem_bytes(n, n, *shape, spill)
             <= cuda_sart.RESIDENT_SMEM_MAX)
-    assert fits is (route == "resident")
 
 
 @pytest.mark.parametrize("n, groups", [(1024, 31), (512, 17), (256, 10)])
@@ -393,15 +401,26 @@ def test_fista_at_1024_planes_matches_the_reference_on_card():
 @pytest.mark.cuda
 def test_asd_pocs_at_1024_planes_matches_the_reference_on_card():
     """TomoTorch.asd_pocs (4 iterations) at 8 x 1024^2 x 77: K8 on its
-    streaming route, 2 launches a tilt step."""
+    spilling (16, 1) shape, 1 launch a sweep, 13 band rows a block in
+    device memory as the traced spans count them."""
     from tomojax_torch import TomoTorch
 
     cfg, inp, dev = _card_inputs(8, "asd_pocs", 4)
+    assert cuda_sart.sart_shape(1024, 1024) == (16, 1)
+    profiling.recorded().clear()
     before = cuda_sart.sart_sweep_sl.launches
-    tomo = TomoTorch(inp["angles"], inp["series"], device=dev)
-    tomo.asd_pocs(**cfg["solvers"]["asd_pocs"])
-    prog = {"recon": tomo.get_recon(), "dd_vec": np.asarray(tomo.dd_vec),
-            "tv_vec": np.asarray(tomo.tv_vec)}
-    assert cuda_sart.sart_sweep_sl.launches == before + 4 * 2 * 77
+    with profile(activities=[ProfilerActivity.CPU]):
+        tomo = TomoTorch(inp["angles"], inp["series"], device=dev)
+        tomo.asd_pocs(**cfg["solvers"]["asd_pocs"])
+        prog = {"recon": tomo.get_recon(),
+                "dd_vec": np.asarray(tomo.dd_vec),
+                "tv_vec": np.asarray(tomo.tv_vec)}
+    spans = [s for s in profiling.recorded().spans
+             if s.name == "solvers.sart"]
+    profiling.recorded().clear()
+    assert cuda_sart.sart_sweep_sl.launches == before + 4 * 1
+    assert len(spans) == 4
+    assert [s.counts["sart_launches"] for s in spans] == [1] * 4
+    assert [s.counts["sart_spill_rows"] for s in spans] == [13] * 4
     _against_reference(cfg, inp, dev, prog, "asd_pocs",
                        "haadf1024.asd_pocs")

@@ -62,14 +62,16 @@ def test_route_at_the_cells_planes(n, shape):
 
 class _FakeLib:
     """Stands in for the kernel library: records each tj_sart_sweep call's
-    steps and whether it was handed a residual plane, launches nothing."""
+    steps and whether it was handed a scratch (the streaming route's
+    residual plane or the spilling shape's band rows), launches
+    nothing."""
 
     def __init__(self):
         self.calls = []
 
     def tj_sart_sweep(self, *args):
         # x, fp_tab, bp_tab, b, inv_row, inv_col_a, beta, order, steps,
-        # resid, out, n, nt, na, ns, stream
+        # scratch, out, n, nt, na, ns, stream
         self.calls.append((args[8], args[9] is not None))
         return 0
 
@@ -104,28 +106,33 @@ def _profiled(fn):
     return spans
 
 
-@pytest.mark.parametrize("n, steps, want", [(544, 5, 10), (544, 3, 6),
-                                            (256, 5, 1), (512, 5, 1),
-                                            (512, 3, 1)])
+@pytest.mark.parametrize("n, steps, want, spilled",
+                         [(1056, 5, 10, 0), (1056, 3, 6, 0), (256, 5, 1, 0),
+                          (512, 5, 1, 0), (512, 3, 1, 0), (544, 5, 1, 0),
+                          (1024, 5, 1, 13), (1024, 3, 1, 13)])
 def test_a_sweep_counts_its_launches_in_its_span(card_branch, n, steps,
-                                                 want):
-    """1 launch a sweep on either resident shape (N <= 528), 2 a step
-    streaming; only the streaming route is handed a residual plane."""
+                                                 want, spilled):
+    """1 launch a sweep on every resident shape (N <= 1052), 2 a step
+    streaming; the streaming route is handed a residual plane and the
+    spilling shape, where rows spill (N >= 919), its band rows; the span
+    counts the rows a block spills."""
     args = _operands(n, steps=steps)
     before = cuda_sart.sart_sweep_sl.launches
     spans = _profiled(lambda: cuda_sart.sart_sweep_sl(*args))
-    assert card_branch.calls == [(steps, n > 528)]
+    assert card_branch.calls == [(steps, n > 1052 or spilled > 0)]
     sart = [s for s in spans if s.name == "solvers.sart"]
     assert len(sart) == 1
     # a first sweep at a geometry also counts the angle tables' build
     assert sart[0].counts["sart_launches"] == want
-    assert set(sart[0].counts) <= {"sart_launches", "plan_builds"}
+    assert sart[0].counts["sart_spill_rows"] == spilled
+    assert set(sart[0].counts) <= {"sart_launches", "sart_spill_rows",
+                                   "plan_builds"}
     assert sum(s.counts.get("sart_launches", 0) for s in spans) == want
     assert cuda_sart.sart_sweep_sl.launches == before + want
 
 
 def test_off_the_profiler_nothing_is_recorded(card_branch):
-    args = _operands(544)
+    args = _operands(1056)
     profiling.recorded().clear()
     before = cuda_sart.sart_sweep_sl.launches
     cuda_sart.sart_sweep_sl(*args)
@@ -320,9 +327,16 @@ def _small_job_on_card(n: int, shape, launches_a_sweep: int) -> None:
 
 @pytest.mark.cuda
 def test_asd_pocs_on_the_streaming_route_matches_the_reference_on_card():
-    """At 8 x 544^2 x 13, above every resident shape: 2 launches a tilt
+    """At 8 x 1056^2 x 13, above every resident shape: 2 launches a tilt
     step."""
-    _small_job_on_card(544, None, 2 * 13)
+    _small_job_on_card(1056, None, 2 * 13)
+
+
+@pytest.mark.cuda
+def test_asd_pocs_on_the_spilling_16_1_route_matches_the_reference_on_card():
+    """At 8 x 1024^2 x 13, on K8's (16, 1) shape with 13 band rows a block
+    in device memory: 1 launch a sweep."""
+    _small_job_on_card(1024, (16, 1), 1)
 
 
 @pytest.mark.cuda

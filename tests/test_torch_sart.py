@@ -210,9 +210,12 @@ def test_sart_routes_match_plain_on_card():
     """Both routes of csrc/sart.cu against the plain version: resident
     (8, 4) at N 33, Na 7, Ns 5 (a ragged slab, empty last band) and N 40
     with 5 extra bins, resident (16, 2) at N 320, Ns 3 (an odd slab),
-    streaming at N 544; the C route is the Python helper's (at the turns
-    288/289 and 528/529 too), an out-of-range order entry leaves x as it
-    was, and two runs agree bit for bit (no float atomics)."""
+    resident (16, 1) in the spilling layout at N 544 (no row spilled) and
+    N 1024 (13 rows a block in device memory), streaming at N 1056; the C
+    route and spilled rows are the Python helpers' (at the turns 288/289,
+    528/529, 918/919 and 1052/1053 too), an out-of-range order entry
+    leaves x as it was, and two runs agree bit for bit (no float atomics),
+    as does the spilling shape's FP walked one round after another."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from tomojax_torch import _build
@@ -223,15 +226,20 @@ def test_sart_routes_match_plain_on_card():
     lib = _build.lib()
     for n, nt in ((16, 16), (256, 256), (256, 263), (288, 288), (289, 289),
                   (320, 320), (512, 512), (528, 528), (529, 529),
-                  (544, 544)):
+                  (544, 544), (918, 918), (919, 919), (1024, 1024),
+                  (1024, 1031), (1052, 1052), (1053, 1053), (1056, 1056)):
         shape = cuda_sart.sart_shape(n, nt)
         want = 0 if shape is None else cuda_sart.K8_SHAPES.index(shape) + 1
         assert lib.tj_sart_route(n, nt) == want, (n, nt)
+        assert lib.tj_sart_spill_rows(n, nt) == cuda_sart.route_spill_rows(
+            n, nt), (n, nt)
     rng = np.random.default_rng(4)
     for n, na, ns, extra, shape in ((33, 7, 5, 0, (8, 4)),
                                     (40, 15, 4, 5, (8, 4)),
                                     (320, 5, 3, 0, (16, 2)),
-                                    (544, 5, 3, 0, None)):
+                                    (544, 5, 3, 0, (16, 1)),
+                                    (1024, 5, 3, 0, (16, 1)),
+                                    (1056, 5, 3, 0, None)):
         geom = Geometry.make(n, np.deg2rad(np.linspace(-76, 76, na)),
                              nray=n + extra)
         assert cuda_sart.sart_shape(n, geom.nray) == shape
@@ -262,9 +270,16 @@ def test_sart_routes_match_plain_on_card():
         assert torch.equal(sart_sweep_sl(x, *args, skip), x)
         assert torch.equal(x, keep)
         if route == "resident":  # the timed instantiation walks every step
-            phases = cuda_sart.resident_phases(x0, *args, seq)
-            assert sum(v["steps"] for v in phases.values()) == na
-            assert all(v["FP"] > 0 for v in phases.values() if v["steps"])
+            for serial_fp in (False, True):
+                timed = torch.empty_like(x0)
+                phases = cuda_sart.resident_phases(x0, *args, seq, serial_fp,
+                                                   timed)
+                assert sum(v["steps"] for v in phases.values()) == na
+                assert all(v["FP"] > 0 for v in phases.values()
+                           if v["steps"])
+                assert torch.equal(timed, got), (shape, serial_fp)
             launch = cuda_sart.resident_clusters(n, geom.nray, ns)
             assert (launch["blocks"], launch["slices"]) == shape
             assert launch["active"] > 0
+            assert launch["spill_rows"] == cuda_sart.route_spill_rows(
+                n, geom.nray)

@@ -2,8 +2,9 @@
 
 A cluster of 8 blocks keeps 4 slices of the volume for the whole sweep
 (K8's first shape, (8, 4)), or 16 blocks keep 2 (its second, (16, 2),
-for 289 <= N <= 528), block r the rows [r R, (r + 1) R), R = ceil(N /
-blocks). Per
+for 289 <= N <= 528) or 1 (its third, (16, 1), for 529 <= N <= 1052, in
+the spilling layout: a block's band rows past `held_rows` in a device
+scratch), block r the rows [r R, (r + 1) R), R = ceil(N / blocks). Per
 step each block sums every ray's taps that lie in its own rows: a
 row-driven angle's steps over its rows, a column-driven angle's steps in
 the closed-form range of `cuda_sart.column_steps`, reading 0 for a tap row
@@ -16,7 +17,9 @@ the partials add up to the ray),
 hold a torch emulation of the sweep at 8 and 16 bands against the plain
 version `sart_sweep_sl_ref` within the bounds `chip_smoke.py` applies to
 the kernel, and check the route helper against the sources' list of
-shapes.
+shapes. For the spilling layout they show that the blocks' spilled rows
+tile the scratch, and that its FP's map of threads to (bin, phase) items
+walks every item once.
 """
 
 import re
@@ -234,8 +237,10 @@ def test_phase_timing_checks_its_operands():
 
 def test_route_depends_on_the_shape_alone():
     """The first of K8's shapes that fits: (8, 4) up to N = 288, (16, 2)
-    up to N = 528, then streaming."""
-    assert cs.K8_SHAPES == ((8, 4), (16, 2))
+    up to N = 528, (16, 1) spilling up to N = 1052 (a row spills from
+    N = 919), then streaming."""
+    assert cs.K8_SHAPES == ((8, 4), (16, 2), (16, 1))
+    assert cs.K8_SPILL == (False, False, True)
     assert cs.resident_smem_bytes(256, 256) == (32 * 260 * 16 + 32 * 256 * 4
                                                 + 256 * 68)
     assert cs.resident_smem_bytes(512, 512, 16, 2) == 216064
@@ -247,9 +252,16 @@ def test_route_depends_on_the_shape_alone():
     for n in (289, 320, 512, 528):
         assert cs.sart_shape(n, n) == (16, 2), n
         assert cs.sart_route(n, n) == "resident", n
-    for n in (529, 1024):
+    for n in (529, 544, 918, 919, 1024, 1040, 1052):
+        assert cs.sart_shape(n, n) == (16, 1), n
+        assert cs.sart_route(n, n) == "resident", n
+    for n in (1053, 1056, 2048):
         assert cs.sart_shape(n, n) is None, n
         assert cs.sart_route(n, n) == "streaming", n
+        assert cs.route_spill_rows(n, n) == 0, n
+    spilled = {528: 0, 529: 0, 918: 0, 919: 1, 1024: 13, 1052: 16}
+    for n, rows in spilled.items():
+        assert cs.route_spill_rows(n, n) == rows, n
     assert cs.sart_route(256, 256 + 7) == "resident"
     assert cs.band_rows(256) == 32 and cs.band_rows(33) == 5
     assert cs.band_rows(512, 16) == 32
@@ -259,11 +271,13 @@ def test_resident_launch_helpers_refuse_the_streaming_route():
     """`resident_clusters` and `resident_phases` take the shape that
     launches, and raise before any call into the library where K8
     streams."""
-    with pytest.raises(ValueError, match="streams at N 544"):
-        cs.resident_clusters(544, 544, 8)
-    with pytest.raises(ValueError, match="streams at N 529"):
-        cs._resident_shape(529, 529)
+    with pytest.raises(ValueError, match="streams at N 1056"):
+        cs.resident_clusters(1056, 1056, 8)
+    with pytest.raises(ValueError, match="streams at N 1053"):
+        cs._resident_shape(1053, 1053)
     assert cs._resident_shape(512, 512) == (16, 2)
+    assert cs._resident_shape(529, 529) == (16, 1)
+    assert cs._resident_shape(1024, 1024) == (16, 1)
 
 
 def test_e3_keeps_its_own_route():
@@ -272,7 +286,7 @@ def test_e3_keeps_its_own_route():
     from tomojax_torch.experiments import cuda_sart_variants as csv
 
     assert csv.e3_bands(512, 512) == 1 and csv.e3_bands(256, 256) == 8
-    for n in (16, 256, 288, 289, 320, 512, 528, 529, 1024):
+    for n in (16, 256, 288, 289, 320, 512, 528, 529, 1024, 1052, 1053):
         want = "resident" if n <= 288 else "streaming"
         assert csv.e3_route(n, n) == want, n
         assert (want == "resident") == (
@@ -306,6 +320,103 @@ def test_resident_smem_of_every_cluster_shape(n):
     assert cs.resident_smem_bytes(n, n) == cs.resident_smem_bytes(n, n, 8, 4)
 
 
+# the spilling layout at (16, 1), N = Nt: shared memory a block, rows held
+# in it and rows spilled to device memory, and whether the shape fits
+SPILL_TABLE = {
+    529: (83068, 34, 0, True),
+    544: (85408, 34, 0, True),
+    918: (232264, 58, 0, True),
+    919: (228824, 57, 1, True),
+    1024: (230192, 51, 13, True),
+    1052: (232240, 50, 16, True),
+    1053: (228232, 49, 17, False),
+}
+
+
+@pytest.mark.parametrize("n", sorted(SPILL_TABLE))
+def test_spilling_layout_of_the_16_1_shape(n):
+    """The band rows past `held_rows` go to device memory and inv_col_a is
+    not staged: 51 rows of 1028 px (209,712 B) and 20 Nt for the bins'
+    planes at 1024², 13 rows spilled; the shape fits while at most a
+    quarter of a band spills."""
+    smem, held, spilled, fits = SPILL_TABLE[n]
+    rows = cs.band_rows(n, 16)
+    assert cs.resident_smem_bytes(n, n, 16, 1, spill=True) == smem
+    assert smem == held * (n + cs.BAND_PAD) * 4 + 20 * n
+    assert smem <= cs.RESIDENT_SMEM_MAX
+    assert cs.held_rows(n, n, 16, 1) == held
+    assert rows - held == spilled
+    assert cs.shape_fits(n, n, 16, 1, spill=True) is fits
+    assert (4 * spilled <= rows) is fits
+    # one more held row would not fit beside the bins' planes
+    assert held == rows or (held + 1) * (n + cs.BAND_PAD) * 4 + 20 * n > (
+        cs.RESIDENT_SMEM_MAX)
+    # no staged layout of K8's earlier shapes holds these planes
+    assert not cs.shape_fits(n, n, 16, 2)
+    if fits:
+        assert cs.route_spill_rows(n, n) == spilled
+
+
+@pytest.mark.parametrize("n, ns", [(1024, 3), (919, 2), (1052, 1)])
+def test_spilled_rows_tile_the_scratch(n, ns):
+    """The kernel's addressing of the spilled pixels: block b (b = cluster
+    16 + rank) keeps pixel p of its band (p = (row - r0) N + column) at
+    spill[b spill_rows N + p - held N] for p >= held N. Every spilled pixel
+    of every band of every slice lands in one place of the (Ns, 16,
+    spill_rows, N) scratch, and each place holds one pixel."""
+    blocks = 16
+    rows = cs.band_rows(n, blocks)
+    held, spilled = cs.held_rows(n, n, blocks, 1), cs.route_spill_rows(n, n)
+    assert spilled == rows - held > 0
+    seen = np.zeros(ns * blocks * spilled * n, np.int64)
+    held_px = 0
+    for s in range(ns):
+        for rank in range(blocks):
+            r0, r1 = min(rank * rows, n), min((rank + 1) * rows, n)
+            px = max(r1 - r0, 0) * n
+            p = np.arange(held * n, max(px, held * n))
+            seen[(s * blocks + rank) * spilled * n + p - held * n] += 1
+            held_px += min(px, held * n)
+    assert seen.max(initial=0) <= 1
+    assert held_px + int(seen.sum()) == ns * n * n  # the plane, once
+
+
+# csrc/sart_resident.cuh R_NT and csrc/sart.cu R_CHAINS
+R_NT, R_CHAINS = 512, 4
+
+
+@pytest.mark.parametrize("nt", [1024, 1031, 544, 64])
+def test_fp_items_cover_every_bin_once(nt):
+    """The spilling shape's FP: at a row-driven angle thread tid walks, in
+    phase tid & 1, the bins j0 + 64 w + l + 16 q together (q < 4, w = tid
+    / 32, l = tid / 2 mod 16, j0 = 0, 1024, ...); at a column-driven one
+    the bin j0 + tid / 2 a round (j0 = 0, 256, ...). Either way every
+    (bin, phase) is walked once; the chains of a thread lie 16 bins apart,
+    the 16 lane pairs of a warp walk 16 neighbouring bins at each chain,
+    and a column-driven round's bins are neighbours across the block."""
+    seen = {}
+    for j0 in range(0, nt, R_CHAINS * R_NT // 2):
+        for tid in range(R_NT):
+            g = R_CHAINS * 16 * (tid >> 5) + ((tid >> 1) & 15)
+            bins = [j0 + g + 16 * q for q in range(R_CHAINS)]
+            assert np.diff(bins).tolist() == [16] * (R_CHAINS - 1)
+            for j in bins:
+                if j < nt:
+                    seen[(j, tid & 1)] = seen.get((j, tid & 1), 0) + 1
+    assert seen == {(j, ph): 1 for j in range(nt) for ph in (0, 1)}
+    seen = {}
+    for j0 in range(0, nt, R_NT // 2):
+        for tid in range(R_NT):
+            j = j0 + (tid >> 1)
+            if j < nt:
+                seen[(j, tid & 1)] = seen.get((j, tid & 1), 0) + 1
+    assert seen == {(j, ph): 1 for j in range(nt) for ph in (0, 1)}
+    for q in range(R_CHAINS):  # warp 3's lanes at chain q
+        lanes = sorted({3 * 64 + ((tid >> 1) & 15) + 16 * q
+                        for tid in range(96, 128)})
+        assert lanes == list(range(lanes[0], lanes[0] + 16))
+
+
 def test_resident_constants_match_the_source():
     """The Python mirrors of the resident sweep's constants equal the
     sources' (sart_resident.cuh for the sweep, sart.cu for K8's list of
@@ -317,17 +428,21 @@ def test_resident_constants_match_the_source():
     text = (csrc / "sart_resident.cuh").read_text()
     for name, value in (("RESIDENT_SMEM_MAX", cs.RESIDENT_SMEM_MAX),
                         ("R_PAD", cs.BAND_PAD),
-                        ("R_PHASES", len(cs.PHASES))):
+                        ("R_PHASES", len(cs.PHASES)), ("R_NT", R_NT)):
         m = re.search(rf"constexpr \w+ {name} = (\d+);", text)
         assert m is not None and int(m.group(1)) == value, name
     m = re.search(r"constexpr float STEP_SLACK = ([0-9.e+-]+)f;", text)
     assert m is not None and float(m.group(1)) == cs.STEP_SLACK
-    m = re.search(r"constexpr int R_SHAPES\[(\d+)\]\[2\] = \{(.*)\};",
+    m = re.search(r"constexpr int R_SHAPES\[(\d+)\]\[3\] = \{(.*)\};",
                   (csrc / "sart.cu").read_text())
     assert m is not None
-    listed = tuple((int(b), int(s)) for b, s in re.findall(
-        r"\{(\d+), (\d+)\}", m.group(2)))
+    rows = re.findall(r"\{(\d+), (\d+), ([01])\}", m.group(2))
+    listed = tuple((int(b), int(s)) for b, s, _ in rows)
     assert listed == cs.K8_SHAPES and int(m.group(1)) == len(listed)
+    assert tuple(f == "1" for _, _, f in rows) == cs.K8_SPILL
+    m = re.search(r"constexpr int R_CHAINS = (\d+);",
+                  (csrc / "sart.cu").read_text())
+    assert m is not None and int(m.group(1)) == R_CHAINS
     body = (csrc / "exp_sart.cu").read_text()
     for name, value in (("E_BLOCKS", cs.BAND_BLOCKS),
                         ("E_SLICES", cs.CLUSTER_SLICES)):

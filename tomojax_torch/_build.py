@@ -64,8 +64,9 @@ _SIGNATURES = {
     "tj_sart_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                       _I, _I, _I, _I, _P],
     "tj_sart_resident_phases": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                _I, _I, _I, _I, _P, _P],
+                                _P, _I, _I, _I, _I, _P, _I, _P],
     "tj_sart_route": [_I, _I],
+    "tj_sart_spill_rows": [_I, _I],
     "tj_sart_active_clusters": [_I, _I, _I, _IP],
     "tj_art_sweep": [_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P],
     "tj_art_max_n": [_I],

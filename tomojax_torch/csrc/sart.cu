@@ -19,13 +19,19 @@
 // slices (a float4 a pixel) up to N = 288 at Nt = N (130 KB of band a block
 // at N = 256), then (16, 2) = 16 blocks (a non-portable cluster) and 2
 // slices (a float2 a pixel) up to N = 528 (216,064 B a block at N = 512),
+// then (16, 1) in the spilling layout (sart_resident.cuh: inv_col_a read
+// from device memory, the band rows past held_rows kept in a device scratch
+// that L2 holds, a row-driven angle's rays walked R_CHAINS together, the
+// residual by reduce-scatter) while at most a quarter of a band spills: 13
+// of 64 rows a block at N = 1024, up to N = 1052 at Nt = N. All
 // in K8's arithmetic (K8Taps): tj::fp_ray's positions and
 // fmaf chain over the taps of each band, the partials added in rank order,
 // scaled by 1/D into (b - ax) inv_row, and K8's update chain (tj::bp_angle's
 // taps and fmaf pair, then max(x + beta inv_col_a upd, 0) with the same
 // rounding) on the local plane, in place. b[a], inv_row[a] and the band's
 // rows of inv_col_a[a] (32 KB at N = 256; 23.6 MB in all, shared by every
-// cluster in L2) are copied with cp.async while the FP runs. Only the FP's
+// cluster in L2) are copied with cp.async while the FP runs (not on the
+// spilling layout). Only the FP's
 // sum order differs from the streaming route and the plain version (the
 // ray summed as band partials added in rank order), so the resident result
 // is not bit-equal to them; the update is the streaming route's to the
@@ -33,7 +39,7 @@
 // The experiment sweeps E3/E4 (exp_sart.cu) run the same template in the
 // experiment modes, to split this route's time.
 //
-// Streaming (N above 528 at Nt = N): each step is two launches on the
+// Streaming (N above 1052 at Nt = N): each step is two launches on the
 // caller's stream,
 //   sart_fp_kernel      one thread per (bin, slice): the driving-axis walk
 //                       of K1 (tj::fp_ray) and the residual into a
@@ -190,32 +196,49 @@ struct K8Taps {
   }
 };
 
-// K8's cluster shapes, {blocks (bands) a cluster, slices a pixel}, in the
-// order the route tries them: the first that fits runs. (8, 4) for N <= 288
-// at Nt = N; (16, 2), whose bands have half the rows and pixels half the
-// slices, for 289 <= N <= 528; streaming above.
-constexpr int R_SHAPES[2][2] = {{8, 4}, {16, 2}};
+// K8's cluster shapes, {blocks (bands) a cluster, slices a pixel, the
+// spilling layout}, in the order the route tries them: the first that fits
+// runs. (8, 4) for N <= 288 at Nt = N; (16, 2), whose bands have half the
+// rows and pixels half the slices, for 289 <= N <= 528; (16, 1) spilling
+// for 529 <= N <= 1052 (no row spills up to N = 918); streaming above.
+constexpr int R_SHAPES[3][3] = {{8, 4, 0}, {16, 2, 0}, {16, 1, 1}};
 constexpr int R_NSHAPES = sizeof(R_SHAPES) / sizeof(R_SHAPES[0]);
-static_assert(R_NSHAPES == 2, "resident_sweep and tj_sart_active_clusters "
+static_assert(R_NSHAPES == 3, "resident_sweep and tj_sart_active_clusters "
                               "dispatch on every shape");
+// the spilling shape's FP: the rays of a row-driven angle a thread walks
+// together (2 Nt / R_NT = 4 rounds of (bin, phase) items at Nt = 1024)
+constexpr int R_CHAINS = 4;
 
 // 1 + the index in R_SHAPES of the shape the resident route takes at this
 // shape, or 0 where none fits (the streaming route).
 int resident_shape(int n, int nt) {
   for (int i = 0; i < R_NSHAPES; ++i) {
-    if (tj::sr::resident_fits(n, nt, R_SHAPES[i][0], R_SHAPES[i][1])) {
+    if (tj::sr::resident_fits(n, nt, R_SHAPES[i][0], R_SHAPES[i][1],
+                              R_SHAPES[i][2] != 0)) {
       return i + 1;
     }
   }
   return 0;
 }
 
-template <bool PROF>
+// The band rows a block of the route at this shape keeps in device memory
+// (the spilling shape's spill_rows; 0 on the others and streaming).
+int route_spill_rows(int n, int nt) {
+  const int shape = resident_shape(n, nt);
+  if (shape == 0 || R_SHAPES[shape - 1][2] == 0) return 0;
+  return tj::sr::spill_rows(n, nt, R_SHAPES[shape - 1][0],
+                            R_SHAPES[shape - 1][1]);
+}
+
+// CHAINS: the rays of a row-driven angle the spilling shape walks together
+// (1: one after another, for tj_sart_resident_phases' comparison).
+template <bool PROF, int CHAINS = R_CHAINS>
 int resident_sweep(int shape, const float* x, const float4* ft,
                    const float4* bt, const float* b, const float* inv_row,
                    const float* inv_col_a, const float* beta,
                    const int* order, int steps, float* out, int n, int nt,
-                   int na, int ns, long long* prof, cudaStream_t st) {
+                   int na, int ns, long long* prof, float* spill,
+                   cudaStream_t st) {
   switch (shape) {
     case 1:
       return tj::sr::resident_sweep<K8Taps, R_SHAPES[0][0], R_SHAPES[0][1],
@@ -227,6 +250,11 @@ int resident_sweep(int shape, const float* x, const float4* ft,
                                     PROF>(x, ft, bt, b, inv_row, inv_col_a,
                                           beta, order, steps, out, n, nt, na,
                                           ns, prof, K8Taps::Params{}, st);
+    case 3:
+      return tj::sr::resident_sweep<K8Taps, R_SHAPES[2][0], R_SHAPES[2][1],
+                                    PROF, true, CHAINS>(
+          x, ft, bt, b, inv_row, inv_col_a, beta, order, steps, out, n, nt,
+          na, ns, prof, K8Taps::Params{}, st, spill);
     default:
       return cudaErrorInvalidValue;
   }
@@ -237,15 +265,16 @@ int resident_sweep(int shape, const float* x, const float4* ft,
 // x (N, N, Ns) input, out (N, N, Ns) result (may not alias x); fp_tab and
 // bp_tab the (Na, 4) angle tables of cuda_joseph.angle_tables; b
 // (Na, Nt, Ns); inv_row (Na, Nt); inv_col_a (Na, N, N); beta 1 float and
-// order `steps` ints on the device; resid (Nt, Ns) floats of scratch for
-// the streaming route (unused, may be null, on the resident one). The route
-// is tj_sart_route(n, nt); a launch that fails returns its error and never
+// order `steps` ints on the device; scratch: the streaming route's (Nt, Ns)
+// residual plane, the spilling shape's (Ns, 16, tj_sart_spill_rows, N)
+// band rows, null (unused) where the route needs neither. The route is
+// tj_sart_route(n, nt); a launch that fails returns its error and never
 // takes the other route.
 TJ_API int tj_sart_sweep(const float* x, const float* fp_tab,
                          const float* bp_tab, const float* b,
                          const float* inv_row, const float* inv_col_a,
                          const float* beta, const int* order, int steps,
-                         float* resid, float* out, int n, int nt, int na,
+                         float* scratch, float* out, int n, int nt, int na,
                          int ns, void* stream) {
   if (n <= 0 || nt <= 0 || na <= 0 || ns <= 0 || steps <= 0) {
     return cudaErrorInvalidValue;
@@ -256,40 +285,55 @@ TJ_API int tj_sart_sweep(const float* x, const float* fp_tab,
   const int shape = resident_shape(n, nt);
   if (shape == 0) {
     return streaming_sweep(x, ft, bt, b, inv_row, inv_col_a, beta, order,
-                           steps, resid, out, n, nt, na, ns, st);
+                           steps, scratch, out, n, nt, na, ns, st);
   }
   return resident_sweep<false>(shape, x, ft, bt, b, inv_row, inv_col_a,
                                beta, order, steps, out, n, nt, na, ns,
-                               nullptr, st);
+                               nullptr, scratch, st);
 }
 
 // tj_sart_sweep's resident route with its phases timed, at the shape
 // tj_sart_route names: prof holds, per block (blocks a cluster, a cluster
 // per slices a pixel), {row-driven, column-driven} x {copy issue, FP, copy
 // wait + cluster barrier, residual, update, steps} int64s (clock64 cycles
-// of thread 0; the FP ends at a block barrier of its own).
+// of thread 0; the FP ends at a block barrier of its own); scratch as
+// tj_sart_sweep's. serial_fp != 0: the spilling shape's FP walks the rays
+// of a row-driven angle one after another (the other shapes always do).
 TJ_API int tj_sart_resident_phases(const float* x, const float* fp_tab,
                                    const float* bp_tab, const float* b,
                                    const float* inv_row,
                                    const float* inv_col_a, const float* beta,
-                                   const int* order, int steps, float* out,
-                                   int n, int nt, int na, int ns,
-                                   long long* prof, void* stream) {
+                                   const int* order, int steps,
+                                   float* scratch, float* out, int n, int nt,
+                                   int na, int ns, long long* prof,
+                                   int serial_fp, void* stream) {
   const int shape = n > 0 && nt > 0 ? resident_shape(n, nt) : 0;
   if (na <= 0 || ns <= 0 || steps <= 0 || shape == 0) {
     return cudaErrorInvalidValue;
   }
-  return resident_sweep<true>(
-      shape, x, reinterpret_cast<const float4*>(fp_tab),
-      reinterpret_cast<const float4*>(bp_tab), b, inv_row, inv_col_a, beta,
-      order, steps, out, n, nt, na, ns, prof,
-      static_cast<cudaStream_t>(stream));
+  const auto* ft = reinterpret_cast<const float4*>(fp_tab);
+  const auto* bt = reinterpret_cast<const float4*>(bp_tab);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (serial_fp != 0) {
+    return resident_sweep<true, 1>(shape, x, ft, bt, b, inv_row, inv_col_a,
+                                   beta, order, steps, out, n, nt, na, ns,
+                                   prof, scratch, st);
+  }
+  return resident_sweep<true>(shape, x, ft, bt, b, inv_row, inv_col_a, beta,
+                              order, steps, out, n, nt, na, ns, prof,
+                              scratch, st);
 }
 
 // The route tj_sart_sweep takes at this shape: 1 + the index in R_SHAPES
 // of its resident cluster shape, or 0 for the streaming route.
 TJ_API int tj_sart_route(int n, int nt) {
   return n > 0 && nt > 0 ? resident_shape(n, nt) : 0;
+}
+
+// The band rows a block of the route at this shape keeps in device memory:
+// the spilling shape's, 0 on the other shapes and on the streaming route.
+TJ_API int tj_sart_spill_rows(int n, int nt) {
+  return n > 0 && nt > 0 ? route_spill_rows(n, nt) : 0;
 }
 
 // *clusters: how many clusters of the resident route the card holds at
@@ -305,6 +349,9 @@ TJ_API int tj_sart_active_clusters(int n, int nt, int ns, int* clusters) {
     case 2:
       return tj::sr::active_clusters<K8Taps, R_SHAPES[1][0], R_SHAPES[1][1]>(
           n, nt, ns, clusters);
+    case 3:
+      return tj::sr::active_clusters<K8Taps, R_SHAPES[2][0], R_SHAPES[2][1],
+                                     true, R_CHAINS>(n, nt, ns, clusters);
     default:
       return cudaErrorInvalidValue;
   }

@@ -42,6 +42,29 @@
 // B at N = Nt = 512 for its (16, 2). The time
 // of a step is its FP's and update's shared-memory reads and the cluster
 // barrier; the volume is read and written once a sweep.
+//
+// The spilling layout (SPILL, one slice a pixel), for planes whose band no
+// cluster's shared memory holds: inv_col_a[a] is not staged (the update
+// reads it from device memory, coalesced; every cluster reads the same
+// plane in the same step, so L2 serves it), and a block keeps only the
+// first held_rows rows of its band in shared memory; the other spill_rows
+// rows live in device memory (a scratch of (clusters, BLOCKS, spill_rows,
+// N) pixels, each block's rows its own, small enough to stay in L2), where
+// the FP reads and the update reads and writes them. 230,192 B a block at
+// N = Nt = 1024 on 16 blocks: 51 rows held, 13 spilled. One slice a pixel
+// shares no tap arithmetic between slices, so the layout saves work where
+// it can:
+//   FP      a row-driven angle's rays all walk the band's rows: a thread
+//           walks its CHAINS rays together (fp_rows), so their loads
+//           overlap; a column-driven angle's rays have ranges of their own
+//           in the band, and only a window of bins reaches it, so they
+//           are walked a ray a lane pair, round by round (fp_column);
+//   resid   reduce-scatter: block r sums the partials of its sixteenth of
+//           the bins, and after a second cluster barrier every block copies
+//           the plane (2 Nt remote reads a block instead of BLOCKS Nt);
+//   update  R_UNROLL pixels a thread at a time, their loads from L2 first.
+// Every ray's taps, the partials' rank order and the update's rounding are
+// the staged layout's, so each sum is the same to the bit.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -65,6 +88,9 @@ constexpr float STEP_SLACK = 9.5367431640625e-07f;
 // The band's row stride is N + R_PAD pixels: the two FP threads of a ray
 // read neighbouring rows (row-driven), which then fall in other banks.
 constexpr int R_PAD = 4;
+// The spilling layout's update: pixels a thread takes at a time, their loads
+// issued before any of their arithmetic.
+constexpr int R_UNROLL = 8;
 // Phases of a step that a PROF instantiation times: the copies' issue, the
 // FP, the wait for the copies and the cluster barrier, the residual, the
 // update.
@@ -115,19 +141,57 @@ __host__ __device__ __forceinline__ int band_rows(int n, int blocks) {
   return (n + blocks - 1) / blocks;
 }
 
+// The rows of its band that a block of the spilling layout keeps in shared
+// memory: as many as fit beside its partials, residual, b[a] and
+// inv_row[a], at most the band. cuda_sart.held_rows mirrors it.
+__host__ __device__ __forceinline__ int held_rows(int n, int nt, int blocks,
+                                                  int sb) {
+  const long long px = static_cast<long long>(sizeof(float)) * sb;
+  const long long room =
+      static_cast<long long>(RESIDENT_SMEM_MAX) -
+      static_cast<long long>(nt) * (4 * px + static_cast<long long>(sizeof(float)));
+  const long long fit = room > 0 ? room / ((n + R_PAD) * px) : 0;
+  const int rows = band_rows(n, blocks);
+  return fit < rows ? static_cast<int>(fit) : rows;
+}
+
+// The rows of its band that a block of the spilling layout keeps in device
+// memory.
+__host__ __device__ __forceinline__ int spill_rows(int n, int nt, int blocks,
+                                                   int sb) {
+  return band_rows(n, blocks) - held_rows(n, nt, blocks, sb);
+}
+
 // One block's shared memory, in this order: band (R rows of N + R_PAD
 // Vec<SB>, x of its rows), partials (2 Nt Vec<SB>), the residual plane (Nt
 // Vec<SB>), b[a] at the cluster's slices (Nt Vec<SB>), the band's
-// inv_col_a[a] (R N floats), inv_row[a] (Nt floats).
+// inv_col_a[a] (R N floats), inv_row[a] (Nt floats). The spilling layout
+// holds held_rows band rows and no inv_col_a.
 // cuda_sart.resident_smem_bytes mirrors it.
-inline size_t resident_smem(int n, int nt, int blocks, int sb) {
-  const size_t rows = band_rows(n, blocks);
+inline size_t resident_smem(int n, int nt, int blocks, int sb,
+                            bool spill = false) {
   const size_t px = sizeof(float) * sb;
+  if (spill) {
+    return static_cast<size_t>(held_rows(n, nt, blocks, sb)) * (n + R_PAD) *
+               px +
+           static_cast<size_t>(nt) * (4 * px + sizeof(float));
+  }
+  const size_t rows = band_rows(n, blocks);
   return rows * (n + R_PAD) * px + rows * n * sizeof(float) +
          static_cast<size_t>(nt) * (4 * px + sizeof(float));
 }
 
-inline bool resident_fits(int n, int nt, int blocks, int sb) {
+// Whether a block fits: the staged layout's shared memory within the
+// card's; the spilling layout's held rows at least 1 and its spilled rows
+// at most a quarter of the band (a cut by design, not by measurement: on
+// 16 blocks at Nt = N it spills from N = 919 and streams above N = 1052).
+inline bool resident_fits(int n, int nt, int blocks, int sb,
+                          bool spill = false) {
+  if (spill) {
+    const int rows = band_rows(n, blocks);
+    const int held = held_rows(n, nt, blocks, sb);
+    return held > 0 && 4 * (rows - held) <= rows;
+  }
   return resident_smem(n, nt, blocks, sb) <= RESIDENT_SMEM_MAX;
 }
 
@@ -250,12 +314,104 @@ __device__ __forceinline__ Vec<SB> fp_band(const Vec<SB>* band, int rs,
   return acc;
 }
 
+// A tap of the spilling layout's band: row r of the volume at column c,
+// from shared memory for the band's first `held` rows, from the block's
+// spilled rows sp (row stride n) after them, 0 outside the band [r0, r1):
+// a predicated shared load and a predicated global one, with no branch and
+// no generic address (which costs a 64-bit address and a branch a tap).
+template <int SB>
+__device__ __forceinline__ Vec<SB> band_tap(const Vec<SB>* band, int rs,
+                                            const Vec<SB>* sp, int held,
+                                            int n, int r0, int r1, int r,
+                                            int c) {
+  const int i = r - r0;
+  const bool in = r >= r0 && r < r1;
+  Vec<SB> v = vzero<SB>();
+  if (in && i < held) v = band[i * rs + c];
+  if (in && i >= held) v = sp[(i - held) * n + c];
+  return v;
+}
+
+// The spilling layout's FP of a row-driven angle: fp_band for C rays of one
+// phase walked together (bins j[q]; the caller drops the rays of bins from
+// nt on): each step of the band's rows takes every ray's taps, so their
+// loads and adds overlap instead of one dependent chain waiting on the
+// next. Each ray takes its taps in fp_band's order, so acc[q] is fp_band's
+// to the bit. Rows from `held` on are read from the spilled rows sp.
+// ray_of(q) gives ray q's Pol::Ray.
+template <int SB, int C, class RayOf>
+__device__ __forceinline__ void fp_rows(const Vec<SB>* band, int rs,
+                                        const Vec<SB>* sp, int held,
+                                        const RayOf& ray_of, float4 t, int n,
+                                        int nt, const int (&j)[C], int ph,
+                                        int r0, int r1, Vec<SB> (&acc)[C]) {
+  const float ctr = 0.5f * static_cast<float>(n - 1);
+  const Vec<SB> zero = vzero<SB>();
+  float base[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const float tdet =
+        static_cast<float>(j[q]) - 0.5f * static_cast<float>(nt - 1);
+    base[q] = __fmul_rn(tdet, t.x);
+    acc[q] = zero;
+  }
+  const auto step = [&](const Vec<SB>* row, int k) {
+    const float coord = ctr - static_cast<float>(k);
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const float pos =
+          __fadd_rn(__fadd_rn(base[q], __fmul_rn(coord, t.y)), ctr);
+      const auto ray = ray_of(q);
+      const Tap tp = ray.template tap<true>(k, pos);
+      const Vec<SB> v0 = (tp.i0 >= 0 && tp.i0 < n) ? row[tp.i0] : zero;
+      const Vec<SB> v1 =
+          (tp.i0 + 1 >= 0 && tp.i0 + 1 < n) ? row[tp.i0 + 1] : zero;
+      ray.template add<SB>(acc[q], v0, v1, tp);
+    }
+  };
+  const int split = min(r0 + held, r1);  // the first spilled row
+  int k = r0 + ph;
+  for (; k < split; k += 2) step(band + (k - r0) * rs, k);
+  for (; k < r1; k += 2) step(sp + (k - r0 - held) * n, k);
+}
+
+// The spilling layout's FP of a column-driven angle: fp_band's column walk
+// of ray j, phase ph, with its taps by band_tap (to the bit fp_band's).
+template <int SB, class Ray>
+__device__ __forceinline__ Vec<SB> fp_column(const Vec<SB>* band, int rs,
+                                             const Vec<SB>* sp, int held,
+                                             const Ray& ray, float4 t, int n,
+                                             int nt, int j, int ph, int r0,
+                                             int r1) {
+  const float ctr = 0.5f * static_cast<float>(n - 1);
+  const float tdet =
+      static_cast<float>(j) - 0.5f * static_cast<float>(nt - 1);
+  const float u = __fsub_rn(ctr, __fmul_rn(tdet, t.x));
+  int k0, k1;
+  column_steps(u, t.y, n, nt, r0, r1, k0, k1);
+  Vec<SB> acc = vzero<SB>();
+  for (int k = k0 + ph; k < k1; k += 2) {
+    const float coord = static_cast<float>(k) - ctr;
+    const float pos = __fadd_rn(u, __fmul_rn(coord, t.y));
+    const Tap tp = ray.template tap<false>(k, pos);
+    const Vec<SB> v0 = band_tap<SB>(band, rs, sp, held, n, r0, r1, tp.i0, k);
+    const Vec<SB> v1 =
+        band_tap<SB>(band, rs, sp, held, n, r0, r1, tp.i0 + 1, k);
+    ray.template add<SB>(acc, v0, v1, tp);
+  }
+  return acc;
+}
+
 // x, b: vec (SB-slice pixels as one copy); inv_col_a: icvec (16-byte band
 // rows). PROF: thread 0 of every block adds the clock64 cycles of each
 // phase, per driving type, and the steps into prof[block][row, column]
 // [R_PHASES + 1] (a block barrier after the FP separates it from the
-// cluster barrier).
-template <class Pol, int BLOCKS, int SB, bool PROF>
+// cluster barrier). SPILL: the spilling layout, block b's spilled rows at
+// spill + b spill_rows N; CHAINS: the rays a thread walks together at a
+// row-driven angle (fp_rows); SPILL false (and CHAINS 1) is the staged
+// layout.
+template <class Pol, int BLOCKS, int SB, bool PROF, bool SPILL = false,
+          int CHAINS = 1>
 __global__ void __launch_bounds__(R_NT, 1)
 sart_resident_kernel(const float* __restrict__ x,
                      const float4* __restrict__ ftab,
@@ -267,7 +423,10 @@ sart_resident_kernel(const float* __restrict__ x,
                      const int* __restrict__ order, int steps,
                      float* __restrict__ out, int n, int nt, int na, int ns,
                      bool vec, bool icvec, long long* __restrict__ prof,
-                     const typename Pol::Params pp) {
+                     const typename Pol::Params pp,
+                     float* __restrict__ spill) {
+  static_assert(!SPILL || SB == 1, "the spilling layout: a slice a pixel");
+  static_assert(SPILL || CHAINS == 1, "chains are the spilling layout's");
   using V = Vec<SB>;
   extern __shared__ float4 rs_smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -277,17 +436,28 @@ sart_resident_kernel(const float* __restrict__ x,
   const int r1 = min(r0 + rows, n);
   const int px = max(r1 - r0, 0) * n;  // pixels this block holds
   const int rs = n + R_PAD;             // the band's row stride (pixels)
+  // band rows in shared memory; SPILL: pixels from p_held on are spilled
+  const int held = SPILL ? held_rows(n, nt, BLOCKS, SB) : rows;
+  const int p_held = held * n;
   V* band = reinterpret_cast<V*>(rs_smem4);
-  V* part = band + static_cast<size_t>(rows) * rs;  // [2][nt]
+  V* part = band + static_cast<size_t>(held) * rs;  // [2][nt]
   V* res = part + 2 * nt;
   V* bsl = res + nt;
   float* icol = reinterpret_cast<float*>(bsl + nt);
-  float* irow = icol + static_cast<size_t>(rows) * n;
+  float* irow = SPILL ? icol : icol + static_cast<size_t>(rows) * n;
+  V* sp = reinterpret_cast<V*>(spill) +
+          static_cast<size_t>(blockIdx.x) * (rows - held) * n;
   const int tid = threadIdx.x;
   const int s0 = static_cast<int>(blockIdx.x / BLOCKS) * SB;
   const int valid = ns - s0;
   const float* xs = x + static_cast<size_t>(r0) * n * ns + s0;
   for (int p = tid; p < px; p += R_NT) {
+    if constexpr (SPILL) {
+      if (p >= p_held) {
+        sp[p - p_held] = xs[static_cast<size_t>(p) * ns];
+        continue;
+      }
+    }
     copy_px<SB>(band + p / n * rs + p % n, xs + static_cast<size_t>(p) * ns,
                 x, valid, vec);
   }
@@ -335,7 +505,7 @@ sart_resident_kernel(const float* __restrict__ x,
       copy_px<SB>(bsl + j, b + (ab + j) * ns + s0, b, valid, vec);
       tj::copy4(irow + j, inv_row + ab + j, inv_row, true);
     }
-    if (px > 0) {
+    if (!SPILL && px > 0) {
       const float* ic = inv_col_a + (static_cast<size_t>(a) * n + r0) * n;
       if (icvec) {
         for (int i = 4 * tid; i < px; i += 4 * R_NT) {
@@ -357,7 +527,60 @@ sart_resident_kernel(const float* __restrict__ x,
     // thread runs the same number of rounds (the shuffle needs the warp).
     const float4 ft = ftab[a];
     V* pw = part + par * nt;
-    if constexpr (Pol::FP) {
+    if constexpr (Pol::FP && SPILL) {
+      const int ph = tid & 1;
+      // a partial of two phases, as below: lane ph 0 adds lane ph 1's
+      const auto put = [&](int j, V v, bool own) {
+        V w;
+#pragma unroll
+        for (int i = 0; i < SB; ++i) {
+          lanes<SB>(w)[i] = __shfl_xor_sync(0xffffffffu, lanes<SB>(v)[i], 1);
+        }
+        if (own && ph == 0) {
+          V s;
+#pragma unroll
+          for (int i = 0; i < SB; ++i) {
+            lanes<SB>(s)[i] = __fadd_rn(lanes<SB>(v)[i], lanes<SB>(w)[i]);
+          }
+          pw[j] = s;
+        }
+      };
+      if (ft.w != 0.f) {
+        // row-driven: every ray walks the band's rows, a thread's CHAINS
+        // rays together. A warp's rays are CHAINS 16 neighbouring bins,
+        // chain q of lane pair l bin 16 q + l, so that at each step the
+        // lanes read neighbouring bins' taps
+        const int g = CHAINS * 16 * (tid >> 5) + ((tid >> 1) & 15);
+        for (int j0 = 0; j0 < nt; j0 += CHAINS * R_NT / 2) {
+          int jq[CHAINS];
+#pragma unroll
+          for (int q = 0; q < CHAINS; ++q) jq[q] = j0 + g + 16 * q;
+          const auto ray_of = [&](int q) {
+            return typename Pol::Ray(pp, btab, a, min(jq[q], nt - 1), n, nt);
+          };
+          V v[CHAINS];
+          fp_rows<SB, CHAINS>(band, rs, sp, held, ray_of, ft, n, nt, jq, ph,
+                              r0, r1, v);
+#pragma unroll
+          for (int q = 0; q < CHAINS; ++q) put(jq[q], v[q], jq[q] < nt);
+        }
+      } else {
+        // column-driven: only a window of bins reaches the band, so a
+        // round takes R_NT / 2 neighbouring bins, one a lane pair, and the
+        // rounds spread the window over every warp (a thread's bins
+        // together would leave the warps outside the window idle)
+        for (int j0 = 0; j0 < nt; j0 += R_NT / 2) {
+          const int j = j0 + (tid >> 1);
+          V v = vzero<SB>();
+          if (j < nt) {
+            const typename Pol::Ray ray(pp, btab, a, j, n, nt);
+            v = fp_column<SB>(band, rs, sp, held, ray, ft, n, nt, j, ph, r0,
+                              r1);
+          }
+          put(j, v, j < nt);
+        }
+      }
+    } else if constexpr (Pol::FP) {
       for (int item0 = 0; item0 < 2 * nt; item0 += R_NT) {
         const int item = item0 + tid;
         const int j = item >> 1, ph = item & 1;
@@ -401,7 +624,13 @@ sart_resident_kernel(const float* __restrict__ x,
         pr[r] = cluster.map_shared_rank(pw, r);
       }
     }
-    for (int j = tid; j < nt; j += R_NT) {
+    // SPILL: block rank forms the residual of its chunk of cb bins alone,
+    // then, past a cluster barrier, every block copies the other chunks
+    // (2 Nt remote reads a block instead of BLOCKS Nt)
+    const int cb = SPILL ? (nt + BLOCKS - 1) / BLOCKS : nt;
+    const int j_lo = SPILL ? rank * cb : 0;
+    const int j_hi = SPILL ? min(j_lo + cb, nt) : nt;
+    for (int j = j_lo + tid; j < j_hi; j += R_NT) {
       V s = vzero<SB>();
       if constexpr (Pol::FP) {
         s = pr[0][j];
@@ -424,11 +653,78 @@ sart_resident_kernel(const float* __restrict__ x,
       }
       res[j] = rv;
     }
+    if constexpr (SPILL && Pol::FP) {  // the residual by reduce-scatter
+      cluster.sync();  // every chunk is in place
+      for (int j = tid; j < nt; j += R_NT) {
+        const int o = j / cb;
+        if (o != rank) res[j] = cluster.map_shared_rank(res, o)[j];
+      }
+    }
     __syncthreads();  // the residual plane is complete
     phase(3);
 
     // the update of every pixel of the band, in place
-    if constexpr (Pol::UPDATE) {
+    if constexpr (Pol::UPDATE && SPILL) {
+      // R_UNROLL pixels a thread at a time, their loads first: inv_col_a[a]'s
+      // band rows and the spilled rows come from L2, so R_UNROLL loads are
+      // in flight (a batch wholly inside the band, as every batch is where
+      // px is a multiple of R_UNROLL R_NT, checks no bound a pixel; each
+      // pixel's arithmetic stays behind its own check all the same, which
+      // keeps the compiler from sinking the loads to their uses)
+      const float* ic = inv_col_a + (static_cast<size_t>(a) * n + r0) * n;
+      int c = c_first, rr = rr_first;
+      const auto advance = [&](int& cc, int& rw) {
+        cc += c_step;
+        rw += rr_step;
+        if (cc >= n) {
+          cc -= n;
+          ++rw;
+        }
+      };
+      for (int p0 = tid; p0 < px; p0 += R_UNROLL * R_NT) {
+        const bool whole = p0 - tid + R_UNROLL * R_NT <= px;
+        float icv[R_UNROLL];
+        V xv[R_UNROLL];
+        int cl = c, rl = rr;  // the loads' walk; the arithmetic walks again
+#pragma unroll
+        for (int u = 0; u < R_UNROLL; ++u) {
+          const int p = p0 + u * R_NT;
+          if (whole || p < px) {
+            icv[u] = ic[p];
+            xv[u] = p < p_held ? band[rl * rs + cl] : sp[p - p_held];
+          }
+          advance(cl, rl);
+        }
+#pragma unroll
+        for (int u = 0; u < R_UNROLL; ++u) {
+          const int p = p0 + u * R_NT;
+          if (whole || p < px) {
+            const tj::BpTaps tp =
+                Pol::bp(pp, bt, a, r0 + rr, c, static_cast<float>(c) - ctr,
+                        ctr - static_cast<float>(r0 + rr), off, n);
+            const V zero = vzero<SB>();
+            const V v0 = (tp.j0 >= 0 && tp.j0 < nt) ? res[tp.j0] : zero;
+            const V v1 =
+                (tp.j0 + 1 >= 0 && tp.j0 + 1 < nt) ? res[tp.j0 + 1] : zero;
+            const float scale = Pol::scale(bb, bt, icv[u]);
+#pragma unroll
+            for (int i = 0; i < SB; ++i) {
+              float& xi = lanes<SB>(xv[u])[i];
+              xi = fmaxf(__fadd_rn(xi, __fmul_rn(scale, Pol::upd(
+                                                       lanes<SB>(v0)[i],
+                                                       lanes<SB>(v1)[i], tp))),
+                         0.f);
+            }
+            if (p < p_held) {
+              band[rr * rs + c] = xv[u];
+            } else {
+              sp[p - p_held] = xv[u];
+            }
+          }
+          advance(c, rr);
+        }
+      }
+    } else if constexpr (Pol::UPDATE) {
       int c = c_first, rr = rr_first;
       for (int p = tid; p < px; p += R_NT) {
         const tj::BpTaps tp =
@@ -466,6 +762,13 @@ sart_resident_kernel(const float* __restrict__ x,
   cluster.sync();
   float* os = out + static_cast<size_t>(r0) * n * ns + s0;
   for (int p = tid; p < px; p += R_NT) {
+    if constexpr (SPILL) {
+      if (p >= p_held) {
+        store_px<SB>(os + static_cast<size_t>(p) * ns, sp[p - p_held], valid,
+                     vec);
+        continue;
+      }
+    }
     store_px<SB>(os + static_cast<size_t>(p) * ns, band[p / n * rs + p % n],
                  valid, vec);
   }
@@ -481,18 +784,20 @@ sart_resident_kernel(const float* __restrict__ x,
 // clusters of BLOCKS blocks (above 8: the non-portable cluster size allowed
 // once), one cluster per SB slices. Refuses a shape whose block does not
 // fit.
-template <class Pol, int BLOCKS, int SB, bool PROF>
+template <class Pol, int BLOCKS, int SB, bool PROF, bool SPILL = false,
+          int CHAINS = 1>
 int resident_config(int n, int nt, int ns, cudaStream_t st,
                     cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   static bool opted = false;
-  const auto kernel = sart_resident_kernel<Pol, BLOCKS, SB, PROF>;
+  const auto kernel = sart_resident_kernel<Pol, BLOCKS, SB, PROF, SPILL,
+                                           CHAINS>;
   cudaFuncAttributes fa;
   int err = static_cast<int>(cudaFuncGetAttributes(&fa, kernel));
   if (err != 0) return err;
   const int limit = tj::smem_limit() - static_cast<int>(fa.sharedSizeBytes);
-  const size_t smem = resident_smem(n, nt, BLOCKS, SB);
+  const size_t smem = resident_smem(n, nt, BLOCKS, SB, SPILL);
   if (limit < 0 || smem > static_cast<size_t>(limit) ||
-      !resident_fits(n, nt, BLOCKS, SB)) {
+      !resident_fits(n, nt, BLOCKS, SB, SPILL)) {
     return cudaErrorInvalidValue;
   }
   err = tj::allow_smem(kernel, limit, &opted);
@@ -524,18 +829,24 @@ int resident_config(int n, int nt, int ns, cudaStream_t st,
 }
 
 // One sweep over order[0 .. steps) of x into out (which may not alias x).
-// A launch that fails returns its error.
-template <class Pol, int BLOCKS, int SB, bool PROF>
+// SPILL: spill holds (clusters, BLOCKS, spill_rows, N) pixels, where
+// spill_rows > 0. A launch that fails returns its error.
+template <class Pol, int BLOCKS, int SB, bool PROF, bool SPILL = false,
+          int CHAINS = 1>
 int resident_sweep(const float* x, const float4* ft, const float4* bt,
                    const float* b, const float* inv_row,
                    const float* inv_col_a, const float* beta,
                    const int* order, int steps, float* out, int n, int nt,
                    int na, int ns, long long* prof,
-                   const typename Pol::Params& pp, cudaStream_t st) {
+                   const typename Pol::Params& pp, cudaStream_t st,
+                   float* spill = nullptr) {
+  if (SPILL && spill == nullptr && spill_rows(n, nt, BLOCKS, SB) > 0) {
+    return cudaErrorInvalidValue;
+  }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  const int err = resident_config<Pol, BLOCKS, SB, PROF>(n, nt, ns, st, &cfg,
-                                                         attr);
+  const int err = resident_config<Pol, BLOCKS, SB, PROF, SPILL, CHAINS>(
+      n, nt, ns, st, &cfg, attr);
   if (err != 0) return err;
   const size_t px_bytes = sizeof(float) * SB;
   const bool vec = ns % SB == 0 && tj::aligned_to(x, px_bytes) &&
@@ -543,24 +854,25 @@ int resident_sweep(const float* x, const float4* ft, const float4* bt,
                    tj::aligned_to(out, px_bytes);
   const bool icvec = n % 4 == 0 && tj::aligned16(inv_col_a);
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, sart_resident_kernel<Pol, BLOCKS, SB, PROF>, x, ft, bt, b,
-      inv_row, inv_col_a, beta, order, steps, out, n, nt, na, ns, vec, icvec,
-      prof, pp);
+      &cfg, sart_resident_kernel<Pol, BLOCKS, SB, PROF, SPILL, CHAINS>, x, ft,
+      bt, b, inv_row, inv_col_a, beta, order, steps, out, n, nt, na, ns, vec,
+      icvec, prof, pp, spill);
   if (e != cudaSuccess) return static_cast<int>(e);
   return tj::launch_error();
 }
 
 // *clusters: how many clusters of this instantiation the card holds at
 // once (cudaOccupancyMaxActiveClusters) for a launch at this shape.
-template <class Pol, int BLOCKS, int SB>
+template <class Pol, int BLOCKS, int SB, bool SPILL = false, int CHAINS = 1>
 int active_clusters(int n, int nt, int ns, int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  const int err =
-      resident_config<Pol, BLOCKS, SB, false>(n, nt, ns, nullptr, &cfg, attr);
+  const int err = resident_config<Pol, BLOCKS, SB, false, SPILL, CHAINS>(
+      n, nt, ns, nullptr, &cfg, attr);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      clusters, sart_resident_kernel<Pol, BLOCKS, SB, false>, &cfg));
+      clusters, sart_resident_kernel<Pol, BLOCKS, SB, false, SPILL, CHAINS>,
+      &cfg));
 }
 
 }  // namespace sr
