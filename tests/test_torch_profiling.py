@@ -176,9 +176,14 @@ def test_chemical_tomo_job_span_tree_and_reads_per_iteration():
     assert _names(kids[chem.id]) == (["solvers.iteration"] * CHEM_IT
                                      + ["api.d2h"])
     assert _names(kids[fusion.id]) == ["solvers.iteration"] * FUSION_IT
+    for it in kids[chem.id][:-1]:
+        # each Poisson-ML step is the chemistry side alone
+        assert _names(kids[it.id]) == ["fusion.chem"]
     for it in kids[fusion.id]:
-        # one prox per element, then the three costs in one read
-        assert _names(kids[it.id]) == ["tv.prox", "tv.prox",
+        # the step's HAADF and chemistry sides, one prox per element, then
+        # the three costs in one read
+        assert _names(kids[it.id]) == ["fusion.haadf", "fusion.chem",
+                                       "tv.prox", "tv.prox",
                                        "solvers.read"]
         assert kids[it.id][-1].counts == {"reads": 1}
     n_it = sum(s.name == "solvers.iteration" for s in spans)

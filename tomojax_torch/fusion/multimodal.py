@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tomojax_torch import profiling
 from tomojax_torch.dist import SlabGroup, all_reduce_max, all_reduce_sum
 from tomojax_torch.fusion.sigma import sigma_apply, sigma_t_apply
 from tomojax_torch.geometry import Geometry
@@ -95,12 +96,16 @@ def make_fusion_system(n: int, haadf_angles_rad, chem_angles_rad, weights,
 
 
 def fp4d(x: torch.Tensor, sys: System) -> torch.Tensor:
-    """(Nel, N, N, Ns) -> (Nel, Na, Nt, Ns): K1 per element."""
+    """(Nel, N, N, Ns) -> (Nel, Na, Nt, Ns): K1 per element (counted in
+    ``element_launches``)."""
+    profiling.count("element_launches", x.shape[0])
     return torch.stack([fp_sl(xe, sys.geom) for xe in x])
 
 
 def bp4d(y: torch.Tensor, sys: System) -> torch.Tensor:
-    """(Nel, Na, Nt, Ns) -> (Nel, N, N, Ns): K2 per element."""
+    """(Nel, Na, Nt, Ns) -> (Nel, N, N, Ns): K2 per element (counted in
+    ``element_launches``)."""
+    profiling.count("element_launches", y.shape[0])
     return torch.stack([bp_sl(ye, sys.geom) for ye in y])
 
 
@@ -128,14 +133,18 @@ def poisson_ml_step_4d(x: torch.Tensor, b_chem: torch.Tensor,
     (multimodal.cpp:277-304): returns (x, kl_cost), the cost all-reduced
     with a group. The update of each element is K2's epilogue with y = x
     and the constant C = -lam/L_Aps, as
-    ``solvers.iterative.poisson_ml_step_sl`` runs it."""
+    ``solvers.iterative.poisson_ml_step_sl`` runs it. The step is a
+    ``fusion.chem`` span."""
     geom = fsys.chem.geom
-    ax = fp4d(x, fsys.chem)
-    ratio = (ax - b_chem) / (ax + POISSON_EPS)
-    neg = (-lam / fsys.l_aps).expand(geom.n, geom.n).contiguous()
-    x_new = torch.stack([bp_sirt_sl(r, geom, xe, neg)
-                         for r, xe in zip(ratio, x)])
-    return x_new, _sum(ax - b_chem * torch.log(ax + POISSON_EPS), group)
+    with profiling.annotate("fusion.chem"):
+        ax = fp4d(x, fsys.chem)
+        ratio = (ax - b_chem) / (ax + POISSON_EPS)
+        neg = (-lam / fsys.l_aps).expand(geom.n, geom.n).contiguous()
+        profiling.count("element_launches", x.shape[0])
+        x_new = torch.stack([bp_sirt_sl(r, geom, xe, neg)
+                             for r, xe in zip(ratio, x)])
+        cost = _sum(ax - b_chem * torch.log(ax + POISSON_EPS), group)
+    return x_new, cost
 
 
 def chemical_sirt_sweep(x: torch.Tensor, b_chem: torch.Tensor,
@@ -183,23 +192,31 @@ def data_fusion_step(x: torch.Tensor, b_haadf: torch.Tensor,
     (K8; pass sart_weights = make_sart_weights(fsys.haadf) to reuse them).
     normalize_haadf divides the HAADF step by L_ASig (the reference's
     documented deviation; default False is the reference's step).
-    lam_chem may be a 0-dim tensor on x's device."""
+    lam_chem may be a 0-dim tensor on x's device.
+    The HAADF side (h, g, the inner solve, sigma^T and the gamma chain
+    rule) is a ``fusion.haadf`` span, the chemistry side (A_c x, the
+    Poisson ratio, its backprojection) a ``fusion.chem`` span."""
     if method not in METHODS:
         raise ValueError(f"unknown fusion method {method!r}")
-    h = model_haadf(x, fsys)
-    g = fp_sl(h, fsys.haadf.geom)  # the model's projections, before the step
-    if method == "sart":
-        if sart_weights is None:
-            sart_weights = make_sart_weights(fsys.haadf)
-        u = _sart_sweeps(h, b_haadf, fsys.haadf, iter_sirt, sart_weights)
-    else:
-        u = sirt_sweep_sl(h, b_haadf, fsys.haadf, iter_sirt)
-    d_haadf = sigma_t_apply(fsys.weights, u - h, fsys.nel)
-    if fsys.gamma != 1.0:
-        d_haadf = (fsys.gamma * torch.clamp_min(x, 0.0) ** (fsys.gamma - 1.0)
-                   * d_haadf)
-    ax = fp4d(x, fsys.chem)
-    d_chem = bp4d((ax - b_chem) / (ax + POISSON_EPS), fsys.chem)
+    with profiling.annotate("fusion.haadf"):
+        h = model_haadf(x, fsys)
+        # the model's projections, before the step
+        g = fp_sl(h, fsys.haadf.geom)
+        if method == "sart":
+            if sart_weights is None:
+                sart_weights = make_sart_weights(fsys.haadf)
+            u = _sart_sweeps(h, b_haadf, fsys.haadf, iter_sirt,
+                             sart_weights)
+        else:
+            u = sirt_sweep_sl(h, b_haadf, fsys.haadf, iter_sirt)
+        d_haadf = sigma_t_apply(fsys.weights, u - h, fsys.nel)
+        if fsys.gamma != 1.0:
+            d_haadf = (fsys.gamma
+                       * torch.clamp_min(x, 0.0) ** (fsys.gamma - 1.0)
+                       * d_haadf)
+    with profiling.annotate("fusion.chem"):
+        ax = fp4d(x, fsys.chem)
+        d_chem = bp4d((ax - b_chem) / (ax + POISSON_EPS), fsys.chem)
     h_scale = lam_haadf / fsys.l_asig if normalize_haadf else lam_haadf
     x = torch.clamp_min(x - (lam_chem / fsys.l_aps) * d_chem
                         + h_scale * d_haadf, 0.0)
@@ -222,7 +239,8 @@ def data_fusion_run(x: torch.Tensor, b_haadf: torch.Tensor,
     (chemistry/reconstructor.py:206-209). lam_chem and the previous cost
     are carried as 0-dim device tensors, so the run issues no host read;
     with a group the decision compares the all-reduced HAADF costs, the
-    same on every rank.
+    same on every rank. Each iteration is a ``solvers.iteration`` span, as
+    in the host loops.
     Returns (x, metrics), metrics the (n_iter, 3) device tensor of
     (cost_haadf, cost_chem, tv) per iteration."""
     if method == "sart" and sart_weights is None:
@@ -231,14 +249,15 @@ def data_fusion_run(x: torch.Tensor, b_haadf: torch.Tensor,
     prev = torch.zeros((), dtype=F32, device=x.device)
     metrics = []
     for it in range(n_iter):
-        x, ch, cc = data_fusion_step(x, b_haadf, b_chem, fsys, lam_haadf,
-                                     lam_chem, iter_sirt, normalize_haadf,
-                                     method, sart_weights, group)
-        x, tv0 = tv_fgp_4d(x, tv_iter, lam_tv, group=group)
-        if reduce_lambda and it > 0:
-            lam_chem = torch.where(ch > prev, lam_chem * 0.95, lam_chem)
-        prev = ch
-        metrics.append(torch.stack([ch, cc, tv0]))
+        with profiling.annotate("solvers.iteration"):
+            x, ch, cc = data_fusion_step(x, b_haadf, b_chem, fsys, lam_haadf,
+                                         lam_chem, iter_sirt, normalize_haadf,
+                                         method, sart_weights, group)
+            x, tv0 = tv_fgp_4d(x, tv_iter, lam_tv, group=group)
+            if reduce_lambda and it > 0:
+                lam_chem = torch.where(ch > prev, lam_chem * 0.95, lam_chem)
+            prev = ch
+            metrics.append(torch.stack([ch, cc, tv0]))
     if not metrics:
         return x, torch.zeros((0, 3), dtype=F32, device=x.device)
     return x, torch.stack(metrics)

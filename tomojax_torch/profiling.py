@@ -27,7 +27,8 @@ throughput (counterpart of ``tomojax/profiling.py``), on
   the reference's one-line summary.
 
 The port opens spans at its layer boundaries only (``api.*``,
-``solvers.*``, ``tv.*``), never one per kernel launch. It counts
+``solvers.*``, ``tv.*``, and the two sides of a fusion step,
+``fusion.*``), never one per kernel launch. It counts
 ``reads`` (each blocking device-to-host read the api, solvers and stream
 code make, whatever the device: all go through ``tomojax_torch.host``) and
 ``plan_builds`` (the bodies of the cached per-geometry tables of
